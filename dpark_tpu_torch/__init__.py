@@ -1,0 +1,14 @@
+"""dpark_tpu_torch: the PyTorch/CUDA port of dpark_tpu.
+
+    from dpark_tpu_torch import DparkContext, Columns
+    ctx = DparkContext("gpu:8")          # 8 logical shards on one card
+    r = ctx.parallelize(Columns(keys, vals), 8).reduceByKey(add, 8)
+    r.count(); r.collect(); r.top(10, key=lambda kv: kv[1])
+
+The package imports torch, never jax, and nothing of dpark_tpu.
+"""
+
+from dpark_tpu_torch.context import DparkContext
+from dpark_tpu_torch.rdd import Columns
+
+__all__ = ["DparkContext", "Columns"]

@@ -1,0 +1,221 @@
+"""Shuffle primitives of the gpu master (port of the main-path subset of
+dpark_tpu/backend/tpu/collectives.py).
+
+The reference functions work on ONE device's block inside shard_map.
+Here every function takes the whole ``(N, cap, ...)`` batch with the
+shard axis written out, and a shard's valid rows are its first ``n[s]``
+rows (``n`` an ``(N,)`` int32 tensor) instead of a validity mask:
+
+  hash destination + histogram   K1 hash_dst_hist
+  stable partition by bucket     K2 stable_partition (also compact)
+  merge runs of equal keys       K3 reduce_by_key_compact
+  exchange among the N shards    K4 shard_exchange
+
+The multi-key stable sort (_lex_sort) and the traced segmented scan of an
+unclassified user merge (segmented_combine) stay PyTorch in this slice.
+"""
+
+import torch
+
+from dpark_tpu_torch.backend.cuda import kernels
+from dpark_tpu_torch.backend.cuda import layout
+
+
+def _sentinel(dtype):
+    """Padding key of a key column dtype: its max (ints), +inf (floats)."""
+    if dtype.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dtype).max
+
+
+def valid_rows(n, cap):
+    """(N, cap) bool: row < n[s]."""
+    return torch.arange(cap, device=n.device)[None, :] < n[:, None]
+
+
+def hash_dst_cols(key_cols, n_dst, n, r=None, want_hist=False,
+                  want_hash=False):
+    """Destination partition by portable hash over one or more int key
+    columns (HashPartitioner.get_partition of the key, or of the tuple
+    key); padding rows get n_dst.  Returns (dst, hist, hash)."""
+    r = n_dst if r is None else r
+    return kernels.hash_dst_hist(key_cols, n, r, n_dst,
+                                 want_hist=want_hist, want_hash=want_hash)
+
+
+def _lex_sort(ops, num_keys, nb0=None):
+    """Stable lexicographic sort of each shard's rows of `ops` by its
+    first num_keys operands.  Successive stable sorts compose one
+    permutation, key num_keys-1 first; every operand is gathered once.
+    With `nb0` the first key is a small int32 bucket column in
+    [0, nb0) and the last pass is K2's stable partition, which also does
+    the gather.  Returns the sorted ops (and, with nb0, the (N, nb0)
+    bucket counts as a last element)."""
+    order = None
+    last = 0 if nb0 is None else 1
+    for k in range(num_keys - 1, last - 1, -1):
+        col = ops[k] if order is None else torch.gather(ops[k], 1, order)
+        perm = torch.sort(col, dim=1, stable=True).indices
+        order = perm if order is None else torch.gather(order, 1, perm)
+    if nb0 is None:
+        return tuple(kernels.shard_rows(o, order) for o in ops)
+    bucket = ops[0] if order is None else torch.gather(ops[0], 1, order)
+    src = None if order is None else order.to(torch.int32)
+    rest = list(ops[1:])
+    out = []
+    counts = bsorted = None
+    for i in range(0, max(1, len(rest)), kernels.MAX_LEAVES):
+        part, counts, bsorted = kernels.stable_partition(
+            bucket.contiguous(), nb0, rest[i:i + kernels.MAX_LEAVES],
+            src_idx=src)
+        out.extend(part)
+    return (bsorted,) + tuple(out) + (counts,)
+
+
+def compact(leaves, mask):
+    """Move rows where mask is True to the front of each shard (stable):
+    a two-bucket K2 partition.  Returns (leaves, new counts)."""
+    bucket = (~mask).to(torch.int32)
+    out = []
+    for i in range(0, len(leaves), kernels.MAX_LEAVES):
+        part, _, _ = kernels.stable_partition(
+            bucket, 2, leaves[i:i + kernels.MAX_LEAVES])
+        out.extend(part)
+    return out, mask.sum(1).to(torch.int32)
+
+
+def _excl_offsets(counts):
+    return (torch.cumsum(counts, 1) - counts).to(torch.int32)
+
+
+def bucketize(leaves, n, n_dst, dst, hist):
+    """Sort each shard's rows by destination (padding rows, in bucket
+    n_dst, last).  Returns (sorted leaves, counts (N, n_dst), offsets)."""
+    sorted_ops = _lex_sort([dst] + list(leaves), 1, nb0=n_dst + 1)
+    counts = hist[:, :n_dst].contiguous()
+    return list(sorted_ops[1:-1]), counts, _excl_offsets(counts)
+
+
+def _starts(key_cols):
+    """(N, cap) bool: row 0, or any key column differs from the row
+    before (the run boundaries of _changed_adjacent)."""
+    start = torch.zeros(key_cols[0].shape[:2], dtype=torch.bool,
+                        device=key_cols[0].device)
+    start[:, 0] = True
+    for c in key_cols:
+        start[:, 1:] |= c[:, 1:] != c[:, :-1]
+    return start
+
+
+def segmented_combine(starts, val_leaves, merge_leaves):
+    """Inclusive segmented scan per shard: scanned[i] = the user merge
+    over its run's values from the run start through i, as log2(cap)
+    Hillis-Steele steps of the vmapped merge."""
+    vals = list(val_leaves)
+    N, cap = starts.shape
+    idx = torch.arange(cap, device=starts.device)
+    f = starts.clone()
+    d = 1
+    while d < cap:
+        prev = [torch.cat([v[:, :d], v[:, :-d]], 1) for v in vals]
+        flat = lambda xs: [x.reshape((N * cap,) + tuple(x.shape[2:]))
+                           for x in xs]
+        merged = merge_leaves(flat(prev), flat(vals))
+        upd = (~f) & (idx[None, :] >= d)
+        new = []
+        for v, m in zip(vals, merged):
+            m = m.reshape(v.shape).to(v.dtype)
+            u = upd.view(upd.shape + (1,) * (v.dim() - 2))
+            new.append(torch.where(u, m, v))
+        vals = new
+        fprev = torch.cat([f[:, :d], f[:, :-d]], 1)
+        f = f | (fprev & (idx[None, :] >= d))
+        d *= 2
+    return vals
+
+
+def _monoid_ok(monoid, val_leaves):
+    return (monoid is not None and len(val_leaves) == 1
+            and val_leaves[0].dtype in (torch.int64, torch.float64))
+
+
+def _merge_runs(key_cols, fills, val_leaves, n, merge_leaves, monoid,
+                dst_col=None, n_dst=0):
+    """K3 over rows sorted by key_cols: a classified monoid reduces in the
+    kernel; an unclassified merge runs the traced scan first and K3 keeps
+    each run's last scanned value."""
+    if _monoid_ok(monoid, val_leaves):
+        return kernels.reduce_by_key_compact(
+            key_cols, fills, val_leaves, n, monoid, dst_col, n_dst)
+    scanned = segmented_combine(_starts(key_cols), val_leaves,
+                                merge_leaves)
+    return kernels.reduce_by_key_compact(
+        key_cols, fills, [s.contiguous() for s in scanned], n, "last",
+        dst_col, n_dst)
+
+
+def bucketize_combine_keys(key_cols, val_leaves, n, n_dst, merge_leaves,
+                           monoid=None, dst=None, r=None, order_col=None):
+    """Map-side pre-combine: sort each shard's rows by (destination,
+    key columns), merge rows equal in every key column, pack.  Composite
+    keys sort by their 32-bit hash (`order_col`) instead of the n key
+    columns: the combine only needs equal keys adjacent within their
+    destination run (boundaries still compare every key column).
+    Returns (key_cols', vals', counts (N, n_dst), offsets (N, n_dst))."""
+    key_cols = list(key_cols)
+    nk = len(key_cols)
+    cap = key_cols[0].shape[1]
+    if dst is None:
+        dst, _, order_col = hash_dst_cols(key_cols, n_dst, n, r,
+                                          want_hash=nk > 1)
+    k0 = torch.where(valid_rows(n, cap), key_cols[0],
+                     _sentinel(key_cols[0].dtype))
+    ks = [k0] + key_cols[1:]
+    if nk > 1:
+        ops = [dst, order_col] + ks + list(val_leaves)
+        sorted_ops = _lex_sort(ops, 2, nb0=n_dst + 1)
+        d, ks = sorted_ops[0], list(sorted_ops[2:2 + nk])
+    else:
+        sorted_ops = _lex_sort([dst] + ks + list(val_leaves), 1 + nk,
+                               nb0=n_dst + 1)
+        d, ks = sorted_ops[0], list(sorted_ops[1:1 + nk])
+    vals = list(sorted_ops[len(sorted_ops) - 1 - len(val_leaves):-1])
+    fills = [n_dst] + [_sentinel(k.dtype) for k in ks]
+    k_out, v_out, _, counts, offsets = _merge_runs(
+        [d] + ks, fills, vals, n, merge_leaves, monoid, dst_col=0,
+        n_dst=n_dst)
+    return k_out[1:], v_out, counts, offsets
+
+
+def exchange(leaves, counts, offsets, key_index=0):
+    """All-to-all among the N shards: shard d receives bucket d of every
+    shard, source-major, padded to a fine capacity class; the key
+    column's tail holds the sentinel.  N == 1 is the identity.  Returns
+    (received leaves, recv counts (N,) int32)."""
+    N = counts.shape[0]
+    cap_out = layout.round_capacity_fine(int(counts.sum(0).max().item()))
+    k = leaves[key_index]
+    if N == 1:
+        # the stored rows are already packed: keep the received prefix
+        cap_out = min(cap_out, k.shape[1])
+        recv = counts[:, 0].contiguous()
+        out = [leaf[:, :cap_out].contiguous() for leaf in leaves]
+        out[key_index] = torch.where(valid_rows(recv, cap_out),
+                                     out[key_index], _sentinel(k.dtype))
+        return out, recv
+    return kernels.shard_exchange(leaves, counts, offsets, cap_out,
+                                  key_index, _sentinel(k.dtype))
+
+
+def segment_reduce_keys(key_cols, val_leaves, n, merge_leaves, monoid=None):
+    """Reduce side: sort each shard's received rows by the key columns
+    (padding, whose key column 0 is the sentinel, sorts last), merge rows
+    equal in every key column, pack.  Returns (key_cols', vals',
+    n_unique)."""
+    nk = len(key_cols)
+    sorted_ops = _lex_sort(list(key_cols) + list(val_leaves), nk)
+    ks, vals = list(sorted_ops[:nk]), list(sorted_ops[nk:])
+    fills = [_sentinel(k.dtype) for k in ks]
+    k_out, v_out, n_unique, _, _ = _merge_runs(
+        ks, fills, vals, n, merge_leaves, monoid)
+    return k_out, v_out, n_unique

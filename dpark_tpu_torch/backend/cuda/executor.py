@@ -1,0 +1,285 @@
+"""TorchExecutor: runs one stage's plan over N logical shards on one
+device (port of the in-core main path of
+dpark_tpu/backend/tpu/executor.py; JAXExecutor becomes TorchExecutor).
+
+A stage is: source (host ingest, or a shuffle output kept on the
+device) -> narrow ops (vmapped user functions, filters) -> either a
+result (egest, count, top, reduce) or a shuffle write (K1 destination,
+sort, K2 partition, K3 combine) kept in `shuffle_store` until the
+reduce side runs K4's exchange and the K3 merge.
+
+PyTorch runs eagerly: the reference's compiled programs (narrow,
+exchange, reduce) are plain functions here, and there is no program
+cache.  Nothing here catches a CUDA error: a failed kernel propagates.
+"""
+
+import numpy as np
+import torch
+
+from dpark_tpu_torch.backend.cuda import collectives, fuse, layout
+from dpark_tpu_torch.utils.monoid import local_reduce, monoid_identity
+
+
+def _even_ranges(n, parts):
+    base, extra = divmod(n, parts)
+    out, lo = [], 0
+    for d in range(parts):
+        hi = lo + base + (1 if d < extra else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def _reslice_parts(slices, ndev):
+    """Re-split host partitions to the shard count (shuffle-map stages
+    only: the write redistributes by key)."""
+    from dpark_tpu_torch.rdd import _ColumnarSlice
+    if slices and all(isinstance(s, _ColumnarSlice) for s in slices):
+        ncols = len(slices[0].columns)
+        cols = [np.concatenate([np.asarray(s.columns[i]) for s in slices])
+                for i in range(ncols)]
+        return [_ColumnarSlice([c[lo:hi] for c in cols])
+                for lo, hi in _even_ranges(len(cols[0]), ndev)]
+    rows = [r for s in slices for r in s]
+    return [rows[lo:hi] for lo, hi in _even_ranges(len(rows), ndev)]
+
+
+class TorchExecutor:
+    def __init__(self, ndev, device):
+        self.ndev = layout.make_mesh(ndev)
+        self.device = torch.device(device)
+        self.shuffle_store = {}       # sid -> stored map output
+
+    # ------------------------------------------------------------------
+    # running
+    # ------------------------------------------------------------------
+    def run_stage(self, plan):
+        """Run the whole stage for all shards.  Returns ("shuffle", sid),
+        ("counts", [n per shard]), ("reduced", [(value, n) per shard]) or
+        ("result", [rows per shard])."""
+        if plan.source[0] == "ingest":
+            batch = self._ingest(plan)
+        else:
+            batch = self._exchange_and_reduce(plan)
+        outs = self._run_narrow(plan, batch)
+        return self._finish_stage(plan, outs)
+
+    def _ingest(self, plan):
+        slices = plan.source[1]._slices
+        if plan.reslice:
+            slices = _reslice_parts(slices, self.ndev)
+        # a shuffle write pads with the key sentinel: a real key equal to
+        # it must take the host path (HostPath, before any device work)
+        return layout.ingest(self.ndev, self.device, slices,
+                             plan.in_treedef, plan.in_specs,
+                             key_leaf=0 if plan.epilogue else None)
+
+    def _exchange_and_reduce(self, plan):
+        """Reduce side: K4 exchange of the stored map output, then the
+        key sort and K3 merge."""
+        dep = plan.source[1]
+        store = self.shuffle_store[dep.shuffle_id]
+        leaves = store["leaves"]
+        recv, n = collectives.exchange(leaves, store["counts"],
+                                       store["offsets"])
+        nk = plan.src_nk
+        monoid = fuse.classify_merge(dep.aggregator.merge_combiners)
+        ks, vs, n_unique = collectives.segment_reduce_keys(
+            recv[:nk], recv[nk:], n, plan.src_merge, monoid=monoid)
+        return layout.Batch(plan.in_treedef, list(ks) + list(vs), n_unique)
+
+    def _epilogue_merge(self, plan):
+        """(merge_fn, monoid) of a combining shuffle write.  A classified
+        monoid stands in for an untraceable user merge only over exactly
+        one int64/float64 value leaf (the host merges whole records); with
+        neither, the write exchanges raw combiners and the host merges."""
+        dep = plan.epilogue[1]
+        nk = plan.epi_nk
+        monoid = fuse.classify_merge(dep.aggregator.merge_combiners)
+        merge_fn = fuse.probe_merge(dep.aggregator.merge_combiners,
+                                    plan.out_treedef, plan.out_specs, nk)
+        values = plan.out_specs[nk:]
+        if monoid is not None and not (
+                len(values) == 1 and np.dtype(values[0][0]) in (
+                    np.dtype(np.int64), np.dtype(np.float64))):
+            monoid = None
+        return merge_fn, monoid
+
+    def _run_narrow(self, plan, batch):
+        """Narrow ops, then the shuffle write when the stage has one.
+        Returns ("rows", Batch) or ("shuffle", counts, offsets, leaves)."""
+        lv, n = list(batch.cols), batch.counts
+        for op in plan.ops:
+            lv, n = op.apply(lv, n)
+        if plan.epilogue is None:
+            return ("rows", layout.Batch(plan.out_treedef, lv, n))
+        return ("shuffle",) + self._epilogue_block(plan, lv, n)
+
+    def _epilogue_block(self, plan, lv, n):
+        """Shuffle-write tail: K1 destinations over the logical partition
+        count r <= N, then bucketize-combine (sort, K2, K3) or, with no
+        usable merge, a plain bucketize (K2)."""
+        nk = plan.epi_nk
+        r = plan.epilogue[1].partitioner.num_partitions
+        n_dst = self.ndev
+        merge_fn, monoid = self._epilogue_merge(plan)
+        if merge_fn is not None or monoid is not None:
+            dst, _, hsh = collectives.hash_dst_cols(
+                lv[:nk], n_dst, n, r, want_hash=nk > 1)
+            ks, vs, cnts, offs = collectives.bucketize_combine_keys(
+                lv[:nk], lv[nk:], n, n_dst, merge_fn, monoid=monoid,
+                dst=dst, order_col=hsh)
+            return cnts, offs, list(ks) + list(vs)
+        dst, hist, _ = collectives.hash_dst_cols(lv[:nk], n_dst, n, r,
+                                                 want_hist=True)
+        leaves, cnts, offs = collectives.bucketize(lv, n, n_dst, dst, hist)
+        return cnts, offs, leaves
+
+    # ------------------------------------------------------------------
+    # stage results
+    # ------------------------------------------------------------------
+    def _finish_stage(self, plan, outs):
+        if outs[0] == "shuffle":
+            _, cnts, offs, leaves = outs
+            return self._register_shuffle(plan, {
+                "leaves": leaves,            # (N, cap, ...) dst-sorted
+                "counts": cnts,              # (N, N) [src, dst]
+                "offsets": offs,             # (N, N)
+                "single_map": plan.reslice,
+            })
+        batch = outs[1]
+        if plan.count_only:
+            # count() consumes cardinalities only: read the counts leaf
+            return ("counts", [int(c) for c in batch.counts.cpu()])
+        monoid = plan.reduce_monoid
+        col = batch.cols[0]
+        if (monoid is not None and len(batch.cols) == 1 and col.dim() == 2
+                # bools have no identity table; integer mul overflows
+                # where the host fold used exact Python ints
+                and (col.dtype.is_floating_point
+                     or col.dtype == torch.int64)
+                and not (monoid == "mul" and col.dtype == torch.int64)):
+            vals, lo, hi = (t.cpu().numpy() for t in
+                            self._monoid_reduce(batch, monoid))
+            counts = batch.counts.cpu().numpy()
+            intk = vals.dtype.kind == "i"
+            safe = True
+            if intk and monoid == "add":
+                # the host fold used exact Python ints: answer from the
+                # device only when the int64 sum provably cannot wrap
+                total = int(counts.sum())
+                nz = counts > 0
+                mabs = (max(abs(int(lo[nz].min())), abs(int(hi[nz].max())))
+                        if nz.any() else 0)
+                safe = total * mabs < 2 ** 62
+            if safe:
+                py = int if intk else float
+                return ("reduced", [(py(v), int(c))
+                                    for v, c in zip(vals, counts)])
+        top = plan.top_candidate
+        if top is not None:
+            kspec = fuse.classify_top_key(top[1], plan.out_treedef,
+                                          plan.out_specs)
+            if kspec is not None:
+                batch = self._device_topk(plan, batch, kspec, top[0],
+                                          top[2])
+                plan.topk_used = True
+        return ("result", layout.egest(batch))
+
+    def _device_topk(self, plan, batch, kspec, n, smallest):
+        """Per-shard top-n by the classified key: a stable sort by
+        (invalid flag, order key) keeps n rows per shard (ties resolve by
+        row order)."""
+        cap = batch.cap
+        lv = batch.cols
+        if kspec[0] == "leaf":
+            kcol = lv[kspec[1]]
+        else:
+            fn = fuse._row_fn(kspec[1], plan.out_treedef)
+            flat, nc = fuse._flat(lv)
+            with fuse.python_float_semantics():
+                (kcol,) = fuse.vmap(fn)(*flat)
+            kcol = kcol.reshape(nc)
+        # validity is the primary key: a real key equal to the extreme
+        # must never lose to padding.  Largest-first uses the order-
+        # reversing bijections -1-k (ints) and -k (floats).
+        if smallest:
+            sk = kcol
+        elif kcol.is_floating_point():
+            sk = -kcol
+        else:
+            sk = -1 - kcol
+        inval = (~collectives.valid_rows(batch.counts, cap)).to(torch.int32)
+        packed = collectives._lex_sort([inval, sk] + list(lv), 2, nb0=2)
+        keep = min(n, cap)
+        out = [leaf[:, :keep].contiguous() for leaf in packed[2:-1]]
+        new_n = torch.clamp(batch.counts, max=n).to(torch.int32)
+        return layout.Batch(batch.treedef, out, new_n)
+
+    def _monoid_reduce(self, batch, monoid):
+        """Per-shard (reduced, min, max) over the valid rows of a
+        single-scalar-leaf batch, each (N,); empty shards yield
+        identities."""
+        col = batch.cols[0]
+        dt = layout.numpy_dtype(col.dtype)
+        valid = collectives.valid_rows(batch.counts, batch.cap)
+        ident = {k: np.asarray(monoid_identity(k, dt)).item()
+                 for k in (monoid, "min", "max")}
+        masked = torch.where(valid, col, ident[monoid])
+        lo = torch.where(valid, col, ident["min"]).amin(1)
+        hi = torch.where(valid, col, ident["max"]).amax(1)
+        return local_reduce(monoid, masked, 1), lo, hi
+
+    # ------------------------------------------------------------------
+    # the shuffle store and its host export bridge
+    # ------------------------------------------------------------------
+    def _register_shuffle(self, plan, store):
+        dep = plan.epilogue[1]
+        sid = dep.shuffle_id
+        self.drop_shuffle(sid)            # a re-run replaces its output
+        store["out_treedef"] = plan.out_treedef
+        store["out_specs"] = plan.out_specs
+        store["key_cols"] = plan.epi_nk
+        store["nbytes"] = sum(int(leaf.numel() * leaf.element_size())
+                              for leaf in store["leaves"])
+        self.shuffle_store[sid] = store
+        return ("shuffle", sid)
+
+    def export_bucket(self, sid, map_id, reduce_id):
+        """Device-resident map output -> host (key, combiner) items of one
+        (map, reduce) bucket, for a host reduce stage (the HBM -> host
+        bridge)."""
+        store = self.shuffle_store.get(sid)
+        if store is None:
+            raise KeyError("no device shuffle %d" % sid)
+        counts = store["counts"].cpu().numpy()
+        offsets = store["offsets"].cpu().numpy()
+        if store["single_map"]:
+            # re-sliced input: device shard != map partition, the whole
+            # shuffle exports through map 0
+            if map_id != 0:
+                return []
+            rows = []
+            for dev in range(counts.shape[0]):
+                rows.extend(self._export_one(store, dev, reduce_id, counts,
+                                             offsets))
+            return rows
+        return self._export_one(store, map_id, reduce_id, counts, offsets)
+
+    @staticmethod
+    def _export_one(store, dev, reduce_id, counts, offsets):
+        off = int(offsets[dev, reduce_id])
+        cnt = int(counts[dev, reduce_id])
+        if not cnt:
+            return []
+        lists = [leaf[dev, off:off + cnt].cpu().numpy().tolist()
+                 for leaf in store["leaves"]]
+        treedef = store["out_treedef"]
+        return [layout.tree_unflatten(treedef, [pl[i] for pl in lists])
+                for i in range(cnt)]
+
+    def drop_shuffle(self, sid):
+        self.shuffle_store.pop(sid, None)
+
+    def stop(self):
+        self.shuffle_store.clear()

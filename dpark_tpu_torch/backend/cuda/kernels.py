@@ -1,0 +1,495 @@
+"""The hand-written CUDA kernels of the columnar shuffle path, their
+plain PyTorch versions, and the launch counters.
+
+Kernels (sources under csrc/, one shared library each):
+
+  K1 hash_dst_hist          csrc/hash_dst_hist.cu
+  K2 stable_partition       csrc/stable_partition.cu
+  K3 reduce_by_key_compact  csrc/reduce_by_key.cu
+  K4 shard_exchange         csrc/shard_exchange.cu
+
+Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
+-shared` per source, all started together, into
+``build/dpark_tpu_torch_kernels/<hash of csrc/>/`` beside the package
+(an edit to any source rebuilds); bound with ctypes, pointers as
+c_void_p, launched on ``torch.cuda.current_stream()``.  Every C entry
+returns cudaGetLastError(); the wrapper raises on a nonzero code.
+
+Dispatch: a wrapper given CUDA tensors launches its kernel (or raises);
+given CPU tensors it runs the plain version.  Nothing falls back from
+the kernel to the plain version.  ``LAUNCHES[name]`` counts kernel
+launches and nothing else.
+"""
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = {
+    "hash_dst_hist": "hash_dst_hist.cu",
+    "stable_partition": "stable_partition.cu",
+    "reduce_by_key_compact": "reduce_by_key.cu",
+    "shard_exchange": "shard_exchange.cu",
+}
+LAUNCHES = {name: 0 for name in SOURCES}
+KEY_SENTINEL = 2 ** 63 - 1
+OPS = {"add": 0, "min": 1, "max": 2, "mul": 3, "last": 4}
+MAX_LEAVES = 16
+MAX_KEYS = 6
+
+_libs = {}
+_build_lock = threading.Lock()
+build_seconds = None
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _build_dir():
+    digest = hashlib.sha1()
+    for fn in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            digest.update(fn.encode() + b"\0" + f.read())
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    return os.path.join(pkg_root, "build", "dpark_tpu_torch_kernels",
+                        digest.hexdigest()[:16])
+
+
+def _nvcc():
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build():
+    """Compile every kernel library not yet built (in parallel) and load
+    them all; returns the seconds spent.  Raises on a failed build."""
+    global build_seconds
+    with _build_lock:
+        if len(_libs) == len(SOURCES):
+            return build_seconds
+        t0 = time.perf_counter()
+        out_dir = _build_dir()
+        os.makedirs(out_dir, exist_ok=True)
+        procs = []
+        for name, src in SOURCES.items():
+            so = os.path.join(out_dir, "lib%s.so" % name)
+            if os.path.exists(so):
+                continue
+            tmp = "%s.%d.tmp" % (so, os.getpid())
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
+            procs.append((name, so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors = []
+        for name, so, tmp, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append("%s:\n%s" % (name, out.decode(errors="replace")))
+            else:
+                os.replace(tmp, so)
+        if errors:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+        for name in SOURCES:
+            _libs[name] = _bind(name, ctypes.CDLL(
+                os.path.join(out_dir, "lib%s.so" % name)))
+        build_seconds = time.perf_counter() - t0
+        return build_seconds
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+
+def _bind(name, lib):
+    if name == "hash_dst_hist":
+        fn = lib.dpk_hash_dst_hist
+        fn.argtypes = [_P, _P, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P]
+    elif name == "stable_partition":
+        fn = lib.dpk_stable_partition
+        fn.argtypes = [_P, _P, _I, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P]
+    elif name == "reduce_by_key_compact":
+        fn = lib.dpk_reduce_by_key
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                       _I, _P, _I, _L, _P, _P, _P, _P, _P, _P]
+    else:
+        fn = lib.dpk_shard_exchange
+        fn.argtypes = [_P, _P, _P, _I, _P, _P, _I, _L, _L, _I, _L, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel(name):
+    if name not in _libs:
+        build()
+    return _libs[name]
+
+
+def _check(name, rc):
+    if rc != 0:
+        raise RuntimeError("CUDA kernel %s failed to launch: error %d"
+                           % (name, rc))
+    LAUNCHES[name] += 1
+
+
+def _on_cuda(tensors):
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError("tensors on several devices: %s" % devs)
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError("unsupported device %s" % dev)
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * max(1, len(tensors)))(
+        *[t.data_ptr() for t in tensors])
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _lanes(t):
+    return math.prod(t.shape[2:])
+
+
+def _row_bytes(t):
+    return t.element_size() * _lanes(t)
+
+
+def _need(cond, msg):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cols(cols, N, cap, what):
+    for c in cols:
+        _need(c.is_contiguous() and c.dim() >= 2
+              and c.shape[0] == N and c.shape[1] == cap,
+              "%s must be contiguous (N=%d, cap=%d, ...) tensors, got %s"
+              % (what, N, cap, tuple(c.shape)))
+
+
+def shard_rows(leaf, idx):
+    """leaf[s, idx[s, j]] for a (N, cap, ...) leaf and (N, m) indices."""
+    rows = torch.arange(leaf.shape[0], device=leaf.device)[:, None]
+    return leaf[rows, idx.long()]
+
+
+def shard_bincount(vals, nb):
+    """(N, nb) int32 per-shard counts of a (N, m) int column in [0, nb)."""
+    out = torch.zeros((vals.shape[0], nb), dtype=torch.int64,
+                      device=vals.device)
+    out.scatter_add_(1, vals.long(), torch.ones_like(vals, dtype=torch.int64))
+    return out.to(torch.int32)
+
+
+# ---------------------------------------------------------------------
+# K1 hash_dst_hist
+# ---------------------------------------------------------------------
+def hash_dst_hist_plain(key_cols, n, r, n_dst, want_hist=True,
+                        want_hash=False):
+    from dpark_tpu_torch.utils.phash import phash_torch_cols
+    h = phash_torch_cols(key_cols)
+    cap = key_cols[0].shape[1]
+    valid = torch.arange(cap, device=h.device)[None, :] < n[:, None].long()
+    dst = torch.where(valid, h % r, n_dst).to(torch.int32)
+    hist = shard_bincount(dst, n_dst + 1) if want_hist else None
+    return dst, hist, (torch.where(valid, h, 0) if want_hash else None)
+
+
+def hash_dst_hist(key_cols, n, r, n_dst, want_hist=True, want_hash=False):
+    """Per-row shuffle destination (portable hash % r; n_dst on padding
+    rows) of 1-6 int key columns (N, cap), with the per-shard destination
+    histogram (N, n_dst + 1) and, on request, the raw uint32 hash as an
+    int64 column (the composite-key sort column).  Returns (dst int32,
+    hist or None, hash or None)."""
+    key_cols = list(key_cols)
+    N, cap = key_cols[0].shape[:2]
+    _check_cols(key_cols, N, cap, "key columns")
+    _need(1 <= len(key_cols) <= MAX_KEYS, "1..%d key columns" % MAX_KEYS)
+    _need(all(c.dtype in (torch.int64, torch.int32) for c in key_cols),
+          "key columns must be int32/int64")
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    if not _on_cuda(key_cols + [n]):
+        return hash_dst_hist_plain(key_cols, n, r, n_dst, want_hist,
+                                   want_hash)
+    fn = _kernel("hash_dst_hist")
+    dev = key_cols[0].device
+    dst = torch.empty((N, cap), dtype=torch.int32, device=dev)
+    hist = (torch.zeros((N, n_dst + 1), dtype=torch.int32, device=dev)
+            if want_hist else None)
+    hout = (torch.empty((N, cap), dtype=torch.int64, device=dev)
+            if want_hash else None)
+    widths = (ctypes.c_int * len(key_cols))(
+        *[c.element_size() for c in key_cols])
+    rc = fn(_ptrs(key_cols), widths, len(key_cols), n.data_ptr(), N, cap,
+            int(r), int(n_dst), dst.data_ptr(),
+            hout.data_ptr() if hout is not None else None,
+            hist.data_ptr() if hist is not None else None, _stream())
+    _check("hash_dst_hist", rc)
+    return dst, hist, hout
+
+
+# ---------------------------------------------------------------------
+# K2 stable_partition
+# ---------------------------------------------------------------------
+def stable_partition_plain(bucket, nb, leaves, src_idx=None):
+    order = torch.sort(bucket, dim=1, stable=True).indices
+    idx = order if src_idx is None else torch.gather(src_idx.long(), 1,
+                                                     order)
+    out = [shard_rows(leaf, idx) for leaf in leaves]
+    return out, shard_bincount(bucket, nb), torch.gather(bucket, 1, order)
+
+
+def stable_partition(bucket, nb, leaves, src_idx=None):
+    """Stable counting sort of each shard's rows by `bucket` ((N, cap)
+    int32 in [0, nb), nb <= 256).  Row j of the current order reads its
+    leaves from row src_idx[s, j] (identity when None), so a prior sort
+    permutation composes without its own gather.  Returns (sorted leaves,
+    counts (N, nb) int32, sorted bucket column)."""
+    leaves = list(leaves)
+    N, cap = bucket.shape
+    _need(bucket.dtype == torch.int32 and bucket.is_contiguous(),
+          "bucket must be a contiguous int32 (N, cap) tensor")
+    _check_cols(leaves, N, cap, "leaves")
+    _need(len(leaves) <= MAX_LEAVES, "at most %d leaves" % MAX_LEAVES)
+    _need(1 <= nb <= 256, "nb must be in [1, 256]")
+    extra = [src_idx] if src_idx is not None else []
+    if src_idx is not None:
+        _need(src_idx.dtype == torch.int32 and src_idx.shape == (N, cap)
+              and src_idx.is_contiguous(), "src_idx must be (N, cap) int32")
+    if not _on_cuda([bucket] + leaves + extra):
+        return stable_partition_plain(bucket, nb, leaves, src_idx)
+    fn = _kernel("stable_partition")
+    dev = bucket.device
+    out = [torch.empty_like(leaf) for leaf in leaves]
+    counts = torch.empty((N, nb), dtype=torch.int32, device=dev)
+    nblk = -(-cap // 1024)
+    scratch = torch.empty((N, nb, max(1, nblk)), dtype=torch.int32,
+                          device=dev)
+    bucket_out = torch.empty_like(bucket)
+    if cap == 0:
+        return out, torch.zeros_like(counts), bucket_out
+    rc = fn(bucket.data_ptr(),
+            src_idx.data_ptr() if src_idx is not None else None, N, cap,
+            int(nb), _ptrs(leaves), _ptrs(out),
+            (ctypes.c_int64 * max(1, len(leaves)))(
+                *[_row_bytes(leaf) for leaf in leaves]),
+            len(leaves), counts.data_ptr(), scratch.data_ptr(),
+            bucket_out.data_ptr(), _stream())
+    _check("stable_partition", rc)
+    return out, counts, bucket_out
+
+
+# ---------------------------------------------------------------------
+# K3 reduce_by_key_compact
+# ---------------------------------------------------------------------
+def _identity(op, dtype):
+    if op == "add":
+        return 0
+    if op == "mul":
+        return 1
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def reduce_by_key_compact_plain(key_cols, fills, val_leaves, n, op,
+                                dst_col=None, n_dst=0):
+    N, cap = key_cols[0].shape[:2]
+    dev = key_cols[0].device
+    idx = torch.arange(cap, device=dev)
+    valid = idx[None, :] < n[:, None].long()
+    start = torch.zeros((N, cap), dtype=torch.bool, device=dev)
+    start[:, 0] = True
+    for c in key_cols:
+        start[:, 1:] |= c[:, 1:] != c[:, :-1]
+    keep = start & valid
+    seg = torch.cumsum(keep.to(torch.int64), 1) - 1
+    n_unique = keep.sum(1).to(torch.int32)
+    pos = (torch.arange(N, device=dev)[:, None] * cap + seg)
+    tail_mask = idx[None, :] >= n_unique[:, None].long()
+    key_out = []
+    for c, fill in zip(key_cols, fills):
+        o = torch.full_like(c, 0)
+        o.view(-1)[pos[keep]] = c[keep]
+        o[tail_mask] = fill
+        key_out.append(o)
+    val_out = []
+    for v in val_leaves:
+        flat_v = v.reshape((N * cap,) + tuple(v.shape[2:]))
+        o = torch.zeros_like(flat_v)
+        if op == "last":
+            is_tail = valid.clone()
+            is_tail[:, :-1] &= ~(valid[:, 1:] & ~start[:, 1:])
+            o[pos[is_tail]] = flat_v[is_tail.view(-1)]
+        else:
+            o[pos[keep]] = torch.full((), _identity(op, v.dtype),
+                                      dtype=v.dtype, device=dev)
+            red = {"add": "sum", "mul": "prod", "min": "amin",
+                   "max": "amax"}[op]
+            src = flat_v[valid.view(-1)]
+            index = pos[valid]
+            if src.dim() > 1:
+                index = index.view((-1,) + (1,) * (src.dim() - 1)).expand(
+                    src.shape)
+            o.scatter_reduce_(0, index, src, red, include_self=True)
+        val_out.append(o.view(v.shape))
+    dcounts = doffs = None
+    if dst_col is not None:
+        d = key_out[dst_col]
+        kept_d = torch.where(tail_mask, n_dst, d.long())
+        dcounts = shard_bincount(kept_d, n_dst + 1)[:, :n_dst].contiguous()
+        doffs = (torch.cumsum(dcounts, 1) - dcounts).to(torch.int32)
+    return key_out, val_out, n_unique, dcounts, doffs
+
+
+def reduce_by_key_compact(key_cols, fills, val_leaves, n, op, dst_col=None,
+                          n_dst=0):
+    """Over rows sorted by `key_cols` ((N, cap) int32/int64, the first n[s]
+    rows of shard s valid): merge each run of rows equal in every key
+    column with `op` ("add" | "min" | "max" | "mul" over int64/float64
+    values, or "last": the run's last value, any dtype), pack one row per
+    run to the front in order, fill key tails with `fills` and value
+    tails with 0.  With `dst_col` (the index of the destination column
+    among the keys) also count kept rows per destination.  Returns
+    (key_out, val_out, n_unique (N,) int32, dcounts (N, n_dst) or None,
+    doffs (N, n_dst) or None)."""
+    key_cols, val_leaves = list(key_cols), list(val_leaves)
+    N, cap = key_cols[0].shape[:2]
+    _check_cols(key_cols, N, cap, "key columns")
+    _check_cols(val_leaves, N, cap, "value leaves")
+    _need(1 <= len(key_cols) <= MAX_KEYS and len(val_leaves) <= MAX_LEAVES,
+          "too many key or value columns")
+    _need(all(c.dim() == 2 and c.dtype in (torch.int64, torch.int32)
+              for c in key_cols), "key columns must be int32/int64 (N, cap)")
+    _need(op in OPS, "unknown op %r" % (op,))
+    if op != "last":
+        _need(all(v.dtype in (torch.int64, torch.float64)
+                  for v in val_leaves),
+              "op %s reduces int64/float64 values only" % op)
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    if not _on_cuda(key_cols + val_leaves + [n]):
+        return reduce_by_key_compact_plain(key_cols, fills, val_leaves, n,
+                                           op, dst_col, n_dst)
+    fn = _kernel("reduce_by_key_compact")
+    dev = key_cols[0].device
+    key_out = [torch.empty_like(c) for c in key_cols]
+    val_out = [torch.empty_like(v) for v in val_leaves]
+    n_unique = torch.empty((N,), dtype=torch.int32, device=dev)
+    has_dst = dst_col is not None
+    dcounts = torch.zeros((N, max(1, n_dst)), dtype=torch.int32, device=dev)
+    doffs = torch.zeros((N, max(1, n_dst)), dtype=torch.int32, device=dev)
+    seg = torch.empty((N, cap), dtype=torch.int32, device=dev)
+    blockcnt = torch.empty((N, max(1, -(-cap // 1024))), dtype=torch.int32,
+                           device=dev)
+    if cap == 0:
+        n_unique.zero_()
+    else:
+        nk, nv = len(key_cols), len(val_leaves)
+        kinds = [0 if v.dtype == torch.int64 else
+                 1 if v.dtype == torch.float64 else 2 for v in val_leaves]
+        rc = fn(_ptrs(key_cols), _ptrs(key_out),
+                (ctypes.c_int * nk)(*[c.element_size() for c in key_cols]),
+                (ctypes.c_int64 * nk)(*[int(f) for f in fills]), nk,
+                dst_col if has_dst else -1, int(n_dst),
+                _ptrs(val_leaves), _ptrs(val_out),
+                (ctypes.c_int64 * max(1, nv))(
+                    *[_row_bytes(v) for v in val_leaves]),
+                (ctypes.c_int * max(1, nv))(*kinds),
+                (ctypes.c_int64 * max(1, nv))(
+                    *[_lanes(v) for v in val_leaves]),
+                nv, OPS[op], n.data_ptr(), N, cap, n_unique.data_ptr(),
+                dcounts.data_ptr(), doffs.data_ptr(), seg.data_ptr(),
+                blockcnt.data_ptr(), _stream())
+        _check("reduce_by_key_compact", rc)
+    if not has_dst:
+        return key_out, val_out, n_unique, None, None
+    return key_out, val_out, n_unique, dcounts, doffs
+
+
+# ---------------------------------------------------------------------
+# K4 shard_exchange
+# ---------------------------------------------------------------------
+def shard_exchange_plain(leaves, counts, offsets, cap_out, key_leaf,
+                         key_fill):
+    N = counts.shape[0]
+    dev = counts.device
+    c = counts.long()
+    recv = c.sum(0)
+    incl = torch.cumsum(c, 0).t().contiguous()          # (dst, src)
+    base = incl - c.t()
+    i = torch.arange(cap_out, device=dev)
+    src = torch.searchsorted(incl, i.expand(N, cap_out).contiguous(),
+                             right=True).clamp_(max=N - 1)
+    row = (torch.gather(offsets.long().t(), 1, src) + i[None, :]
+           - torch.gather(base, 1, src))
+    valid = i[None, :] < recv[:, None]
+    row = torch.where(valid, row, 0)
+    src = torch.where(valid, src, 0)
+    out = []
+    for li, leaf in enumerate(leaves):
+        g = leaf[src, row]
+        fill = key_fill if li == key_leaf else 0
+        vmask = valid.view(valid.shape + (1,) * (g.dim() - 2))
+        out.append(torch.where(vmask, g, torch.full((), fill,
+                                                    dtype=g.dtype,
+                                                    device=dev)))
+    return out, recv.to(torch.int32)
+
+
+def shard_exchange(leaves, counts, offsets, cap_out, key_leaf=0,
+                   key_fill=KEY_SENTINEL):
+    """Ragged all-to-all among the N shards of one device: destination d
+    receives bucket d (rows offsets[s, d] .. + counts[s, d]) of every
+    source s, source-major, packed to the front of a (N, cap_out) leaf;
+    the key leaf's tail holds `key_fill`, other tails 0.  Returns
+    (received leaves, recv_counts (N,) int32)."""
+    leaves = list(leaves)
+    N, cap_in = leaves[0].shape[:2]
+    _check_cols(leaves, N, cap_in, "leaves")
+    _need(1 <= len(leaves) <= MAX_LEAVES, "1..%d leaves" % MAX_LEAVES)
+    _need(key_leaf is None or leaves[key_leaf].dtype in (torch.int64,
+                                                         torch.int32),
+          "the key leaf must be an int32/int64 column")
+    _need(counts.shape == (N, N) and offsets.shape == (N, N)
+          and counts.dtype == torch.int32 and offsets.dtype == torch.int32
+          and counts.is_contiguous() and offsets.is_contiguous(),
+          "counts/offsets must be contiguous (N, N) int32")
+    if not _on_cuda(leaves + [counts, offsets]):
+        return shard_exchange_plain(leaves, counts, offsets, cap_out,
+                                    key_leaf, key_fill)
+    fn = _kernel("shard_exchange")
+    dev = leaves[0].device
+    out = [torch.empty((N, cap_out) + tuple(leaf.shape[2:]),
+                       dtype=leaf.dtype, device=dev) for leaf in leaves]
+    recv = torch.empty((N,), dtype=torch.int32, device=dev)
+    rc = fn(_ptrs(leaves), _ptrs(out),
+            (ctypes.c_int64 * len(leaves))(*[_row_bytes(l) for l in leaves]),
+            len(leaves), counts.data_ptr(), offsets.data_ptr(), N, cap_in,
+            int(cap_out), -1 if key_leaf is None else int(key_leaf),
+            int(key_fill), recv.data_ptr(), _stream())
+    _check("shard_exchange", rc)
+    return out, recv

@@ -1,0 +1,58 @@
+"""Dependencies, the hash partitioner and the combineByKey aggregator
+(the subset of dpark_tpu/dependency.py this slice runs).  The DAG
+scheduler cuts stages on ShuffleDependency edges."""
+
+import itertools
+
+from dpark_tpu_torch.utils.phash import portable_hash
+
+
+class Dependency:
+    def __init__(self, rdd):
+        self.rdd = rdd
+
+
+class OneToOneDependency(Dependency):
+    pass
+
+
+_next_shuffle_id = itertools.count(1)
+
+
+class ShuffleDependency(Dependency):
+    """A wide edge: every child partition reads a bucket of every parent
+    partition."""
+
+    def __init__(self, rdd, aggregator, partitioner):
+        super().__init__(rdd)
+        self.shuffle_id = next(_next_shuffle_id)
+        self.aggregator = aggregator
+        self.partitioner = partitioner
+
+
+class Aggregator:
+    """combineByKey triple."""
+
+    def __init__(self, create_combiner, merge_value, merge_combiners):
+        self.create_combiner = create_combiner
+        self.merge_value = merge_value
+        self.merge_combiners = merge_combiners
+
+
+class HashPartitioner:
+    def __init__(self, partitions):
+        self.partitions = max(1, int(partitions))
+
+    @property
+    def num_partitions(self):
+        return self.partitions
+
+    def get_partition(self, key):
+        return portable_hash(key) % self.partitions
+
+    def __eq__(self, other):
+        return (isinstance(other, HashPartitioner)
+                and other.partitions == self.partitions)
+
+    def __hash__(self):
+        return self.partitions

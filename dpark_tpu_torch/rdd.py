@@ -1,0 +1,369 @@
+"""RDD graph: lazy, partitioned datasets (the subset of dpark_tpu/rdd.py
+this slice runs).
+
+Every compute() is a Python generator: the object path that the local
+master runs, and the golden model of the device path.  The gpu master
+records narrow chains as ops (backend/cuda/fuse.py) and runs them on
+tensors; compute() stays the semantic definition.
+"""
+
+import heapq
+import itertools
+
+from dpark_tpu_torch.dependency import (
+    Aggregator, HashPartitioner, OneToOneDependency, ShuffleDependency)
+
+
+class Split:
+    def __init__(self, index):
+        self.index = index
+
+
+def _identity(x):
+    return x
+
+
+class _Empty:
+    def __repr__(self):
+        return "_EMPTY"
+
+
+_EMPTY = _Empty()
+
+
+class RDD:
+    def __init__(self, ctx):
+        self.ctx = ctx
+        self.id = ctx.new_rdd_id()
+        self._splits = None
+        self.dependencies = []
+        self.partitioner = None
+
+    @property
+    def splits(self):
+        if self._splits is None:
+            self._splits = self._make_splits()
+        return self._splits
+
+    def _make_splits(self):
+        raise NotImplementedError
+
+    def compute(self, split):
+        raise NotImplementedError
+
+    def iterator(self, split):
+        return self.compute(split)
+
+    def __len__(self):
+        return len(self.splits)
+
+    def __repr__(self):
+        return "<%s %d>" % (type(self).__name__, self.id)
+
+    # -- narrow transformations -------------------------------------------
+    def map(self, f):
+        return MappedRDD(self, f)
+
+    def filter(self, f):
+        return FilteredRDD(self, f)
+
+    def mapPartitions(self, f):
+        return MapPartitionsRDD(self, f)
+
+    def mapValue(self, f):
+        return MappedValuesRDD(self, f)
+
+    mapValues = mapValue
+
+    def keyBy(self, f):
+        return KeyedRDD(self, f)
+
+    # -- wide transformations ---------------------------------------------
+    def combineByKey(self, createCombiner, mergeValue, mergeCombiners,
+                     numSplits=None):
+        num = int(numSplits) if numSplits else self.ctx.default_parallelism
+        agg = Aggregator(createCombiner, mergeValue, mergeCombiners)
+        return ShuffledRDD(self, agg, HashPartitioner(num))
+
+    def reduceByKey(self, func, numSplits=None):
+        return self.combineByKey(_identity, func, func, numSplits)
+
+    # -- actions ------------------------------------------------------------
+    def collect(self):
+        return list(itertools.chain.from_iterable(
+            self.ctx.runJob(self, _listify)))
+
+    def count(self):
+        return sum(self.ctx.runJob(self, _count_iter))
+
+    def reduce(self, f):
+        parts = [r for r in self.ctx.runJob(self, _PartReduce(f))
+                 if r is not _EMPTY]
+        if not parts:
+            raise ValueError("reduce of empty RDD")
+        out = parts[0]
+        for p in parts[1:]:
+            out = f(out, p)
+        return out
+
+    def take(self, n):
+        if n <= 0:
+            return []
+        out = []
+        nsplits = len(self.splits)
+        p = 0
+        while len(out) < n and p < nsplits:
+            # geometric ramp-up of partitions per round
+            batch = list(range(p, min(nsplits, p + max(1, p))))
+            for part in self.ctx.runJob(self, _TakeN(n - len(out)), batch):
+                out.extend(part[:n - len(out)])
+                if len(out) >= n:
+                    break
+            p = batch[-1] + 1
+        return out
+
+    def top(self, n=10, key=None, reverse=False):
+        parts = list(self.ctx.runJob(
+            self, _TopN(n, key, smallest=reverse)))
+        allv = list(itertools.chain.from_iterable(parts))
+        if reverse:
+            return heapq.nsmallest(n, allv, key)
+        return heapq.nlargest(n, allv, key)
+
+
+# ----------------------------------------------------------------------
+# per-partition functors of the actions (the gpu master recognises
+# _count_iter, _TopN and _PartReduce and answers them on the device)
+# ----------------------------------------------------------------------
+def _listify(it):
+    return list(it)
+
+
+def _count_iter(it):
+    n = 0
+    for _ in it:
+        n += 1
+    return n
+
+
+class _PartReduce:
+    def __init__(self, f):
+        self.f = f
+
+    def __call__(self, it):
+        out = _EMPTY
+        for x in it:
+            out = x if out is _EMPTY else self.f(out, x)
+        return out
+
+
+class _TakeN:
+    def __init__(self, n):
+        self.n = n
+
+    def __call__(self, it):
+        return list(itertools.islice(it, self.n))
+
+
+class _TopN:
+    def __init__(self, n, key, smallest=False):
+        self.n = n
+        self.key = key
+        self.smallest = smallest
+
+    def __call__(self, it):
+        if self.smallest:
+            return heapq.nsmallest(self.n, it, self.key)
+        return heapq.nlargest(self.n, it, self.key)
+
+
+# ----------------------------------------------------------------------
+# narrow RDDs
+# ----------------------------------------------------------------------
+class DerivedRDD(RDD):
+    """One-parent narrow RDD; shares the parent's splits."""
+
+    def __init__(self, prev):
+        super().__init__(prev.ctx)
+        self.prev = prev
+        self.dependencies = [OneToOneDependency(prev)]
+
+    def _make_splits(self):
+        return self.prev.splits
+
+
+class MappedRDD(DerivedRDD):
+    def __init__(self, prev, f):
+        super().__init__(prev)
+        self.f = f
+
+    def compute(self, split):
+        return map(self.f, self.prev.iterator(split))
+
+
+class FilteredRDD(DerivedRDD):
+    def __init__(self, prev, f):
+        super().__init__(prev)
+        self.f = f
+
+    def compute(self, split):
+        return filter(self.f, self.prev.iterator(split))
+
+
+class MapPartitionsRDD(DerivedRDD):
+    def __init__(self, prev, f):
+        super().__init__(prev)
+        self.f = f
+
+    def compute(self, split):
+        return self.f(self.prev.iterator(split))
+
+
+class MappedValuesRDD(DerivedRDD):
+    def __init__(self, prev, f):
+        super().__init__(prev)
+        self.f = f
+        self.partitioner = prev.partitioner
+
+    def compute(self, split):
+        f = self.f
+        return ((k, f(v)) for k, v in self.prev.iterator(split))
+
+
+class KeyedRDD(DerivedRDD):
+    def __init__(self, prev, f):
+        super().__init__(prev)
+        self.f = f
+
+    def compute(self, split):
+        f = self.f
+        return ((f(x), x) for x in self.prev.iterator(split))
+
+
+# ----------------------------------------------------------------------
+# the shuffle
+# ----------------------------------------------------------------------
+class ShuffledRDD(RDD):
+    """Reduce side of a hash shuffle: compute() fetches every map
+    output's bucket for its partition and merges combiners (the gpu
+    master replaces this with the device exchange and K3 merge)."""
+
+    def __init__(self, parent, aggregator, partitioner):
+        super().__init__(parent.ctx)
+        self.parent = parent
+        self.aggregator = aggregator
+        self.partitioner = partitioner
+        self.dep = ShuffleDependency(parent, aggregator, partitioner)
+        self.dependencies = [self.dep]
+
+    def _make_splits(self):
+        return [Split(i) for i in range(self.partitioner.num_partitions)]
+
+    def compute(self, split):
+        merge = self.aggregator.merge_combiners
+        combined = {}
+        for k, c in self.ctx.bucket_store.fetch(self.dep.shuffle_id,
+                                                split.index):
+            if k in combined:
+                combined[k] = merge(combined[k], c)
+            else:
+                combined[k] = c
+        return iter(combined.items())
+
+
+# ----------------------------------------------------------------------
+# the in-memory source
+# ----------------------------------------------------------------------
+class ParallelSplit(Split):
+    def __init__(self, index, values):
+        super().__init__(index)
+        self.values = values
+
+
+class _ColumnarSlice:
+    """One partition's data held as numpy column arrays (ingested to the
+    device as tensors; row tuples materialize lazily on the object
+    path)."""
+
+    def __init__(self, columns):
+        self.columns = columns
+
+    def __len__(self):
+        return len(self.columns[0]) if self.columns else 0
+
+    def __bool__(self):
+        return len(self) > 0
+
+    def __getitem__(self, i):
+        row = tuple(c[i] for c in self.columns)
+        return row[0] if len(row) == 1 else row
+
+    def __iter__(self):
+        # tolist() in bounded chunks: a take over a huge column must not
+        # materialize the whole slice as Python objects
+        chunk = 1 << 16
+        n = len(self)
+        if len(self.columns) == 1:
+            col = self.columns[0]
+            for off in range(0, n, chunk):
+                yield from col[off:off + chunk].tolist()
+            return
+        for off in range(0, n, chunk):
+            yield from zip(*(c[off:off + chunk].tolist()
+                             for c in self.columns))
+
+
+class Columns:
+    """Explicit columnar input for parallelize: each argument is one 1-D
+    column array; records are row tuples across the columns.
+
+        ctx.parallelize(Columns(keys, values), n)
+    """
+
+    def __init__(self, *arrays):
+        import numpy as np
+        self.arrays = [np.ascontiguousarray(a) for a in arrays]
+        if not self.arrays:
+            raise ValueError("Columns needs at least one array")
+        if any(a.ndim != 1 for a in self.arrays):
+            raise ValueError("Columns arrays must be 1-D")
+        if len({len(a) for a in self.arrays}) != 1:
+            raise ValueError("Columns arrays must have equal length")
+
+
+def _as_columns(seq):
+    import numpy as np
+    if isinstance(seq, Columns):
+        return list(seq.arrays)
+    if isinstance(seq, np.ndarray) and seq.ndim == 1:
+        return [seq]
+    return None
+
+
+class ParallelCollection(RDD):
+    """In-memory sequence split into `num_slices`; Columns input stays
+    columnar."""
+
+    def __init__(self, ctx, seq, num_slices=None):
+        super().__init__(ctx)
+        cols = _as_columns(seq)
+        if cols is not None:
+            total = len(cols[0])
+            n = num_slices or ctx.default_parallelism
+            n = max(1, min(n, total) if total else 1)
+            self._slices = [
+                _ColumnarSlice([c[total * i // n: total * (i + 1) // n]
+                                for c in cols])
+                for i in range(n)]
+            return
+        seq = list(seq)
+        n = num_slices or ctx.default_parallelism
+        n = max(1, min(n, len(seq)) if seq else 1)
+        self._slices = [seq[len(seq) * i // n: len(seq) * (i + 1) // n]
+                        for i in range(n)]
+
+    def _make_splits(self):
+        return [ParallelSplit(i, s) for i, s in enumerate(self._slices)]
+
+    def compute(self, split):
+        return iter(split.values)

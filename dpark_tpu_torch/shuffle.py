@@ -1,0 +1,40 @@
+"""In-process shuffle bucket store of the host object path (the subset
+of dpark_tpu/shuffle.py this slice needs).
+
+A host map task writes its buckets here ("mem://<sid>"); a device map
+stage leaves its output on the device ("hbm://<sid>") and the store
+reads such buckets through the executor's export bridge, so a host
+reduce stage can consume either.
+"""
+
+
+class BucketStore:
+    def __init__(self):
+        self._buckets = {}         # (sid, map_id) -> [items per reduce]
+        self._map_outputs = {}     # sid -> [uri per map id]
+        self.exporter = None       # export_bucket(sid, map_id, reduce_id)
+
+    def write_buckets(self, sid, map_id, buckets):
+        """Store one map task's per-reduce {key: combiner} buckets."""
+        self._buckets[(sid, map_id)] = [list(b.items()) for b in buckets]
+        return "mem://%d" % sid
+
+    def set_map_outputs(self, sid, uris):
+        self._map_outputs[sid] = list(uris)
+
+    def fetch(self, sid, reduce_id):
+        """Every map output's (key, combiner) items for one reduce
+        partition, in map order."""
+        uris = self._map_outputs.get(sid)
+        if uris is None:
+            raise KeyError("shuffle %d has no map outputs" % sid)
+        for map_id, uri in enumerate(uris):
+            if uri.startswith("hbm://"):
+                yield from self.exporter(sid, map_id, reduce_id)
+            else:
+                yield from self._buckets[(sid, map_id)][reduce_id]
+
+    def drop(self, sid):
+        self._map_outputs.pop(sid, None)
+        for key in [k for k in self._buckets if k[0] == sid]:
+            del self._buckets[key]

@@ -1,0 +1,56 @@
+"""The port stands alone: importing dpark_tpu_torch and running a job
+loads neither jax nor the JAX package, and the gpu master refuses to
+start without CUDA unless the caller asks for the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import json, sys
+from dpark_tpu_torch import DparkContext
+c = DparkContext("gpu:2", device="cpu")
+pairs = [(i % 5, i) for i in range(100)]
+got = dict(c.parallelize(pairs, 2).reduceByKey(lambda a, b: a + b, 2)
+           .collect())
+kinds = [s["kind"] for s in c.scheduler.history[-1]["stage_info"]]
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith("jax.")
+              or m == "dpark_tpu" or m.startswith("dpark_tpu."))
+print(json.dumps({"sum": sum(got.values()), "kinds": kinds, "mods": mods}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["sum"] == sum(range(100))
+    assert res["kinds"] == ["array", "array"]
+    assert res["mods"] == []
+
+
+def test_gpu_master_needs_cuda():
+    import torch
+    from dpark_tpu_torch import DparkContext
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for master in ("gpu", "gpu:4"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DparkContext(master)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DparkContext("gpu", device="cuda")
+    DparkContext("gpu", device="cpu")         # the CPU only when asked
+
+
+def test_unknown_master_refused():
+    from dpark_tpu_torch import DparkContext
+    with pytest.raises(ValueError, match="unknown master"):
+        DparkContext("tpu:2")
