@@ -3,17 +3,26 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the CUDA kernels from
-   csrc/ and prints the build time;
-2. holds each kernel (K1-K4) against its plain PyTorch version on the
-   card, at the main path's shapes (8 shards of 8,388,608 rows), and
+1. prints the card's name and power limit, builds the six CUDA kernels
+   from csrc/ (one nvcc each, all started together) and prints the build
+   time;
+2. holds each kernel (K1-K6) against its plain PyTorch version on the
+   card, at the main paths' shapes (8 shards of 8,388,608 rows), and
    times kernel, plain version, bound and library call;
-3. drives the main path through the public API: bench.py's data (64M
-   int64 pairs over 65,536 keys) -> reduceByKey -> count / collect / top
-   / reduce, a map+filter chain before the shuffle, on gpu:8 and gpu,
-   checked exactly against numpy, every stage on the tensor path, and
-   every kernel launched by that run;
-4. prints one JSON line describing every kernel, then the result line.
+3. drives the reduceByKey path through the public API: bench.py's data
+   (64Mi int64 pairs over 65,536 keys) -> reduceByKey -> count / collect
+   / top / reduce, a map+filter chain before the shuffle, on gpu:8 and
+   gpu, checked exactly against numpy;
+4. drives the sort path: 64Mi (random int64 key, row index) pairs ->
+   sortByKey (both directions) -> count / top / collect on gpu:8 (range
+   shuffle) and gpu (one in-place sort), collect checked row for row
+   against numpy's stable argsort; then partitionBy / groupByKey /
+   distinct counts over bench.py's data, checked against numpy;
+5. every stage of every checked job must take the tensor path, and every
+   kernel of a path must launch during that path's run (counts reset
+   just before it, read just after);
+6. profiles the first action of each gpu:8 path, prints one JSON line
+   describing every kernel, then the result line.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -33,6 +42,8 @@ KEYS = 65_536
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FLOAT_ATOL = 0.0                   # the smoke's values are all integers
 
+INT64_MIN, INT64_MAX = -2 ** 63, 2 ** 63 - 1
+
 SOURCES = {
     "hash_dst_hist": ("dpark_tpu_torch/backend/cuda/csrc/hash_dst_hist.cu",
                       "dpark_tpu/utils/phash.py:143"),
@@ -44,7 +55,27 @@ SOURCES = {
         "dpark_tpu/backend/tpu/collectives.py:367"),
     "shard_exchange": ("dpark_tpu_torch/backend/cuda/csrc/shard_exchange.cu",
                        "dpark_tpu/backend/tpu/collectives.py:197"),
+    "radix_sort": ("dpark_tpu_torch/backend/cuda/csrc/radix_sort.cu",
+                   "dpark_tpu/backend/tpu/collectives.py:123"),
+    "range_dst_hist": ("dpark_tpu_torch/backend/cuda/csrc/range_dst_hist.cu",
+                       "dpark_tpu/backend/tpu/collectives.py:103"),
 }
+# the kernels each driven path must launch
+PATH_KERNELS = {
+    "reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
+                          "reduce_by_key_compact", "shard_exchange",
+                          "radix_sort"],
+    "reduceByKey gpu": ["hash_dst_hist", "stable_partition",
+                        "reduce_by_key_compact", "radix_sort"],
+    "sort gpu:8": ["range_dst_hist", "stable_partition", "shard_exchange",
+                   "radix_sort"],
+    "sort gpu": ["stable_partition", "radix_sort"],
+    "partition/group/distinct gpu:8": [
+        "hash_dst_hist", "stable_partition", "reduce_by_key_compact",
+        "shard_exchange", "radix_sort"],
+}
+# the path whose launches the kernels line reports for each kernel
+LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8"}
 
 
 def fail(msg):
@@ -186,13 +217,150 @@ def kernel_phases(K, dev):
         "library_ms": None,
     }
     for name, rec in out.items():
-        print("phase %s: kernel_ms=%.4f plain_ms=%.4f bound_ms=%.4f "
-              "library_ms=%s max_abs_err=%g" % (
-                  name, rec["ms"], rec["plain_ms"], rec["bound_ms"],
-                  "null" if rec["library_ms"] is None
-                  else "%.4f" % rec["library_ms"], rec["max_abs_err"]),
-              flush=True)
+        print_phase(name, rec)
     del keys, vals, order, src, bucket, a, b, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_phase(name, rec):
+    extra = "".join(" %s=%s" % kv for kv in rec.get("notes", {}).items())
+    print("phase %s: kernel_ms=%.4f plain_ms=%.4f bound_ms=%.4f "
+          "library_ms=%s max_abs_err=%g%s" % (
+              name, rec["ms"], rec["plain_ms"], rec["bound_ms"],
+              "null" if rec["library_ms"] is None
+              else "%.4f" % rec["library_ms"], rec["max_abs_err"], extra),
+          flush=True)
+
+
+def radix_case(K, col, src=None):
+    """K5 on one (N, CAP) column against its plain version and against
+    torch.sort(stable=True) on the CPU (NaN of either sign last, as numpy
+    and jnp sort); timed.  Whether the card's torch.sort agrees is
+    printed, not required.  bound_ms: the key column (and src) read once
+    and the permutation written once; lsd_bound_ms: the kernel's own
+    passes (one histogram read of the keys, 24 B a row per active
+    digit)."""
+    a = K.radix_sort(col, src)
+    b = K.radix_sort_plain(col, src)
+    err = max_err([("K5 perm", a, b)])
+    cur = col if src is None else torch.gather(col, 1, src.long())
+
+    def composed(order):
+        if src is None:
+            return order
+        return torch.gather(src.to(order.device).long(), 1, order)
+    host = composed(torch.sort(cur.cpu(), dim=1, stable=True).indices)
+    if not torch.equal(a.long().cpu(), host):
+        fail("K5 differs from torch.sort(stable=True)")
+    card = composed(torch.sort(cur, dim=1, stable=True).indices)
+    img, ndig = K.radix_key_image(cur)
+    active = sum(1 for d in range(ndig) if bool(
+        ((K.shard_bincount(K._digit(img, d), 256) > 0).sum(1) > 1).any()))
+    rows = col.numel()
+    extra = [src] if src is not None else []
+    return {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.radix_sort(col, src)),
+        "plain_ms": timed(lambda: K.radix_sort_plain(col, src), reps=1),
+        "bound_ms": bound_ms(nbytes(col, a, *extra)),
+        "library_ms": timed(lambda: torch.sort(cur, dim=1, stable=True)),
+        "notes": {"active_digits": active,
+                  "lsd_bound_ms": "%.4f" % bound_ms(rows * (8 + 24 * active)),
+                  "card_torch_sort_agrees": bool(torch.equal(a.long(),
+                                                             card))},
+    }
+
+
+def range_case(K, cols, bounds, ascending, n):
+    """K6 against its plain version; library call (one key column only):
+    torch.searchsorted + torch.bincount."""
+    r = bounds.shape[0] + 1
+    a = K.range_dst_hist(cols, bounds, ascending, r, N_SHARDS, n)
+    b = K.range_dst_hist_plain(cols, bounds, ascending, r, N_SHARDS, n)
+    err = max_err([("K6 dst", a[0], b[0]), ("K6 hist", a[1], b[1])])
+    lib = None
+    if len(cols) == 1:
+        b1 = bounds[:, 0].contiguous()
+        shard = torch.arange(N_SHARDS, device=b1.device)[:, None] * r
+
+        def library():
+            d = torch.searchsorted(b1, cols[0])
+            return torch.bincount((d + shard).view(-1),
+                                  minlength=N_SHARDS * r)
+        lib = timed(library)
+    return {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.range_dst_hist(cols, bounds, ascending, r,
+                                             N_SHARDS, n)),
+        "plain_ms": timed(lambda: K.range_dst_hist_plain(
+            cols, bounds, ascending, r, N_SHARDS, n), reps=3),
+        "bound_ms": bound_ms(nbytes(*cols, bounds, n, a[0], a[1])),
+        "library_ms": lib,
+    }
+
+
+def sort_kernel_phases(K, dev):
+    """K5 and K6 against their plain versions at the sort path's shapes.
+    K5: bench.py's keys, full-range random int64 and float64 keys (with
+    -0.0, infinities and NaN mixed in), and an int32 column read through
+    a permutation.  K6: 7 bounds over one and two int64 key columns, both
+    directions, and one float64 column.  The kernels line reports the
+    sort path's own cases: random int64 (K5), one int64 column ascending
+    (K6)."""
+    rng = np.random.default_rng(20261018)
+    shape = (N_SHARDS, CAP)
+    out = {}
+
+    def add(name, rec):
+        out[name] = rec
+        print_phase(name, rec)
+    bench, _ = bench_data()
+    keys = torch.from_numpy(bench.reshape(shape)).to(dev)
+    add("radix_sort bench keys", radix_case(K, keys))
+    del keys
+    rand = torch.from_numpy(rng.integers(INT64_MIN, INT64_MAX, shape,
+                                         dtype=np.int64)).to(dev)
+    add("radix_sort", radix_case(K, rand))
+    f = rng.standard_normal(shape) * 1e3
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan])
+    pos = rng.integers(0, CAP, (N_SHARDS, 4096))
+    for s_ in range(N_SHARDS):
+        f[s_, pos[s_]] = rng.choice(special, 4096)
+    fcol = torch.from_numpy(f).to(dev)
+    del f
+    add("radix_sort float64", radix_case(K, fcol))
+    del fcol
+    perm = K.radix_sort(rand)
+    small = torch.from_numpy(rng.integers(-1000, 1000, shape,
+                                          dtype=np.int32)).to(dev)
+    add("radix_sort int32 through src_idx", radix_case(K, small, perm))
+    del small, perm
+    torch.cuda.empty_cache()
+
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    n -= torch.arange(N_SHARDS, dtype=torch.int32, device=dev) * 37
+    hi = torch.from_numpy(rng.integers(0, 16, shape, dtype=np.int64)).to(dev)
+
+    def bounds_of(cols):
+        # 7 distinct sorted bound rows drawn from the keys
+        idx = rng.choice(CAP, 64, replace=False)
+        rows = sorted(set(tuple(int(c[0, i]) for c in cols) for i in idx))
+        pick = np.linspace(0, len(rows) - 1, 7).round().astype(int)
+        return torch.tensor([rows[i] for i in pick], dtype=torch.int64,
+                            device=dev)
+    b1, b2 = bounds_of([rand]), bounds_of([hi, rand])
+    for nk, cols, bounds in ((1, [rand], b1), (2, [hi, rand], b2)):
+        for asc in (True, False):
+            name = "range_dst_hist nk=%d %s" % (
+                nk, "ascending" if asc else "descending")
+            if nk == 1 and asc:
+                name = "range_dst_hist"
+            add(name, range_case(K, cols, bounds, asc, n))
+    fk = torch.from_numpy(rng.standard_normal(shape)).to(dev)
+    fb = torch.sort(fk[0, :7].clone()).values[:, None].contiguous()
+    add("range_dst_hist float64 nk=1", range_case(K, [fk], fb, True, n))
+    del rand, hi, fk
     torch.cuda.empty_cache()
     return out
 
@@ -264,20 +432,96 @@ def main_path(master, keys, vals):
     ctx.stop()
 
 
-def profile_first_action(keys, vals, top=14):
-    """Where the time of the first action goes: one gpu:8 count() (map
-    stage, exchange, reduce) under torch.profiler; prints the wall time,
-    the summed device time and the ops with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+def sort_data():
+    """64Mi (random int64 key, row index) pairs: a TeraSort-shaped input
+    (sentinel key excluded: the generator's high end is exclusive)."""
+    rng = np.random.default_rng(20261019)
+    return (rng.integers(INT64_MIN, INT64_MAX, PAIRS, dtype=np.int64),
+            np.arange(PAIRS, dtype=np.int64))
+
+
+def check_sorted(what, got, keys, order):
+    """got (collected (k, v) rows) equals rows `order` of (keys, row
+    index)."""
+    if len(got) != len(order):
+        fail("%s: %d rows, want %d" % (what, len(got), len(order)))
+    gk = np.fromiter((kv[0] for kv in got), np.int64, len(got))
+    gv = np.fromiter((kv[1] for kv in got), np.int64, len(got))
+    if not (np.array_equal(gv, order) and np.array_equal(gk, keys[order])):
+        bad = np.nonzero(gv != order)[0][:5]
+        fail("%s differs from numpy's stable argsort at rows %s"
+             % (what, bad.tolist()))
+
+
+def sort_path(master, keys, vals):
+    """sortByKey on one master, checked against numpy: count, top and a
+    full collect row for row (equal keys in input order) in both
+    directions on gpu:8, ascending on gpu."""
+    from dpark_tpu_torch import Columns, DparkContext
+    ctx = DparkContext(master)
+    P = ctx.default_parallelism
+    r = ctx.parallelize(Columns(keys, vals), P)
+    made = {}
+
+    def sort_count(ascending):
+        made[ascending] = r.sortByKey(ascending=ascending, numSplits=P)
+        return made[ascending].count()
+    directions = [True] if master == "gpu" else [True, False]
+    for ascending in directions:
+        label = "%s sortByKey(ascending=%s) count" % (master, ascending)
+        if act(label, lambda: sort_count(ascending)) != PAIRS:
+            fail(label)
+        check_stages(ctx, label)
+    top = act(master + " sortByKey top", lambda: made[True].top(10))
+    check_stages(ctx, master + " sortByKey top")
+    big = np.argsort(keys, kind="stable")[::-1][:10]
+    if top != [(int(keys[i]), int(vals[i])) for i in big]:
+        fail("%s sortByKey top differs from numpy: %s" % (master, top))
+    for ascending in directions:
+        label = "%s sortByKey(ascending=%s) collect" % (master, ascending)
+        got = act(label, made[ascending].collect)
+        check_stages(ctx, label)
+        # descending: an ascending stable sort of the reversed key keeps
+        # equal keys in input order, as Python's sorted(reverse=True)
+        order = np.argsort(keys if ascending else -1 - keys, kind="stable")
+        check_sorted(label, got, keys, order)
+        del got
+    ctx.stop()
+
+
+def group_paths(keys, vals):
+    """partitionBy / groupByKey / distinct counts over bench.py's data on
+    gpu:8, checked against numpy."""
     from dpark_tpu_torch import Columns, DparkContext
     ctx = DparkContext("gpu:8")
-    r = ctx.parallelize(Columns(keys, vals), 8).reduceByKey(
-        lambda a, b: a + b, 8)
+    r = ctx.parallelize(Columns(keys, vals), 8)
+    jobs = [("partitionBy(8) count", lambda: r.partitionBy(8).count(),
+             PAIRS),
+            ("groupByKey(8) count", lambda: r.groupByKey(8).count(),
+             len(np.unique(keys))),
+            ("distinct(8) count", lambda: r.distinct(8).count(),
+             len(np.unique(keys * (1 << 16) + vals)))]
+    for label, job, want in jobs:
+        got = act("gpu:8 " + label, job)
+        check_stages(ctx, label)
+        if got != want:
+            fail("%s: %s, numpy %s" % (label, got, want))
+    ctx.stop()
+
+
+def profile_first_action(label, build, top=14):
+    """Where the time of one first action goes, under torch.profiler:
+    prints the wall time, the summed device time and the ops with the
+    most device time.  build(ctx) returns the action to run."""
+    from torch.profiler import ProfilerActivity, profile
+    from dpark_tpu_torch import DparkContext
+    ctx = DparkContext("gpu:8")
+    action = build(ctx)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.count()
+        action()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ctx.stop()
@@ -294,8 +538,9 @@ def profile_first_action(keys, vals, top=14):
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
-    print("profile gpu:8 count: wall_ms=%.1f device_busy_ms=%.1f "
-          "idle_share=%.3f" % (wall * 1e3, busy, 1 - busy / (wall * 1e3)))
+    print("profile %s: wall_ms=%.1f device_busy_ms=%.1f "
+          "idle_share=%.3f" % (label, wall * 1e3, busy,
+                               1 - busy / (wall * 1e3)))
     for dev_us, name, count in rows[:top]:
         print("profile  %9.3f ms  x%-4d %s" % (dev_us / 1e3, count,
                                                 name[:90]))
@@ -305,6 +550,7 @@ def main():
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
         sys.exit(2)
+    from dpark_tpu_torch import Columns
     from dpark_tpu_torch.backend.cuda import kernels as K
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -316,31 +562,43 @@ def main():
     print("build: %.2f s" % K.build(), flush=True)
     dev = torch.device("cuda")
     phases = kernel_phases(K, dev)
+    phases.update(sort_kernel_phases(K, dev))
+
+    launches = {}
+
+    def drive(path, fn, *args):
+        """One path's run with the launch counts set to 0 just before it
+        and read just after; every kernel of the path must launch."""
+        K.reset_launches()
+        fn(*args)
+        launches[path] = dict(K.LAUNCHES)
+        print("launches %s: %s" % (path, json.dumps(launches[path])),
+              flush=True)
+        missing = [k for k in PATH_KERNELS[path] if not launches[path][k]]
+        if missing:
+            fail("kernels not launched on the %s path: %s" % (path, missing))
 
     keys, vals = bench_data()
-    K.reset_launches()
-    main_path("gpu:8", keys, vals)
-    launches = dict(K.LAUNCHES)
-    print("launches gpu:8: %s" % json.dumps(launches), flush=True)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail("kernels not launched on the gpu:8 main path: %s" % missing)
-    K.reset_launches()
-    main_path("gpu", keys, vals)
-    one = dict(K.LAUNCHES)
-    print("launches gpu: %s" % json.dumps(one), flush=True)
-    missing = [k for k, v in one.items()
-               if v == 0 and k != "shard_exchange"]
-    if missing:
-        fail("kernels not launched on the gpu main path: %s" % missing)
-
-    profile_first_action(keys, vals)
+    drive("reduceByKey gpu:8", main_path, "gpu:8", keys, vals)
+    drive("reduceByKey gpu", main_path, "gpu", keys, vals)
+    drive("partition/group/distinct gpu:8", group_paths, keys, vals)
+    profile_first_action(
+        "gpu:8 reduceByKey count", lambda ctx: ctx.parallelize(
+            Columns(keys, vals), 8).reduceByKey(lambda a, b: a + b, 8).count)
+    del keys, vals
+    skeys, svals = sort_data()
+    drive("sort gpu:8", sort_path, "gpu:8", skeys, svals)
+    drive("sort gpu", sort_path, "gpu", skeys, svals)
+    profile_first_action(
+        "gpu:8 sortByKey count", lambda ctx: ctx.parallelize(
+            Columns(skeys, svals), 8).sortByKey(numSplits=8).count)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
         rec = phases[name]
+        path = LINE_PATH.get(name, "reduceByKey gpu:8")
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": launches[path][name],
                      "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                      "plain_ms": rec["plain_ms"],
                      "bound_ms": rec["bound_ms"], "bound_by": "bytes",

@@ -10,9 +10,11 @@ rows (``n`` an ``(N,)`` int32 tensor) instead of a validity mask:
   stable partition by bucket     K2 stable_partition (also compact)
   merge runs of equal keys       K3 reduce_by_key_compact
   exchange among the N shards    K4 shard_exchange
+  stable sort by a key column    K5 radix_sort (every _lex_sort key pass)
+  range destination + histogram  K6 range_dst_hist
 
-The multi-key stable sort (_lex_sort) and the traced segmented scan of an
-unclassified user merge (segmented_combine) stay PyTorch in this slice.
+The traced segmented scan of an unclassified user merge
+(segmented_combine) stays PyTorch in this slice.
 """
 
 import torch
@@ -43,33 +45,84 @@ def hash_dst_cols(key_cols, n_dst, n, r=None, want_hist=False,
                                  want_hist=want_hist, want_hash=want_hash)
 
 
-def _lex_sort(ops, num_keys, nb0=None):
-    """Stable lexicographic sort of each shard's rows of `ops` by its
-    first num_keys operands.  Successive stable sorts compose one
-    permutation, key num_keys-1 first; every operand is gathered once.
-    With `nb0` the first key is a small int32 bucket column in
-    [0, nb0) and the last pass is K2's stable partition, which also does
-    the gather.  Returns the sorted ops (and, with nb0, the (N, nb0)
-    bucket counts as a last element)."""
+def lex_searchsorted(sorted_cols, query_cols):
+    """Multi-column searchsorted (side "left"): for each query row (one
+    value per (N, cap) column), the insertion index into the rows of
+    `sorted_cols` ((m,) columns, sorted lexicographically ascending), by
+    the reference's vectorised binary search: bit_length(m) fixed steps
+    of a row-wise lexicographic compare.  Returns (N, cap) int64."""
+    m = int(sorted_cols[0].shape[0])
+    q0 = query_cols[0]
+    lo = torch.zeros(q0.shape, dtype=torch.int64, device=q0.device)
+    if m == 0:
+        return lo
+    hi = torch.full_like(lo, m)
+    for _ in range(m.bit_length()):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        safe = mid.clamp(0, m - 1)
+        lt = eq = None
+        for b, q in zip(sorted_cols, query_cols):
+            a = b[safe]
+            c_lt, c_eq = a < q, a == q
+            lt = c_lt if lt is None else lt | (eq & c_lt)
+            eq = c_eq if eq is None else eq & c_eq
+        lo = torch.where(active & lt, mid + 1, lo)
+        hi = torch.where(active & ~lt, mid, hi)
+    return lo
+
+
+def range_dst_cols(key_cols, bounds, ascending, n_dst, n, r=None):
+    """Destination partition by sorted bounds (RangePartitioner.
+    get_partition of the key, or of the tuple key compared
+    lexicographically) over 1..4 key columns of one dtype; padding rows
+    get n_dst.  `bounds` is the (m, nk) device tensor of the stage.
+    Returns (dst (N, cap) int32, histogram (N, n_dst + 1))."""
+    r = n_dst if r is None else r
+    return kernels.range_dst_hist([k.contiguous() for k in key_cols], bounds,
+                                  ascending, r, n_dst, n)
+
+
+def _lex_order(key_cols):
+    """The (N, cap) int32 permutation that stable-sorts each shard's rows
+    lexicographically by key_cols: one K5 pass per column, last column
+    first, each reading its column through the running permutation."""
     order = None
-    last = 0 if nb0 is None else 1
-    for k in range(num_keys - 1, last - 1, -1):
-        col = ops[k] if order is None else torch.gather(ops[k], 1, order)
-        perm = torch.sort(col, dim=1, stable=True).indices
-        order = perm if order is None else torch.gather(order, 1, perm)
-    if nb0 is None:
-        return tuple(kernels.shard_rows(o, order) for o in ops)
-    bucket = ops[0] if order is None else torch.gather(ops[0], 1, order)
-    src = None if order is None else order.to(torch.int32)
-    rest = list(ops[1:])
+    for col in reversed(list(key_cols)):
+        order = kernels.radix_sort(col.contiguous(), src_idx=order)
+    return order
+
+
+def _partition_through(bucket, nb, leaves, order):
+    """K2 by a small int32 bucket column over rows in `order` (None: the
+    identity), gathering `leaves` through it.  Returns (sorted bucket,
+    *sorted leaves, counts (N, nb))."""
+    if order is not None:
+        bucket = torch.gather(bucket, 1, order.long())
     out = []
     counts = bsorted = None
-    for i in range(0, max(1, len(rest)), kernels.MAX_LEAVES):
+    for i in range(0, max(1, len(leaves)), kernels.MAX_LEAVES):
         part, counts, bsorted = kernels.stable_partition(
-            bucket.contiguous(), nb0, rest[i:i + kernels.MAX_LEAVES],
-            src_idx=src)
+            bucket.contiguous(), nb, leaves[i:i + kernels.MAX_LEAVES],
+            src_idx=order)
         out.extend(part)
     return (bsorted,) + tuple(out) + (counts,)
+
+
+def _lex_sort(ops, num_keys, nb0=None):
+    """Stable lexicographic sort of each shard's rows of `ops` by its
+    first num_keys operands.  K5 passes compose one permutation, key
+    num_keys-1 first; every operand is gathered once.  With `nb0` the
+    first key is a small int32 bucket column in [0, nb0) and the last
+    pass is K2's stable partition, which also does the gather.  Returns
+    the sorted ops (and, with nb0, the (N, nb0) bucket counts as a last
+    element)."""
+    ops = list(ops)
+    if nb0 is None:
+        order = _lex_order(ops[:num_keys])
+        return tuple(kernels.shard_rows(o, order) for o in ops)
+    order = _lex_order(ops[1:num_keys]) if num_keys > 1 else None
+    return _partition_through(ops[0], nb0, ops[1:], order)
 
 
 def compact(leaves, mask):
@@ -147,8 +200,9 @@ def _merge_runs(key_cols, fills, val_leaves, n, merge_leaves, monoid,
     if _monoid_ok(monoid, val_leaves):
         return kernels.reduce_by_key_compact(
             key_cols, fills, val_leaves, n, monoid, dst_col, n_dst)
+    # leafless values (distinct's (x, None)) have nothing to scan
     scanned = segmented_combine(_starts(key_cols), val_leaves,
-                                merge_leaves)
+                                merge_leaves) if val_leaves else []
     return kernels.reduce_by_key_compact(
         key_cols, fills, [s.contiguous() for s in scanned], n, "last",
         dst_col, n_dst)

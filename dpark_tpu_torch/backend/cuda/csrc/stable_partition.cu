@@ -54,27 +54,14 @@ static __global__ void k2_scatter(const int32_t* bucket,
                                   LeafSet L, int32_t* bucket_out) {
   extern __shared__ int w_sm[];  // [32 warps][nb]
   const int s = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = threadIdx.x; k < 32 * nb; k += blockDim.x) w_sm[k] = 0;
-  __syncthreads();
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t base = (int64_t)s * cap;
   const bool live = i < cap;
-  const unsigned act = __ballot_sync(DPK_FULL, live);
-  int b = 0, rank = 0;
-  if (live) {
-    b = bucket[base + i];
-    const unsigned peers = __match_any_sync(act, b);
-    rank = __popc(peers & ((1u << lane) - 1u));
-    if (lane == __ffs(peers) - 1) w_sm[warp * nb + b] = __popc(peers);
-  }
-  __syncthreads();
+  const int b = live ? bucket[base + i] : 0;
+  const int rank = block_stable_rank(live, b, nb, w_sm);
   if (!live) return;
-  int before = 0;
-  for (int w = 0; w < warp; ++w) before += w_sm[w * nb + b];
   const int64_t pos =
-      (int64_t)blockoff[((int64_t)s * nb + b) * nblk + blockIdx.x] + before +
-      rank;
+      (int64_t)blockoff[((int64_t)s * nb + b) * nblk + blockIdx.x] + rank;
   const int64_t src = src_idx != nullptr ? (int64_t)src_idx[base + i] : i;
   for (int l = 0; l < L.n; ++l) {
     const int64_t by = L.bytes[l];

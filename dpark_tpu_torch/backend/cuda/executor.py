@@ -3,20 +3,26 @@ device (port of the in-core main path of
 dpark_tpu/backend/tpu/executor.py; JAXExecutor becomes TorchExecutor).
 
 A stage is: source (host ingest, or a shuffle output kept on the
-device) -> narrow ops (vmapped user functions, filters) -> either a
-result (egest, count, top, reduce) or a shuffle write (K1 destination,
-sort, K2 partition, K3 combine) kept in `shuffle_store` until the
-reduce side runs K4's exchange and the K3 merge.
+device) -> narrow ops (vmapped user functions, filters, SortOp) ->
+either a result (egest, count, top, reduce) or a shuffle write kept in
+`shuffle_store` until the reduce side runs K4's exchange.  A combining
+hash write is K1 destination, K5 key sort, K2 partition, K3 combine, and
+its reduce side sorts (K5) and merges (K3); a no-combine write
+(groupByKey, partitionBy, sortByKey's range shuffle) is K1 or K6
+destination and K2 partition, and its reduce side only sorts by key (K5).
 
 PyTorch runs eagerly: the reference's compiled programs (narrow,
 exchange, reduce) are plain functions here, and there is no program
 cache.  Nothing here catches a CUDA error: a failed kernel propagates.
 """
 
+import itertools
+
 import numpy as np
 import torch
 
 from dpark_tpu_torch.backend.cuda import collectives, fuse, layout
+from dpark_tpu_torch.rdd import _fst
 from dpark_tpu_torch.utils.monoid import local_reduce, monoid_identity
 
 
@@ -76,13 +82,18 @@ class TorchExecutor:
 
     def _exchange_and_reduce(self, plan):
         """Reduce side: K4 exchange of the stored map output, then the
-        key sort and K3 merge."""
+        key sort and, unless the shuffle repartitions only, K3 merge."""
         dep = plan.source[1]
         store = self.shuffle_store[dep.shuffle_id]
         leaves = store["leaves"]
         recv, n = collectives.exchange(leaves, store["counts"],
                                        store["offsets"])
         nk = plan.src_nk
+        if store["no_combine"]:
+            # sort by the full key (padding holds the sentinel: last);
+            # equal keys keep their arrival order, source-major
+            packed = collectives._lex_sort(recv, nk)
+            return layout.Batch(plan.in_treedef, list(packed), n)
         monoid = fuse.classify_merge(dep.aggregator.merge_combiners)
         ks, vs, n_unique = collectives.segment_reduce_keys(
             recv[:nk], recv[nk:], n, plan.src_merge, monoid=monoid)
@@ -116,12 +127,26 @@ class TorchExecutor:
         return ("shuffle",) + self._epilogue_block(plan, lv, n)
 
     def _epilogue_block(self, plan, lv, n):
-        """Shuffle-write tail: K1 destinations over the logical partition
-        count r <= N, then bucketize-combine (sort, K2, K3) or, with no
-        usable merge, a plain bucketize (K2)."""
+        """Shuffle-write tail: destinations over the logical partition
+        count r <= N (K1 hash or K6 range), then a plain bucketize (K2)
+        for a no-combine write or, over a combining hash write,
+        bucketize-combine (K5 sort, K2, K3) — or a plain bucketize of raw
+        combiners when no merge is usable."""
         nk = plan.epi_nk
         r = plan.epilogue[1].partitioner.num_partitions
         n_dst = self.ndev
+        if plan.no_combine:
+            if plan.epi_spec[0] == "range":
+                # the bounds: one (m, nk) device tensor per stage
+                bounds = torch.from_numpy(plan.epi_bounds).to(self.device)
+                dst, hist = collectives.range_dst_cols(
+                    lv[:nk], bounds, plan.epi_spec[1], n_dst, n, r)
+            else:
+                dst, hist, _ = collectives.hash_dst_cols(
+                    lv[:nk], n_dst, n, r, want_hist=True)
+            leaves, cnts, offs = collectives.bucketize(lv, n, n_dst, dst,
+                                                       hist)
+            return cnts, offs, leaves
         merge_fn, monoid = self._epilogue_merge(plan)
         if merge_fn is not None or monoid is not None:
             dst, _, hsh = collectives.hash_dst_cols(
@@ -149,8 +174,19 @@ class TorchExecutor:
             })
         batch = outs[1]
         if plan.count_only:
-            # count() consumes cardinalities only: read the counts leaf
-            return ("counts", [int(c) for c in batch.counts.cpu()])
+            # count() consumes cardinalities only: read the counts leaf;
+            # a bare groupByKey counts the distinct keys of its key-sorted
+            # rows instead
+            counts = (self._distinct_key_counts(batch, plan.src_nk)
+                      if plan.group_output else batch.counts)
+            return ("counts", [int(c) for c in counts.cpu()])
+        if plan.group_output:
+            # bare groupByKey: rows arrive key-sorted; runs of equal keys
+            # become (k, [v]) on the host
+            return ("result", [
+                [(k, [rec[1] for rec in grp])
+                 for k, grp in itertools.groupby(rows, key=_fst)]
+                for rows in layout.egest(batch)])
         monoid = plan.reduce_monoid
         col = batch.cols[0]
         if (monoid is not None and len(batch.cols) == 1 and col.dim() == 2
@@ -188,33 +224,38 @@ class TorchExecutor:
 
     def _device_topk(self, plan, batch, kspec, n, smallest):
         """Per-shard top-n by the classified key: a stable sort by
-        (invalid flag, order key) keeps n rows per shard (ties resolve by
-        row order)."""
-        cap = batch.cap
+        (invalid flag, order key columns) keeps n rows per shard (ties
+        resolve by row order)."""
         lv = batch.cols
-        if kspec[0] == "leaf":
-            kcol = lv[kspec[1]]
+        if kspec[0] == "leaves":
+            kcols = [lv[i] for i in kspec[1]]
         else:
             fn = fuse._row_fn(kspec[1], plan.out_treedef)
             flat, nc = fuse._flat(lv)
             with fuse.python_float_semantics():
                 (kcol,) = fuse.vmap(fn)(*flat)
-            kcol = kcol.reshape(nc)
+            kcols = [kcol.reshape(nc)]
         # validity is the primary key: a real key equal to the extreme
-        # must never lose to padding.  Largest-first uses the order-
-        # reversing bijections -1-k (ints) and -k (floats).
-        if smallest:
-            sk = kcol
-        elif kcol.is_floating_point():
-            sk = -kcol
-        else:
-            sk = -1 - kcol
-        inval = (~collectives.valid_rows(batch.counts, cap)).to(torch.int32)
-        packed = collectives._lex_sort([inval, sk] + list(lv), 2, nb0=2)
-        keep = min(n, cap)
-        out = [leaf[:, :keep].contiguous() for leaf in packed[2:-1]]
+        # must never lose to padding.  Largest-first sorts ascending on
+        # the order-reversing bijections -1-k (ints) and -k (floats).
+        if not smallest:
+            kcols = [fuse._reversed_order(k) for k in kcols]
+        inval = (~collectives.valid_rows(batch.counts, batch.cap)).to(
+            torch.int32)
+        packed = collectives._partition_through(
+            inval, 2, list(lv), collectives._lex_order(kcols))
+        keep = min(n, batch.cap)
+        out = [leaf[:, :keep].contiguous() for leaf in packed[1:-1]]
         new_n = torch.clamp(batch.counts, max=n).to(torch.int32)
         return layout.Batch(batch.treedef, out, new_n)
+
+    @staticmethod
+    def _distinct_key_counts(batch, nk):
+        """(N,) distinct-key counts of a per-shard key-sorted batch (the
+        no-combine reduce's row order): valid rows where any of the nk
+        key columns differs from the row before."""
+        valid = collectives.valid_rows(batch.counts, batch.cap)
+        return (collectives._starts(batch.cols[:nk]) & valid).sum(1)
 
     def _monoid_reduce(self, batch, monoid):
         """Per-shard (reduced, min, max) over the valid rows of a
@@ -240,6 +281,7 @@ class TorchExecutor:
         store["out_treedef"] = plan.out_treedef
         store["out_specs"] = plan.out_specs
         store["key_cols"] = plan.epi_nk
+        store["no_combine"] = plan.no_combine
         store["nbytes"] = sum(int(leaf.numel() * leaf.element_size())
                               for leaf in store["leaves"])
         self.shuffle_store[sid] = store
@@ -248,7 +290,8 @@ class TorchExecutor:
     def export_bucket(self, sid, map_id, reduce_id):
         """Device-resident map output -> host (key, combiner) items of one
         (map, reduce) bucket, for a host reduce stage (the HBM -> host
-        bridge)."""
+        bridge).  A no-combine store holds raw values: each exports as
+        the list combiner [v] its host merge (list extend) expects."""
         store = self.shuffle_store.get(sid)
         if store is None:
             raise KeyError("no device shuffle %d" % sid)
@@ -275,8 +318,11 @@ class TorchExecutor:
         lists = [leaf[dev, off:off + cnt].cpu().numpy().tolist()
                  for leaf in store["leaves"]]
         treedef = store["out_treedef"]
-        return [layout.tree_unflatten(treedef, [pl[i] for pl in lists])
+        rows = [layout.tree_unflatten(treedef, [pl[i] for pl in lists])
                 for i in range(cnt)]
+        if store["no_combine"]:
+            return [(k, [v]) for k, v in rows]
+        return rows
 
     def drop_shuffle(self, sid):
         self.shuffle_store.pop(sid, None)

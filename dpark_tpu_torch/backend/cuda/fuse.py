@@ -18,21 +18,29 @@ from torch.func import vmap
 
 from dpark_tpu_torch import conf
 from dpark_tpu_torch.backend.cuda import layout
-from dpark_tpu_torch.dependency import HashPartitioner
+from dpark_tpu_torch.dependency import HashPartitioner, RangePartitioner
 from dpark_tpu_torch.rdd import (
-    FilteredRDD, KeyedRDD, MappedRDD, MappedValuesRDD, ParallelCollection,
-    ShuffledRDD, _ColumnarSlice)
+    FilteredRDD, FlatMappedValuesRDD, KeyedRDD, MappedRDD, MappedValuesRDD,
+    MapPartitionsRDD, ParallelCollection, ShuffledRDD, _ColumnarSlice,
+    _SortPartFn, _append, _extend, _identity, _mk_list)
 from dpark_tpu_torch.utils import monoid as _monoid
 
 _monoid.register_direct({torch.add: "add", torch.mul: "mul",
                          torch.minimum: "min", torch.maximum: "max"})
 
-# reasons a stage leaves the tensor path (the first two are the
+# reasons a stage leaves the tensor path (the key-shape ones are the
 # reference's own strings, fuse._fallback in dpark_tpu)
 HASH_KEY_REASON = ("hash shuffle needs an int scalar (or flat "
                    "int-tuple, <= conf.MAX_KEY_LEAVES columns) key")
 HASH_KEY_COMBINER_REASON = ("hash shuffle needs an int scalar (or flat "
                             "int-tuple) key after create_combiner")
+RANGE_KEY_REASON = ("range shuffle needs a numeric scalar (or flat "
+                    "numeric-tuple) key")
+RANGE_MIXED_REASON = ("range partitioner over a tuple key with mixed "
+                      "column dtypes")
+RANGE_WIDTH_REASON = "range bounds do not match the key width"
+GROUP_REASON = ("grouped values consumed on the host ((k, [v]) lists have "
+                "no device form for this chain)")
 WAVE_REASON = ("columnar input above the wave threshold (%d rows per "
                "shard): out-of-core wave stream not yet ported")
 WIDE_REASON = ("more logical partitions (%d) than shards (%d): the "
@@ -43,6 +51,49 @@ def classify_merge(merge):
     """EXACT monoid classification: "add" | "min" | "max" | "mul" |
     None (utils/monoid.py)."""
     return _monoid.classify_merge(merge)
+
+
+def is_list_agg(agg):
+    """The identity list-aggregator of groupByKey / partitionBy: values
+    are repartitioned, never combined (a no-combine shuffle)."""
+    return (agg.create_combiner is _mk_list
+            and agg.merge_value is _append
+            and agg.merge_combiners is _extend)
+
+
+def partitioner_spec(part):
+    """("hash",) | ("range", ascending) | None: the device destination
+    function of a partitioner."""
+    if isinstance(part, HashPartitioner):
+        return ("hash",)
+    if isinstance(part, RangePartitioner):
+        try:
+            bounds = np.asarray(part.bounds)
+        except Exception:        # ragged or odd user bounds
+            return None
+        if bounds.dtype == object or bounds.dtype.kind in "USO":
+            return None
+        return ("range", bool(part.ascending))
+    return None
+
+
+def _range_bounds_array(bounds, specs, nk):
+    """The RangePartitioner bounds as the (len(bounds), nk) array the
+    range epilogue compares against, in the key columns' one dtype, or
+    (None, reason): a tuple key's columns must share a dtype (mixed
+    int/float tuples have host bisect semantics no single-dtype compare
+    reproduces)."""
+    dt = np.dtype(specs[0][0])
+    if any(np.dtype(sp[0]) != dt for sp in specs[1:nk]):
+        return None, RANGE_MIXED_REASON
+    if not bounds:
+        return np.zeros((0, nk), dtype=dt), None
+    arr = np.asarray(bounds, dtype=dt)
+    if nk == 1 and arr.ndim == 1:
+        arr = arr[:, None]
+    if arr.ndim != 2 or arr.shape[1] != nk:
+        return None, RANGE_WIDTH_REASON
+    return np.ascontiguousarray(arr), None
 
 
 @contextlib.contextmanager
@@ -110,6 +161,8 @@ class MapOp:
             out = vmap(fn)(*_sample(specs))
         out_specs = [(layout.numpy_dtype(o.dtype), tuple(o.shape[1:]))
                      for o in out]
+        if not out_specs:
+            raise TypeError("a record with no leaves has no tensor form")
         for dt, _ in out_specs:
             if dt.kind not in "bif":
                 raise TypeError("leaf dtype %s has no tensor form" % dt)
@@ -149,6 +202,46 @@ class FilterOp:
         return collectives.compact(leaves, mask)
 
 
+def _reversed_order(col):
+    """An order-reversing bijection of a key column: -1-k for ints (no
+    overflow), -k for floats."""
+    return -col if col.is_floating_point() else -1 - col
+
+
+class SortOp:
+    """Per-shard stable sort by the key — one scalar leaf, or every column
+    of a flat tuple key, compared lexicographically like the host's tuple
+    sort (sortByKey's final mapPartitions(_SortPartFn) on the device).
+    Descending sorts ascending on an order-reversing key, so equal keys
+    keep their input order as Python's sorted(reverse=True) does (the
+    reference reverses an ascending sort and so reverses ties)."""
+
+    def __init__(self, ascending):
+        self.ascending = ascending
+        self.nk = 1
+
+    def probe(self, treedef, specs):
+        nk = layout.key_width(treedef, specs, kinds="if")
+        if nk is None:
+            raise TypeError("sort needs a numeric scalar (or flat numeric "
+                            "tuple) key")
+        self.nk = nk
+        return treedef, specs
+
+    def apply(self, leaves, n):
+        from dpark_tpu_torch.backend.cuda import collectives
+        keys = leaves[:self.nk]
+        if not self.ascending:
+            keys = [_reversed_order(k) for k in keys]
+        # validity is the primary key (the last pass, K2): padding sorts
+        # last whatever the key values, NaN and the sentinel included
+        inval = (~collectives.valid_rows(n, leaves[0].shape[1])).to(
+            torch.int32)
+        packed = collectives._partition_through(
+            inval, 2, list(leaves), collectives._lex_order(keys))
+        return list(packed[1:-1]), n
+
+
 def _leaves_merge_fn(merge, record_treedef):
     """User merge_combiners (value, value) -> value lifted to leaf lists
     and vmapped.  The value's real structure is rebuilt before calling
@@ -164,6 +257,14 @@ def _leaves_merge_fn(merge, record_treedef):
 
         def _unwrap(leaves):
             return leaves[0] if nleaves == 1 else tuple(leaves)
+    if nleaves == 0:
+        # a leafless value ((k, None) records): nothing to merge, as long
+        # as the merge keeps the value leafless
+        out = merge(_unwrap([]), _unwrap([]))
+        if layout.tree_flatten(out)[1] != layout.tree_flatten(
+                _unwrap([]))[1]:
+            raise TypeError("merge of leafless values grew leaves")
+        return lambda va_leaves, vb_leaves: []
 
     def leaf_merge(*flat):
         out = merge(_unwrap(flat[:nleaves]), _unwrap(flat[nleaves:]))
@@ -214,18 +315,26 @@ def _subscript_const_index(f):
     return ints[0]
 
 
+def _no_none(treedef):
+    return treedef is not None and (isinstance(treedef, int) or all(
+        _no_none(c) for c in treedef))
+
+
 def classify_top_key(key, treedef, specs):
     """How to compute each record's top() ordering key on the device:
-    ("leaf", i) for a scalar record or a provable ``x[i]`` subscript of a
-    flat record, ("fn", key) for a traced FLOAT key expression, None
-    (host path).  Integer key expressions stay on the host: the host
-    computes exact Python ints where the device would wrap at int64."""
+    ("leaves", (i, ...)) for records compared as themselves (a scalar, or
+    a tuple of numeric scalars, lexicographically in leaf order) or a
+    provable ``x[i]`` subscript of a flat record, ("fn", key) for a traced
+    float64 key expression, None (host path).  Integer key expressions stay
+    on the host: the host computes exact Python ints where the device
+    would wrap at int64."""
     nl = len(specs)
     if key is None:
-        if nl != 1:
+        # a None inside a record makes Python's tuple compare raise
+        if not _no_none(treedef) or any(
+                shape != () or dt.kind not in "if" for dt, shape in specs):
             return None
-        dt, shape = specs[0]
-        return ("leaf", 0) if shape == () and dt.kind in "if" else None
+        return ("leaves", tuple(range(nl)))
     idx = _subscript_const_index(key)
     if idx is not None:
         if not (0 <= idx < nl) or treedef != tuple(range(nl)):
@@ -233,14 +342,14 @@ def classify_top_key(key, treedef, specs):
         dt, shape = specs[idx]
         if shape != () or dt.kind not in "if":
             return None
-        return ("leaf", idx)
+        return ("leaves", (idx,))
     try:
         fn = _row_fn(key, treedef)
         with python_float_semantics():
             out = vmap(fn)(*_sample(specs))
     except Exception:        # user code: any failure means host path
         return None
-    if len(out) == 1 and out[0].dim() == 1 and out[0].is_floating_point():
+    if len(out) == 1 and out[0].dim() == 1 and out[0].dtype == torch.float64:
         return ("fn", key)
     return None
 
@@ -260,7 +369,11 @@ class StagePlan:
         self.stage = stage
         self.src_nk = 1
         self.src_merge = None       # vmapped merge of an hbm source
+        self.group_output = False   # bare groupByKey: (k, [v]) at egest
         self.epi_nk = 1
+        self.epi_spec = None        # partitioner_spec of the write
+        self.epi_bounds = None      # (m, nk) numpy range bounds
+        self.no_combine = False     # the write repartitions, never merges
         self.reslice = False
         # set per run by the scheduler from the stage's tasks
         self.count_only = False
@@ -283,11 +396,21 @@ def _keyby_as_record_fn(f):
 
 def extract_chain(top):
     """Walk narrow one-parent links from the stage's top RDD to its
-    source.  Returns (source_rdd, ops root->top) or None."""
+    source.  Returns (source_rdd, ops root->top, passthrough) or None;
+    passthrough: partitionBy's flatMapValue(identity) over a no-combine
+    shuffle, whose rows then pass through flat."""
     ops = []
     cur = top
+    passthrough = False
     while True:
-        if isinstance(cur, MappedValuesRDD):
+        if (isinstance(cur, FlatMappedValuesRDD) and cur.f is _identity
+                and isinstance(cur.prev, ShuffledRDD)
+                and is_list_agg(cur.prev.aggregator)):
+            passthrough = True
+        elif isinstance(cur, MapPartitionsRDD) \
+                and isinstance(cur.f, _SortPartFn):
+            ops.append(SortOp(cur.f.ascending))
+        elif isinstance(cur, MappedValuesRDD):
             ops.append(MapOp(_mapvalue_as_record_fn(cur.f)))
         elif isinstance(cur, KeyedRDD):
             ops.append(MapOp(_keyby_as_record_fn(cur.f)))
@@ -297,7 +420,7 @@ def extract_chain(top):
             ops.append(FilterOp(cur.f))
         elif isinstance(cur, (ParallelCollection, ShuffledRDD)):
             ops.reverse()
-            return cur, ops
+            return cur, ops, passthrough
         else:
             return None
         cur = cur.prev
@@ -337,10 +460,11 @@ def analyze_stage(stage, ndev, executor):
     if extracted is None:
         return None, ("%s has no tensor form yet; object path"
                       % type(top).__name__)
-    source_rdd, ops = extracted
+    source_rdd, ops, passthrough = extracted
     store = executor.shuffle_store
     src_nk = 1
     src_merge = None
+    group_output = False
     reslice = False
     if isinstance(source_rdd, ParallelCollection):
         if not stage.is_shuffle_map and not ops:
@@ -370,11 +494,19 @@ def analyze_stage(stage, ndev, executor):
         meta = store[dep.shuffle_id]
         treedef, specs = meta["out_treedef"], meta["out_specs"]
         src_nk = meta["key_cols"]
-        src_merge = probe_merge(dep.aggregator.merge_combiners, treedef,
-                                specs, src_nk)
-        if src_merge is None:
-            return None, ("merge_combiners not traceable by "
-                          "torch.func.vmap; object path")
+        if meta["no_combine"]:
+            # no-combine shuffle (partitionBy / groupByKey / sortByKey):
+            # rows pass through flat; a bare groupByKey groups at egest
+            if not passthrough:
+                if ops or stage.is_shuffle_map:
+                    return None, GROUP_REASON
+                group_output = True
+        else:
+            src_merge = probe_merge(dep.aggregator.merge_combiners, treedef,
+                                    specs, src_nk)
+            if src_merge is None:
+                return None, ("merge_combiners not traceable by "
+                              "torch.func.vmap; object path")
         source = ("hbm", dep)
 
     cur_treedef, cur_specs = treedef, specs
@@ -386,35 +518,66 @@ def analyze_stage(stage, ndev, executor):
                       "(%s: %s); object path"
                       % (type(e).__name__, str(e)[:120]))
 
-    epilogue = None
-    epi_nk = 1
+    plan = StagePlan(source, ops, None, treedef, specs, cur_treedef,
+                     cur_specs, stage)
+    plan.src_nk = src_nk
+    plan.src_merge = src_merge
+    plan.group_output = group_output
+    plan.reslice = reslice
     if stage.is_shuffle_map:
-        dep = stage.shuffle_dep
-        if not isinstance(dep.partitioner, HashPartitioner):
-            return None, "only hash partitioners have a device form yet"
-        if layout.key_width(cur_treedef, cur_specs, kinds="i") is None:
-            return None, HASH_KEY_REASON
+        reason = _plan_shuffle_write(plan, stage.shuffle_dep, ndev)
+        if reason is not None:
+            return None, reason
+    return plan, None
+
+
+def _plan_shuffle_write(plan, dep, ndev):
+    """Fill in the plan's shuffle-write epilogue; returns the reason the
+    write has no device form, or None.  A hash write needs int key
+    columns and, when it combines, a traceable create_combiner; a range
+    write takes numeric key columns of one dtype and repartitions only;
+    a no-combine write (groupByKey / partitionBy) skips create_combiner."""
+    spec = partitioner_spec(dep.partitioner)
+    if spec is None:
+        return ("%s has no device destination function"
+                % type(dep.partitioner).__name__)
+    no_combine = is_list_agg(dep.aggregator)
+    if spec[0] == "hash":
+        epi_nk = layout.key_width(plan.out_treedef, plan.out_specs,
+                                  kinds="i")
+        if epi_nk is None:
+            return HASH_KEY_REASON
+    else:
+        epi_nk = layout.key_width(plan.out_treedef, plan.out_specs,
+                                  kinds="if")
+        if epi_nk is None:
+            return RANGE_KEY_REASON
+        plan.epi_bounds, reason = _range_bounds_array(
+            dep.partitioner.bounds, plan.out_specs, epi_nk)
+        if reason is not None:
+            return reason
+        if not no_combine:
+            return ("range shuffle with a combining aggregator: not yet "
+                    "ported")
+    if not no_combine:
         create = dep.aggregator.create_combiner
         op = MapOp(lambda rec: (rec[0], create(rec[1])))
         try:
-            cur_treedef, cur_specs = op.probe(cur_treedef, cur_specs)
+            plan.out_treedef, plan.out_specs = op.probe(plan.out_treedef,
+                                                        plan.out_specs)
         except Exception as e:   # user code
-            return None, ("create_combiner not traceable by "
-                          "torch.func.vmap (%s: %s); object path"
-                          % (type(e).__name__, str(e)[:120]))
-        ops.append(op)
-        epi_nk = layout.key_width(cur_treedef, cur_specs, kinds="i")
+            return ("create_combiner not traceable by torch.func.vmap "
+                    "(%s: %s); object path"
+                    % (type(e).__name__, str(e)[:120]))
+        plan.ops.append(op)
+        epi_nk = layout.key_width(plan.out_treedef, plan.out_specs,
+                                  kinds="i")
         if epi_nk is None:
-            return None, HASH_KEY_COMBINER_REASON
-        if dep.partitioner.num_partitions > ndev:
-            return None, WIDE_REASON % (dep.partitioner.num_partitions,
-                                        ndev)
-        epilogue = ("shuffle_write", dep)
-
-    plan = StagePlan(source, ops, epilogue, treedef, specs,
-                     cur_treedef, cur_specs, stage)
-    plan.src_nk = src_nk
-    plan.src_merge = src_merge
+            return HASH_KEY_COMBINER_REASON
+    if dep.partitioner.num_partitions > ndev:
+        return WIDE_REASON % (dep.partitioner.num_partitions, ndev)
+    plan.epilogue = ("shuffle_write", dep)
     plan.epi_nk = epi_nk
-    plan.reslice = reslice
-    return plan, None
+    plan.epi_spec = spec
+    plan.no_combine = no_combine
+    return None

@@ -7,6 +7,8 @@ Kernels (sources under csrc/, one shared library each):
   K2 stable_partition       csrc/stable_partition.cu
   K3 reduce_by_key_compact  csrc/reduce_by_key.cu
   K4 shard_exchange         csrc/shard_exchange.cu
+  K5 radix_sort             csrc/radix_sort.cu
+  K6 range_dst_hist         csrc/range_dst_hist.cu
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -38,6 +40,8 @@ SOURCES = {
     "stable_partition": "stable_partition.cu",
     "reduce_by_key_compact": "reduce_by_key.cu",
     "shard_exchange": "shard_exchange.cu",
+    "radix_sort": "radix_sort.cu",
+    "range_dst_hist": "range_dst_hist.cu",
 }
 LAUNCHES = {name: 0 for name in SOURCES}
 KEY_SENTINEL = 2 ** 63 - 1
@@ -128,9 +132,22 @@ def _bind(name, lib):
         fn = lib.dpk_reduce_by_key
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                        _I, _P, _I, _L, _P, _P, _P, _P, _P, _P]
-    else:
+    elif name == "shard_exchange":
         fn = lib.dpk_shard_exchange
         fn.argtypes = [_P, _P, _P, _I, _P, _P, _I, _L, _L, _I, _L, _P, _P]
+    elif name == "radix_sort":
+        hist = lib.dpk_radix_sort_hist
+        hist.argtypes = [_P, _I, _P, _I, _L, _I, _P, _P, _P, _P]
+        hist.restype = ctypes.c_int
+        fn = lib.dpk_radix_sort_pass
+        fn.argtypes = [_P, _I, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P,
+                       _P]
+        fn.restype = ctypes.c_int
+        return hist, fn
+    else:
+        fn = lib.dpk_range_dst_hist
+        fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _L, _P, _P,
+                       _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,11 +158,12 @@ def _kernel(name):
     return _libs[name]
 
 
-def _check(name, rc):
+def _check(name, rc, count=True):
     if rc != 0:
         raise RuntimeError("CUDA kernel %s failed to launch: error %d"
                            % (name, rc))
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def _on_cuda(tensors):
@@ -471,9 +489,9 @@ def shard_exchange(leaves, counts, offsets, cap_out, key_leaf=0,
     N, cap_in = leaves[0].shape[:2]
     _check_cols(leaves, N, cap_in, "leaves")
     _need(1 <= len(leaves) <= MAX_LEAVES, "1..%d leaves" % MAX_LEAVES)
-    _need(key_leaf is None or leaves[key_leaf].dtype in (torch.int64,
-                                                         torch.int32),
-          "the key leaf must be an int32/int64 column")
+    _need(key_leaf is None or leaves[key_leaf].dtype in (
+              torch.int64, torch.int32, torch.float64),
+          "the key leaf must be an int32/int64/float64 column")
     _need(counts.shape == (N, N) and offsets.shape == (N, N)
           and counts.dtype == torch.int32 and offsets.dtype == torch.int32
           and counts.is_contiguous() and offsets.is_contiguous(),
@@ -486,10 +504,212 @@ def shard_exchange(leaves, counts, offsets, cap_out, key_leaf=0,
     out = [torch.empty((N, cap_out) + tuple(leaf.shape[2:]),
                        dtype=leaf.dtype, device=dev) for leaf in leaves]
     recv = torch.empty((N,), dtype=torch.int32, device=dev)
+    fill_bits = 0
+    if key_leaf is not None:
+        # the kernel stores the fill's bit pattern at the leaf's width
+        fill_bits = int(torch.tensor(key_fill, dtype=leaves[key_leaf].dtype)
+                        .view(torch.int64 if leaves[key_leaf].element_size()
+                              == 8 else torch.int32))
     rc = fn(_ptrs(leaves), _ptrs(out),
             (ctypes.c_int64 * len(leaves))(*[_row_bytes(l) for l in leaves]),
             len(leaves), counts.data_ptr(), offsets.data_ptr(), N, cap_in,
             int(cap_out), -1 if key_leaf is None else int(key_leaf),
-            int(key_fill), recv.data_ptr(), _stream())
+            fill_bits, recv.data_ptr(), _stream())
     _check("shard_exchange", rc)
     return out, recv
+
+
+# ---------------------------------------------------------------------
+# K5 radix_sort
+# ---------------------------------------------------------------------
+_RADIX_KINDS = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
+_I64_MIN = -2 ** 63
+_QNAN_BITS = 0x7FF8000000000000
+
+
+def radix_key_image(col):
+    """The order-preserving unsigned image of a key column, as int64 bit
+    patterns, and its digit count: ints flip the sign bit; floats turn
+    -0.0 into +0.0 and every NaN into one positive quiet NaN, then flip
+    every bit of a negative and the sign bit of a non-negative."""
+    if col.dtype == torch.int32:
+        return (col.long() & 0xFFFFFFFF) ^ 0x80000000, 4
+    if col.dtype == torch.int64:
+        return col ^ _I64_MIN, 8
+    bits = col.contiguous().view(torch.int64)
+    bits = torch.where(col == 0, torch.zeros_like(bits), bits)
+    bits = torch.where(torch.isnan(col), torch.full_like(bits, _QNAN_BITS),
+                       bits)
+    return torch.where(bits < 0, ~bits, bits ^ _I64_MIN), 8
+
+
+def _digit(img, d):
+    return (img >> (8 * d)) & 0xFF
+
+
+_PLAIN_TILE = 64      # rows per tile of the plain version's counting pass
+
+
+def _counting_pass(img, idx, d):
+    """One stable counting pass by digit d, as K5 does it: per-tile digit
+    counts, their exclusive scan in (digit, tile) order, and each row's
+    rank among the earlier rows of its tile with the same digit.  One
+    shard at a time bounds the (tiles, 64, 64) rank compare."""
+    N, cap = img.shape
+    dev = img.device
+    B = _PLAIN_TILE
+    T = -(-cap // B)
+    # tail rows of the last tile take digit 256: they land past cap
+    dig = torch.full((N, T * B), 256, dtype=torch.int64, device=dev)
+    dig[:, :cap] = _digit(img, d)
+    dig = dig.view(N, T, B)
+    earlier = torch.ones((B, B), dtype=torch.bool, device=dev).tril(-1)
+    tiles = torch.arange(T, device=dev)[:, None]
+    out_img, out_idx = torch.empty_like(img), torch.empty_like(idx)
+    for s in range(N):
+        ds = dig[s]
+        rank = ((ds[:, :, None] == ds[:, None, :]) & earlier).sum(2)
+        counts = torch.zeros((T, 257), dtype=torch.int64, device=dev)
+        counts = counts.scatter_add_(1, ds, torch.ones_like(ds)).t()
+        tile_start = torch.cumsum(counts, 1) - counts
+        totals = counts.sum(1)
+        digit_start = torch.cumsum(totals, 0) - totals
+        pos = (digit_start[ds] + tile_start[ds, tiles] + rank).view(-1)
+        pos = pos[:cap]
+        out_img[s].scatter_(0, pos, img[s])
+        out_idx[s].scatter_(0, pos, idx[s])
+    return out_img, out_idx
+
+
+def radix_sort_plain(col, src_idx=None):
+    """K5's arithmetic in PyTorch: the same key image and digit skipping,
+    and one stable counting pass (per-tile digit counts, their scan, and
+    ranks inside a tile) per active digit."""
+    N, cap = col.shape
+    dev = col.device
+    if src_idx is None:
+        idx = torch.arange(cap, dtype=torch.int32, device=dev).expand(
+            N, cap).contiguous()
+        keys = col
+    else:
+        idx = src_idx.clone()
+        keys = torch.gather(col, 1, src_idx.long())
+    img, ndig = radix_key_image(keys)
+    active = [d for d in range(ndig)
+              if bool(((shard_bincount(_digit(img, d), 256) > 0).sum(1)
+                       > 1).any())]
+    for d in active:
+        img, idx = _counting_pass(img, idx, d)
+    return idx
+
+
+def radix_sort(col, src_idx=None):
+    """The (N, cap) int32 permutation that stable-sorts each shard's row
+    of `col` ((N, cap) int32, int64 or float64) read through `src_idx`
+    ((N, cap) int32 source rows of the current order, identity when None),
+    composed with src_idx: bit-identical to
+    ``src_idx.gather(1, torch.sort(col.gather(1, src_idx), dim=1,
+    stable=True).indices)``.  NaN sorts last and -0.0 ties +0.0."""
+    _need(col.dim() == 2 and col.is_contiguous()
+          and col.dtype in _RADIX_KINDS,
+          "radix_sort takes a contiguous (N, cap) int32/int64/float64 "
+          "column, got %s %s" % (col.dtype, tuple(col.shape)))
+    N, cap = col.shape
+    _need(cap < 2 ** 31, "the permutation is int32: cap must be < 2**31")
+    extra = []
+    if src_idx is not None:
+        _need(src_idx.dtype == torch.int32 and src_idx.shape == (N, cap)
+              and src_idx.is_contiguous(), "src_idx must be (N, cap) int32")
+        extra = [src_idx]
+    if not _on_cuda([col] + extra):
+        return radix_sort_plain(col, src_idx)
+    hist_fn, pass_fn = _kernel("radix_sort")
+    dev = col.device
+    if cap == 0:
+        return torch.empty((N, 0), dtype=torch.int32, device=dev)
+    kind = _RADIX_KINDS[col.dtype]
+    ndig = 4 if col.dtype == torch.int32 else 8
+    src = src_idx.data_ptr() if src_idx is not None else None
+    hist = torch.zeros((N, ndig, 256), dtype=torch.int32, device=dev)
+    bases = torch.empty_like(hist)
+    active = torch.zeros((ndig,), dtype=torch.int32, device=dev)
+    _check("radix_sort", hist_fn(col.data_ptr(), kind, src, N, cap, ndig,
+                                 hist.data_ptr(), bases.data_ptr(),
+                                 active.data_ptr(), _stream()), count=False)
+    passes = [d for d, a in enumerate(active.tolist()) if a]
+    LAUNCHES["radix_sort"] += 1
+    if not passes:
+        if src_idx is not None:
+            return src_idx.clone()
+        return torch.arange(cap, dtype=torch.int32, device=dev).expand(
+            N, cap).contiguous()
+    out = torch.empty((N, cap), dtype=torch.int32, device=dev)
+    blockcnt = torch.empty((N, 256, -(-cap // 8192)), dtype=torch.int32,
+                           device=dev)
+    kbuf = [torch.empty((N, cap), dtype=torch.int64, device=dev)
+            for _ in range(min(2, len(passes) - 1))]
+    ibuf = [torch.empty((N, cap), dtype=torch.int32, device=dev)
+            for _ in range(min(2, len(passes) - 1))]
+    kin = iin = None
+    for j, d in enumerate(passes):
+        last = j == len(passes) - 1
+        kout = None if last else kbuf[j % 2]
+        iout = out if last else ibuf[j % 2]
+        rc = pass_fn(col.data_ptr(), kind, src,
+                     None if kin is None else kin.data_ptr(),
+                     None if iin is None else iin.data_ptr(), N, cap, ndig,
+                     d, bases.data_ptr(), blockcnt.data_ptr(),
+                     None if kout is None else kout.data_ptr(),
+                     iout.data_ptr(), _stream())
+        _check("radix_sort", rc, count=False)
+        kin, iin = kout, iout
+    return out
+
+
+# ---------------------------------------------------------------------
+# K6 range_dst_hist
+# ---------------------------------------------------------------------
+def range_dst_hist_plain(key_cols, bounds, ascending, r, n_dst, n):
+    from dpark_tpu_torch.backend.cuda.collectives import lex_searchsorted
+    cap = key_cols[0].shape[1]
+    idx = lex_searchsorted([bounds[:, c] for c in range(bounds.shape[1])],
+                           key_cols)
+    dst = idx if ascending else r - 1 - idx
+    valid = torch.arange(cap, device=idx.device)[None, :] < n[:, None].long()
+    dst = torch.where(valid, dst, n_dst).to(torch.int32)
+    return dst, shard_bincount(dst, n_dst + 1)
+
+
+def range_dst_hist(key_cols, bounds, ascending, r, n_dst, n):
+    """Range-partitioner destination of each row: bisect_left of the key
+    row (1..4 (N, cap) columns of one dtype, int64 or float64) into the
+    sorted `bounds` ((m, nk), same dtype), compared lexicographically; idx
+    when ascending, else r - 1 - idx; n_dst on padding rows.  Returns (dst
+    (N, cap) int32, histogram (N, n_dst + 1) int32)."""
+    key_cols = list(key_cols)
+    N, cap = key_cols[0].shape[:2]
+    nk = len(key_cols)
+    _check_cols(key_cols, N, cap, "key columns")
+    dt = key_cols[0].dtype
+    _need(1 <= nk <= 4 and dt in (torch.int64, torch.float64)
+          and all(c.dim() == 2 and c.dtype == dt for c in key_cols),
+          "1..4 key columns of one dtype, int64 or float64")
+    _need(bounds.dim() == 2 and bounds.shape[1] == nk and bounds.dtype == dt
+          and bounds.is_contiguous(), "bounds must be contiguous (m, nk) "
+          "of the key dtype")
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    if not _on_cuda(key_cols + [bounds, n]):
+        return range_dst_hist_plain(key_cols, bounds, ascending, r, n_dst, n)
+    m = bounds.shape[0]
+    _need(m * nk * 8 + (n_dst + 1) * 4 <= 48 * 1024,
+          "bounds and histogram must fit 48 KB of shared memory")
+    fn = _kernel("range_dst_hist")
+    dev = key_cols[0].device
+    dst = torch.empty((N, cap), dtype=torch.int32, device=dev)
+    hist = torch.zeros((N, n_dst + 1), dtype=torch.int32, device=dev)
+    rc = fn(_ptrs(key_cols), nk, 1 if dt == torch.int64 else 2,
+            bounds.data_ptr() if m else None, m, int(bool(ascending)),
+            int(r), int(n_dst), n.data_ptr(), N, cap, dst.data_ptr(),
+            hist.data_ptr(), _stream())
+    _check("range_dst_hist", rc)
+    return dst, hist

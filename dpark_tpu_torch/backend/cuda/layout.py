@@ -14,9 +14,12 @@ one device:
 
 The record structure ("treedef") is a nested tuple of leaf indices —
 ``(0, (1, 2))`` for ``(k, (a, b))``, ``0`` for a bare scalar — built and
-read by tree_flatten / tree_unflatten below.
+read by tree_flatten / tree_unflatten below.  ``None`` is an empty
+subtree (no leaf), as jax.tree_util treats it: distinct's ``(x, None)``
+records ride the tensor path with the key as their only leaf.
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -58,11 +61,13 @@ def round_capacity_fine(n):
 # record structure
 # ---------------------------------------------------------------------
 def tree_flatten(rec):
-    """(leaves, treedef) of a record: tuples are nodes, anything else a
-    leaf."""
+    """(leaves, treedef) of a record: tuples are nodes, None an empty
+    subtree, anything else a leaf."""
     leaves = []
 
     def walk(x):
+        if x is None:
+            return None
         if isinstance(x, tuple):
             return tuple(walk(c) for c in x)
         leaves.append(x)
@@ -71,6 +76,8 @@ def tree_flatten(rec):
 
 
 def tree_unflatten(treedef, leaves):
+    if treedef is None:
+        return None
     if isinstance(treedef, int):
         return leaves[treedef]
     return tuple(tree_unflatten(c, leaves) for c in treedef)
@@ -81,6 +88,8 @@ def tree_leaves(rec):
 
 
 def num_leaves(treedef):
+    if treedef is None:
+        return 0
     if isinstance(treedef, int):
         return 1
     return sum(num_leaves(c) for c in treedef)
@@ -91,6 +100,8 @@ def _renumber(treedef, start=0):
     n = [start]
 
     def walk(t):
+        if t is None:
+            return None
         if isinstance(t, int):
             n[0] += 1
             return n[0] - 1
@@ -110,7 +121,7 @@ class Batch:
 
 
 def _leaf_dtype(leaf):
-    if isinstance(leaf, (str, bytes, list, dict, set)) or leaf is None:
+    if isinstance(leaf, (str, bytes, list, dict, set)):
         raise TypeError("leaf of type %s has no tensor form"
                         % type(leaf).__name__)
     arr = np.asarray(leaf)
@@ -130,6 +141,8 @@ def _leaf_dtype(leaf):
 def record_spec(sample):
     """(treedef, [(numpy dtype, shape)] per leaf) of a sample record."""
     leaves, treedef = tree_flatten(sample)
+    if not leaves:
+        raise TypeError("a record with no leaves has no tensor form")
     return treedef, [_leaf_dtype(leaf) for leaf in leaves]
 
 
@@ -232,6 +245,8 @@ def egest(batch):
 
 
 def _zip_build(struct, lists):
+    if struct is None:
+        return itertools.repeat(None)
     if isinstance(struct, int):
         return lists[struct]
     return zip(*[_zip_build(x, lists) for x in struct])

@@ -1,7 +1,8 @@
-"""Dependencies, the hash partitioner and the combineByKey aggregator
-(the subset of dpark_tpu/dependency.py this slice runs).  The DAG
-scheduler cuts stages on ShuffleDependency edges."""
+"""Dependencies, the hash and range partitioners and the combineByKey
+aggregator (the subset of dpark_tpu/dependency.py this slice runs).  The
+DAG scheduler cuts stages on ShuffleDependency edges."""
 
+import bisect
 import itertools
 
 from dpark_tpu_torch.utils.phash import portable_hash
@@ -56,3 +57,29 @@ class HashPartitioner:
 
     def __hash__(self):
         return self.partitions
+
+
+class RangePartitioner:
+    """Sorted-sample range partitioner backing sortByKey: bounds from a
+    sample, bisect per key; descending maps partition i to the mirror
+    range."""
+
+    def __init__(self, bounds, ascending=True):
+        self.bounds = list(bounds)
+        self.ascending = ascending
+
+    @property
+    def num_partitions(self):
+        return len(self.bounds) + 1
+
+    def get_partition(self, key):
+        idx = bisect.bisect_left(self.bounds, key)
+        return idx if self.ascending else len(self.bounds) - idx
+
+    def __eq__(self, other):
+        return (isinstance(other, RangePartitioner)
+                and other.bounds == self.bounds
+                and other.ascending == self.ascending)
+
+    def __hash__(self):
+        return hash((tuple(self.bounds), self.ascending))

@@ -11,7 +11,8 @@ import heapq
 import itertools
 
 from dpark_tpu_torch.dependency import (
-    Aggregator, HashPartitioner, OneToOneDependency, ShuffleDependency)
+    Aggregator, HashPartitioner, OneToOneDependency, RangePartitioner,
+    ShuffleDependency)
 
 
 class Split:
@@ -21,6 +22,42 @@ class Split:
 
 def _identity(x):
     return x
+
+
+def _fst(pair):
+    return pair[0]
+
+
+def _snd(pair):
+    return pair[1]
+
+
+def _pair_none(x):
+    return (x, None)
+
+
+def _pair_self(x):
+    return (x, x)
+
+
+def _keep_first(a, b):
+    return a
+
+
+# the identity list-aggregator of groupByKey / partitionBy: values are
+# repartitioned, never combined (the gpu master's no-combine shuffle)
+def _mk_list(v):
+    return [v]
+
+
+def _append(l, v):
+    l.append(v)
+    return l
+
+
+def _extend(l1, l2):
+    l1.extend(l2)
+    return l1
 
 
 class _Empty:
@@ -87,6 +124,53 @@ class RDD:
 
     def reduceByKey(self, func, numSplits=None):
         return self.combineByKey(_identity, func, func, numSplits)
+
+    def groupByKey(self, numSplits=None):
+        return self.combineByKey(_mk_list, _append, _extend, numSplits)
+
+    def groupBy(self, f, numSplits=None):
+        return self.keyBy(f).groupByKey(numSplits)
+
+    def distinct(self, numSplits=None):
+        return (self.map(_pair_none)
+                .reduceByKey(_keep_first, numSplits)
+                .map(_fst))
+
+    def partitionBy(self, partitioner):
+        """Repartition keeping every record (duplicate keys included); the
+        result keeps the partitioner."""
+        if isinstance(partitioner, int):
+            partitioner = HashPartitioner(partitioner)
+        if self.partitioner == partitioner:
+            return self
+        agg = Aggregator(_mk_list, _append, _extend)
+        return FlatMappedValuesRDD(ShuffledRDD(self, agg, partitioner),
+                                   _identity)
+
+    def sortByKey(self, ascending=True, numSplits=None, sampleSize=2000):
+        """Total order by key: range bounds from a sample of every
+        partition, a range shuffle, then a sort of each partition.  Equal
+        keys keep their input order, in both directions."""
+        numSplits = numSplits or len(self.splits)
+        if len(self.splits) <= 1:
+            return self.mapPartitions(_SortPartFn(ascending))
+        per_part = max(20, sampleSize // max(1, len(self.splits)))
+        sampled = []
+        for part in self.ctx.runJob(self, _TakeSampleKeys(per_part)):
+            sampled.extend(part)
+        sampled.sort()
+        bounds = [sampled[len(sampled) * (i + 1) // numSplits]
+                  for i in range(numSplits - 1)] if sampled else []
+        # dedup bounds (heavy skew collapses ranges)
+        bounds = sorted(set(bounds))
+        part = RangePartitioner(bounds, ascending=ascending)
+        return self.partitionBy(part).mapPartitions(_SortPartFn(ascending))
+
+    def sort(self, key=None, reverse=False, numSplits=None):
+        """Sort records by key(record) (the record itself when None)."""
+        keyed = self.keyBy(key) if key else self.map(_pair_self)
+        return keyed.sortByKey(ascending=not reverse,
+                               numSplits=numSplits).map(_snd)
 
     # -- actions ------------------------------------------------------------
     def collect(self):
@@ -165,6 +249,22 @@ class _TakeN:
         return list(itertools.islice(it, self.n))
 
 
+class _SortPartFn:
+    def __init__(self, ascending):
+        self.ascending = ascending
+
+    def __call__(self, it):
+        return iter(sorted(it, key=_fst, reverse=not self.ascending))
+
+
+class _TakeSampleKeys:
+    def __init__(self, n):
+        self.n = n
+
+    def __call__(self, it):
+        return [k for k, _ in itertools.islice(it, self.n)]
+
+
 class _TopN:
     def __init__(self, n, key, smallest=False):
         self.n = n
@@ -230,6 +330,19 @@ class MappedValuesRDD(DerivedRDD):
         return ((k, f(v)) for k, v in self.prev.iterator(split))
 
 
+class FlatMappedValuesRDD(DerivedRDD):
+    def __init__(self, prev, f):
+        super().__init__(prev)
+        self.f = f
+        self.partitioner = prev.partitioner
+
+    def compute(self, split):
+        f = self.f
+        for k, v in self.prev.iterator(split):
+            for vv in f(v):
+                yield (k, vv)
+
+
 class KeyedRDD(DerivedRDD):
     def __init__(self, prev, f):
         super().__init__(prev)
@@ -244,9 +357,10 @@ class KeyedRDD(DerivedRDD):
 # the shuffle
 # ----------------------------------------------------------------------
 class ShuffledRDD(RDD):
-    """Reduce side of a hash shuffle: compute() fetches every map
-    output's bucket for its partition and merges combiners (the gpu
-    master replaces this with the device exchange and K3 merge)."""
+    """Reduce side of a shuffle: compute() fetches every map output's
+    bucket for its partition and merges combiners (the gpu master
+    replaces this with the device exchange and the K5 key sort, plus the
+    K3 merge when the aggregator combines)."""
 
     def __init__(self, parent, aggregator, partitioner):
         super().__init__(parent.ctx)

@@ -1,11 +1,15 @@
 """In-process shuffle bucket store of the host object path (the subset
 of dpark_tpu/shuffle.py this slice needs).
 
-A host map task writes its buckets here ("mem://<sid>"); a device map
-stage leaves its output on the device ("hbm://<sid>") and the store
-reads such buckets through the executor's export bridge, so a host
-reduce stage can consume either.
+A host map task writes its buckets here ("mem://<sid>"), pickled, so
+every fetch gets fresh combiners: a reduce merge that mutates one (list
+extend) must not change what a later job reads.  A device map stage
+leaves its output on the device ("hbm://<sid>") and the store reads such
+buckets through the executor's export bridge, so a host reduce stage can
+consume either.
 """
+
+import pickle
 
 
 class BucketStore:
@@ -16,7 +20,8 @@ class BucketStore:
 
     def write_buckets(self, sid, map_id, buckets):
         """Store one map task's per-reduce {key: combiner} buckets."""
-        self._buckets[(sid, map_id)] = [list(b.items()) for b in buckets]
+        self._buckets[(sid, map_id)] = [pickle.dumps(list(b.items()), -1)
+                                        for b in buckets]
         return "mem://%d" % sid
 
     def set_map_outputs(self, sid, uris):
@@ -32,7 +37,8 @@ class BucketStore:
             if uri.startswith("hbm://"):
                 yield from self.exporter(sid, map_id, reduce_id)
             else:
-                yield from self._buckets[(sid, map_id)][reduce_id]
+                yield from pickle.loads(
+                    self._buckets[(sid, map_id)][reduce_id])
 
     def drop(self, sid):
         self._map_outputs.pop(sid, None)
