@@ -1,6 +1,8 @@
 """Knobs of the PyTorch port (the subset of dpark_tpu/conf.py this
 slice reads)."""
 
+import os
+
 # widest flat tuple key the device path accepts: each extra key leaf is
 # one more sort pass in every shuffle
 MAX_KEY_LEAVES = 4
@@ -34,3 +36,25 @@ def stream_chunk_rows(row_bytes=16, device="cpu"):
         return _STREAM_CHUNK_ROWS_FALLBACK
     return max(_STREAM_CHUNK_ROWS_FALLBACK,
                limit // (16 * max(1, row_bytes)))
+
+
+# graph-build-time rewrite of groupByKey().mapValue(provable aggregate)
+# to a map-side-combining combineByKey (rdd._group_agg_rewrite), on every
+# master.  "0" disables; the device SegAggOp path then serves these
+# chains.  FLOAT CAVEAT: the rewrite reassociates the fold — sum/mean
+# over float values pre-combine map-side, so low-order bits depend on
+# partitioning and combine order on every master (local included).
+GROUP_AGG_REWRITE = os.environ.get("DPARK_GROUP_AGG_REWRITE",
+                                   "1") != "0"
+
+# device segmented apply (fuse.SegMapOp): groupByKey().mapValues(f) with
+# a traceable, padding-invariant per-group f runs on the device as a
+# vmap over power-of-two padded group buckets.  "0" keeps such stages on
+# the host object path.
+SEG_MAP = os.environ.get("DPARK_SEG_MAP", "1") != "0"
+
+# budget guard of the segmented apply: a stage whose estimated row count
+# is below (estimated buckets x this many rows) keeps the host loop
+# (fallback_reason "seg_map compile budget").  0 disables the guard.
+SEG_MIN_ROWS_PER_TRACE = int(os.environ.get(
+    "DPARK_SEG_MIN_ROWS_PER_TRACE", "0") or 0)

@@ -44,6 +44,41 @@ def _keep_first(a, b):
     return a
 
 
+def _add(a, b):
+    return a + b
+
+
+def _one(v):
+    return 1
+
+
+def _radd_zero(v):
+    """sum()'s first accumulation step (0 + item): raises for exactly
+    the value types sum() raises for — the group-aggregate rewrite must
+    not widen what works (a string group must still TypeError)."""
+    return 0 + v
+
+
+def _count_merge(c, v):
+    return c + 1
+
+
+def _mean_create(v):
+    return (0 + v, 1)
+
+
+def _mean_merge_value(c, v):
+    return (c[0] + v, c[1] + 1)
+
+
+def _mean_merge(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+def _mean_final(sc):
+    return sc[0] / sc[1]
+
+
 # the identity list-aggregator of groupByKey / partitionBy: values are
 # repartitioned, never combined (the gpu master's no-combine shuffle)
 def _mk_list(v):
@@ -108,9 +143,75 @@ class RDD:
         return MapPartitionsRDD(self, f)
 
     def mapValue(self, f):
+        rewritten = self._group_agg_rewrite(f)
+        if rewritten is not None:
+            return rewritten
         return MappedValuesRDD(self, f)
 
     mapValues = mapValue
+
+    def _group_agg_rewrite(self, f):
+        """groupByKey().mapValue(provable aggregate) -> combineByKey: the
+        combiner optimization, applied at graph-build time so every
+        master pre-aggregates map-side and the exchange carries
+        O(distinct keys) rows instead of every row.
+
+        Applies only when `self` IS a bare groupByKey output (a
+        no-combine hash ShuffledRDD — partitionBy's flat rows sit behind
+        a FlatMappedValues(identity) and never reach here), the
+        aggregate is provable (utils.monoid.classify_segagg: sum/len/
+        min/max/mean or a __dpark_segagg__ hint — NOT the np twins,
+        which flatten array values), and the grouping's shuffle outputs
+        do not already exist (then reuse beats re-scanning the parent).
+        The sum rewrites start from ``0 + v`` like sum()'s accumulator,
+        so non-numeric values raise as they always did.
+        conf.GROUP_AGG_REWRITE=0 disables (the device SegAggOp path then
+        serves these chains).
+
+        FLOAT CAVEAT: the rewrite REASSOCIATES the fold.  sum/mean over
+        float values pre-combine map-side and merge per partition, so
+        the result's low-order bits depend on partitioning and combine
+        order on every master, local included, where the un-rewritten
+        chain summed each group's list in row order."""
+        import numpy as np
+        from dpark_tpu_torch import conf
+        from dpark_tpu_torch.utils.monoid import classify_segagg
+        if not conf.GROUP_AGG_REWRITE:
+            return None
+        if not (isinstance(self, ShuffledRDD)
+                and self.aggregator.create_combiner is _mk_list
+                and self.aggregator.merge_value is _append
+                and self.aggregator.merge_combiners is _extend
+                and type(self.partitioner) is HashPartitioner):
+            return None
+        if self.ctx.bucket_store.has_outputs(self.dep.shuffle_id):
+            # an earlier job computed this grouped RDD: reuse its map
+            # outputs instead of re-scanning the parent
+            return None
+        # np.sum/np.mean/np.min/np.max flatten a list of array values
+        # where the pairwise builtins work elementwise: only the
+        # builtins, the bytecode templates and explicit hints rewrite
+        try:
+            if f in (np.sum, np.mean, np.min, np.max):
+                return None
+        except TypeError:
+            return None
+        kind = classify_segagg(f)
+        n = self.partitioner.num_partitions
+        parent = self.parent
+        if kind == "sum":
+            return parent.combineByKey(_radd_zero, _add, _add, n)
+        if kind == "count":
+            return parent.combineByKey(_one, _count_merge, _add, n)
+        if kind == "min":
+            return parent.combineByKey(_identity, min, min, n)
+        if kind == "max":
+            return parent.combineByKey(_identity, max, max, n)
+        if kind == "mean":
+            return parent.combineByKey(
+                _mean_create, _mean_merge_value, _mean_merge,
+                n).mapValue(_mean_final)
+        return None
 
     def keyBy(self, f):
         return KeyedRDD(self, f)

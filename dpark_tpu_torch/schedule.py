@@ -5,7 +5,8 @@ submit_tasks(); the gpu master runs whole stages on the device.
 
 Each job leaves a record in `history` whose `stage_info` list carries
 one dict per stage: `kind` ("object", or "array..." when the device ran
-it), `fallback_reason` when the device path declined it, and timings.
+it), `fallback_reason` when the device path declined it, `combine` on a
+shuffle-map stage (whether its write pre-aggregates), and timings.
 """
 
 import itertools
@@ -13,6 +14,7 @@ import time
 import traceback
 
 from dpark_tpu_torch.dependency import ShuffleDependency
+from dpark_tpu_torch.rdd import _mk_list
 from dpark_tpu_torch.task import ResultTask, ShuffleMapTask
 
 
@@ -149,6 +151,11 @@ class DAGScheduler:
         info.update({"rdd": type(stage.rdd).__name__,
                      "parts": stage.num_partitions,
                      "shuffle": stage.is_shuffle_map})
+        if stage.is_shuffle_map:
+            # a combining write pre-aggregates map-side; groupByKey /
+            # partitionBy / sortByKey repartition only
+            info["combine"] = (stage.shuffle_dep.aggregator.create_combiner
+                               is not _mk_list)
         t0 = time.time()
         self.submit_tasks(stage, tasks, report)
         info["seconds"] = round(time.time() - t0, 6)

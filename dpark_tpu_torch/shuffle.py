@@ -27,6 +27,9 @@ class BucketStore:
     def set_map_outputs(self, sid, uris):
         self._map_outputs[sid] = list(uris)
 
+    def has_outputs(self, sid):
+        return sid in self._map_outputs
+
     def fetch(self, sid, reduce_id):
         """Every map output's (key, combiner) items for one reduce
         partition, in map order."""

@@ -1,5 +1,5 @@
-"""EXACT algebraic classification of 2-arg merge callables (port of
-dpark_tpu/utils/monoid.py), plus the monoid identities and the plain
+"""EXACT algebraic classification of 2-arg merge callables and of
+1-arg per-group aggregates (port of dpark_tpu/utils/monoid.py), plus the monoid identities and the plain
 reductions the executor's reduce(f) path needs (from dpark_tpu/bagel.py
 monoid_identity and backend/tpu/bagel.py _local_reduce).
 
@@ -54,6 +54,67 @@ def _templates():
                 c = f.__code__
                 _TEMPLATES[(c.co_code, c.co_consts, c.co_names)] = name
     return _TEMPLATES
+
+
+SEGAGG_KINDS = ("sum", "count", "min", "max", "mean")
+
+_SEGAGG_DIRECT = {sum: "sum", len: "count", min: "min", max: "max",
+                  np.sum: "sum", np.mean: "mean",
+                  np.min: "min", np.max: "max"}
+
+_SEGAGG_TEMPLATES = None
+
+
+def _segagg_templates():
+    global _SEGAGG_TEMPLATES
+    if _SEGAGG_TEMPLATES is None:
+        tmpl = {
+            "sum": [lambda vs: sum(vs)],
+            "count": [lambda vs: len(vs)],
+            "min": [lambda vs: min(vs)],
+            "max": [lambda vs: max(vs)],
+            "mean": [lambda vs: sum(vs) / len(vs)],
+        }
+        _SEGAGG_TEMPLATES = {}
+        for name, fns in tmpl.items():
+            for f in fns:
+                c = f.__code__
+                _SEGAGG_TEMPLATES[(c.co_code, c.co_consts,
+                                   c.co_names)] = name
+    return _SEGAGG_TEMPLATES
+
+
+def classify_segagg(f):
+    """EXACT classification of a 1-arg function applied to a groupByKey
+    value LIST as a per-group aggregate.  Same proof obligations as
+    classify_merge — only provable matches qualify:
+
+    * the builtins sum/len/min/max (or np.sum/np.mean/np.min/np.max)
+      by identity;
+    * a closure-free 1-arg function whose bytecode equals ``sum(vs)``,
+      ``len(vs)``, ``min(vs)``, ``max(vs)`` or ``sum(vs)/len(vs)``,
+      with referenced globals verified to still be the builtins;
+    * an explicit hint: ``f.__dpark_segagg__ = "sum"``.
+
+    Returns "sum" | "count" | "min" | "max" | "mean" | None."""
+    hint = getattr(f, "__dpark_segagg__", None)
+    if hint in SEGAGG_KINDS:
+        return hint
+    try:
+        if f in _SEGAGG_DIRECT:
+            return _SEGAGG_DIRECT[f]
+    except TypeError:
+        return None
+    code = getattr(f, "__code__", None)
+    if code is None or getattr(f, "__closure__", None):
+        return None
+    if code.co_argcount != 1 or code.co_flags & 0x0C:
+        return None
+    name = _segagg_templates().get((code.co_code, code.co_consts,
+                                    code.co_names))
+    if name is None or not builtin_globals_ok(f, code):
+        return None
+    return name
 
 
 def classify_merge(merge):
