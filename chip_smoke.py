@@ -3,10 +3,10 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the six CUDA kernels
+1. prints the card's name and power limit, builds the eight CUDA kernels
    from csrc/ (one nvcc each, all started together) and prints the build
    time;
-2. holds each kernel (K1-K6) against its plain PyTorch version on the
+2. holds each kernel (K1-K8) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows), and
    times kernel, plain version, bound and library call;
 3. drives the reduceByKey path through the public API: bench.py's data
@@ -18,10 +18,17 @@ NVIDIA GPU.
    shuffle) and gpu (one in-place sort), collect checked row for row
    against numpy's stable argsort; then partitionBy / groupByKey /
    distinct counts over bench.py's data, checked against numpy;
-5. every stage of every checked job must take the tensor path, and every
+5. drives the grouped paths on gpu:8: groupByKey(8).mapValues(sum of
+   squares) -> count / collect over bench.py's data (65,536 groups of
+   1,024) and over 67,107,840 power-law rows (16,384 groups, group g of
+   2^(g mod 16) rows: 1,024 groups in each of 16 size classes), checked
+   exactly against numpy (SegMapOp: K7, K2, K8); then mapValues(sum /
+   len / min / max / mean) with the combiner rewrite off (SegAggOp: K3)
+   and sum once more with it on (a combining shuffle);
+6. every stage of every checked job must take the tensor path, and every
    kernel of a path must launch during that path's run (counts reset
    just before it, read just after);
-6. profiles the first action of each gpu:8 path, prints one JSON line
+7. profiles the first action of each gpu:8 path, prints one JSON line
    describing every kernel, then the result line.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
@@ -59,7 +66,16 @@ SOURCES = {
                    "dpark_tpu/backend/tpu/collectives.py:123"),
     "range_dst_hist": ("dpark_tpu_torch/backend/cuda/csrc/range_dst_hist.cu",
                        "dpark_tpu/backend/tpu/collectives.py:103"),
+    "segment_table": ("dpark_tpu_torch/backend/cuda/csrc/segment_table.cu",
+                      "dpark_tpu/backend/tpu/collectives.py:515"),
+    "bucket_gather": ("dpark_tpu_torch/backend/cuda/csrc/bucket_groups.cu",
+                      "dpark_tpu/backend/tpu/collectives.py:605"),
+    "bucket_scatter": ("dpark_tpu_torch/backend/cuda/csrc/bucket_groups.cu",
+                       "dpark_tpu/backend/tpu/fuse.py:880"),
 }
+SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
+                  "radix_sort", "segment_table", "bucket_gather",
+                  "bucket_scatter"]
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
@@ -73,9 +89,20 @@ PATH_KERNELS = {
     "partition/group/distinct gpu:8": [
         "hash_dst_hist", "stable_partition", "reduce_by_key_compact",
         "shard_exchange", "radix_sort"],
+    "groupByKey gpu:8 segmap": SEGMAP_KERNELS,
+    "groupByKey gpu:8 segmap power-law": SEGMAP_KERNELS,
+    # SegAggOp merges with K3 alone: no K7, no K8
+    "groupByKey gpu:8 segagg": [
+        "hash_dst_hist", "stable_partition", "shard_exchange", "radix_sort",
+        "reduce_by_key_compact"],
 }
 # the path whose launches the kernels line reports for each kernel
-LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8"}
+LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
+             "segment_table": "groupByKey gpu:8 segmap",
+             "bucket_gather": "groupByKey gpu:8 segmap",
+             "bucket_scatter": "groupByKey gpu:8 segmap"}
+POWER_GROUPS = 16_384
+POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 
 
 def fail(msg):
@@ -365,6 +392,154 @@ def sort_kernel_phases(K, dev):
     return out
 
 
+def seg_table_case(K, keys, n, library=True):
+    """K7 on one (N, CAP) key-sorted column against its plain version;
+    library call: torch.unique_consecutive(return_inverse=True,
+    return_counts=True) over the flattened shards (the same segments
+    where no run crosses a shard boundary and every row is valid)."""
+    a = K.segment_table([keys], n)
+    b = K.segment_table_plain([keys], n)
+    names = ["start_rows", "sizes", "bucket", "n_seg", "hist"]
+    err = max_err([("K7 " + nm, x, y) for nm, x, y in zip(names, a, b)]
+                  + [("K7 keys", a[5][0], b[5][0])])
+    lib = None
+    if library:
+        flat = keys.view(-1)
+        lib = timed(lambda: torch.unique_consecutive(
+            flat, return_inverse=True, return_counts=True))
+    return a, {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.segment_table([keys], n)),
+        "plain_ms": timed(lambda: K.segment_table_plain([keys], n),
+                          reps=3),
+        # keys and n read once; the five outputs and the segment keys
+        # written once
+        "bound_ms": bound_ms(nbytes(keys, n, *a[:5], a[5][0])),
+        "library_ms": lib,
+        "notes": {"segments": int(a[3].sum().item())},
+    }
+
+
+def seg_group_cases(K, C, table, vals, b, pads):
+    """K8 gather (each pad) and scatter for size class b of `table`
+    against their plain versions."""
+    from dpark_tpu_torch.backend.cuda.layout import round_capacity
+    start_rows, sizes, bucket, _, hist, _ = table
+    members, counts, offsets = C.bucket_members(bucket)
+    G = round_capacity(int(hist[:, b].max().item()))
+    B = 1 << b
+    boff, bcnt = offsets[:, b].contiguous(), counts[:, b].contiguous()
+    lanes = int(bcnt.sum().item())
+    rows_read = int(sizes.gather(1, members.long()).masked_fill(
+        ~valid_lanes(members, boff, bcnt), 0).sum().item())
+    out = {}
+    for pad in pads:
+        x = K.bucket_gather(start_rows, sizes, members, boff, bcnt, G, B,
+                            vals, pad)
+        y = K.bucket_gather_plain(start_rows, sizes, members, boff, bcnt, G,
+                                  B, vals, pad)
+        err = max_err([("K8 gather %s" % pad, x, y)])
+        out[pad] = {
+            "max_abs_err": err,
+            "ms": timed(lambda: K.bucket_gather(
+                start_rows, sizes, members, boff, bcnt, G, B, vals, pad)),
+            "plain_ms": timed(lambda: K.bucket_gather_plain(
+                start_rows, sizes, members, boff, bcnt, G, B, vals, pad),
+                reps=3),
+            # the padded matrix written once, each group's rows read once,
+            # member id, start row and size read per lane
+            "bound_ms": bound_ms(nbytes(x) + rows_read * vals.element_size()
+                                 + lanes * 12 + nbytes(boff, bcnt)),
+            "library_ms": None,
+            "notes": {"G": G, "B": B, "lanes": lanes},
+        }
+    res = [x.sum(2)]
+    o1 = [torch.zeros(vals.shape, dtype=res[0].dtype, device=vals.device)]
+    o2 = [o1[0].clone()]
+    K.bucket_scatter(o1, res, members, boff, bcnt)
+    K.bucket_scatter_plain(o2, res, members, boff, bcnt)
+    err = max_err([("K8 scatter", o1[0], o2[0])])
+    out["scatter"] = {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.bucket_scatter(o1, res, members, boff, bcnt)),
+        "plain_ms": timed(lambda: K.bucket_scatter_plain(
+            o2, res, members, boff, bcnt), reps=3),
+        # results read once, one element written and one member id read
+        # per valid lane
+        "bound_ms": bound_ms(nbytes(*res) + lanes * (8 + 4)
+                             + nbytes(boff, bcnt)),
+        "library_ms": None,
+        "notes": {"G": G, "lanes": lanes},
+    }
+    return out
+
+
+def valid_lanes(members, boff, bcnt):
+    """(N, cap) bool: the member slots of one size class."""
+    i = torch.arange(members.shape[1], device=members.device)[None, :]
+    return (i >= boff[:, None]) & (i < (boff + bcnt)[:, None])
+
+
+def power_law_groups():
+    """Group id of each of the 67,107,840 power-law rows: group g has
+    2^(g mod 16) rows (1 to 32,768; 1,024 groups in each size class),
+    rows in a seeded random order."""
+    rng = np.random.default_rng(20261020)
+    sizes = 1 << (np.arange(POWER_GROUPS) % 16)
+    gid = np.repeat(np.arange(POWER_GROUPS, dtype=np.int64), sizes)
+    return gid[rng.permutation(POWER_ROWS)]
+
+
+def power_law_key(gid):
+    """Keys spread by a multiplicative hash (a bijection of the group
+    ids below 2^32)."""
+    return (gid * 2654435761) % (1 << 32)
+
+
+def seg_kernel_phases(K, dev):
+    """K7 and K8 against their plain versions at the grouped paths'
+    shapes, 8 x 8,388,608 key-sorted rows.  K7: bench.py's 65,536 keys
+    after groupByKey(8) (8,192 groups of 1,024 rows a shard), and the
+    power-law rows cut into 8 key-sorted shards.  K8: the bench groups'
+    class (width 1,024) in both pads, the power-law's widest class
+    (32,768) zero-padded; scatter of each group's sum."""
+    from dpark_tpu_torch.backend.cuda import collectives as C
+    out = {}
+
+    def add(name, rec):
+        out[name] = rec
+        print_phase(name, rec)
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    keys = torch.arange(KEYS, dtype=torch.int64, device=dev) \
+        .repeat_interleave(PAIRS // KEYS).view(N_SHARDS, CAP)
+    table, rec = seg_table_case(K, keys, n)
+    add("segment_table", rec)
+    vals = (torch.arange(PAIRS, dtype=torch.int64, device=dev)
+            & 0xFFFF).view(N_SHARDS, CAP)
+    width = (PAIRS // KEYS).bit_length() - 1        # the class of 1,024
+    cases = seg_group_cases(K, C, table, vals, width, ("zero", "edge"))
+    add("bucket_gather", cases["zero"])
+    add("bucket_gather edge", cases["edge"])
+    add("bucket_scatter", cases["scatter"])
+    del keys, table, cases
+    gid = np.sort(power_law_key(power_law_groups()))
+    per = POWER_ROWS // N_SHARDS
+    pk = torch.full((N_SHARDS, CAP), K.KEY_SENTINEL, dtype=torch.int64,
+                    device=dev)
+    pk[:, :per] = torch.from_numpy(gid.reshape(N_SHARDS, per)).to(dev)
+    del gid
+    pn = torch.full((N_SHARDS,), per, dtype=torch.int32, device=dev)
+    table, rec = seg_table_case(K, pk, pn, library=False)
+    add("segment_table power-law", rec)
+    widest = int(table[4].sum(0).nonzero().max().item())
+    cases = seg_group_cases(K, C, table, vals, widest, ("zero",))
+    add("bucket_gather power-law widest class", cases["zero"])
+    add("bucket_scatter power-law", cases["scatter"])
+    del pk, vals, table, cases
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_stages(ctx, what):
     for st in ctx.scheduler.history[-1]["stage_info"]:
         if not st["kind"].startswith("array") or "fallback_reason" in st:
@@ -509,6 +684,106 @@ def group_paths(keys, vals):
     ctx.stop()
 
 
+def sumsq(vs):
+    return sum(v * v for v in vs)
+
+
+def check_groups(what, got, want):
+    """got (collected (k, v) rows) equals want (dict key -> value)."""
+    if len(got) != len(want):
+        fail("%s: %d groups, want %d" % (what, len(got), len(want)))
+    for k, v in got:
+        if want.get(k) != v:
+            fail("%s: key %s gives %r, numpy %r" % (what, k, v, want.get(k)))
+
+
+def segmap_path(label, keys, vals, want):
+    """groupByKey(8).mapValues(sum of squares) -> count / collect on
+    gpu:8, every stage on the tensor path, checked against numpy."""
+    from dpark_tpu_torch import Columns, DparkContext
+    ctx = DparkContext("gpu:8")
+    r = ctx.parallelize(Columns(keys, vals), 8).groupByKey(8) \
+        .mapValues(sumsq)
+    if act("gpu:8 %s count" % label, r.count) != len(want):
+        fail("%s count" % label)
+    check_stages(ctx, label + " count")
+    got = act("gpu:8 %s collect" % label, r.collect)
+    check_stages(ctx, label + " collect")
+    check_groups(label, got, want)
+    ctx.stop()
+
+
+def segagg_path(keys, vals):
+    """groupByKey(8).mapValues(sum / len / min / max / mean) with the
+    combiner rewrite off (SegAggOp), then sum with it on (a combining
+    shuffle), collected and checked exactly against numpy."""
+    from dpark_tpu_torch import Columns, DparkContext, conf
+    order = np.argsort(keys, kind="stable")
+    starts = np.searchsorted(keys[order], np.arange(KEYS))
+    sv = vals[order]
+    sums = np.add.reduceat(sv, starts)
+    lens = np.diff(np.append(starts, len(keys)))
+    wants = {"sum": sums, "len": lens,
+             "min": np.minimum.reduceat(sv, starts),
+             "max": np.maximum.reduceat(sv, starts),
+             "mean": sums / lens}
+    fns = {"sum": sum, "len": len, "min": min, "max": max,
+           "mean": lambda vs: sum(vs) / len(vs)}
+    ctx = DparkContext("gpu:8")
+    r = ctx.parallelize(Columns(keys, vals), 8)
+    old = conf.GROUP_AGG_REWRITE
+    conf.GROUP_AGG_REWRITE = False
+    try:
+        for name, f in fns.items():
+            label = "segagg %s" % name
+            got = act("gpu:8 %s collect" % label,
+                      r.groupByKey(8).mapValues(f).collect)
+            check_stages(ctx, label)
+            st = ctx.scheduler.history[-1]["stage_info"]
+            if st[0]["combine"]:
+                fail("%s: the grouping shuffle combined" % label)
+            check_groups(label, got, {k: wants[name][k].item()
+                                      for k in range(KEYS)})
+    finally:
+        conf.GROUP_AGG_REWRITE = old
+    got = act("gpu:8 rewritten sum collect",
+              r.groupByKey(8).mapValues(sum).collect)
+    check_stages(ctx, "rewritten sum")
+    if not ctx.scheduler.history[-1]["stage_info"][0]["combine"]:
+        fail("rewritten sum: the stage record shows no combining shuffle")
+    check_groups("rewritten sum", got, {k: wants["sum"][k].item()
+                                        for k in range(KEYS)})
+    ctx.stop()
+
+
+def square_sums(gid, vals, groups):
+    """Per-group sums of vals**2 as int64.  bincount adds in float64,
+    which is exact while every group's sum stays below 2**53 (the weights
+    are non-negative, so no partial sum exceeds its group's total)."""
+    got = np.bincount(gid, weights=(vals * vals).astype(np.float64),
+                      minlength=groups)
+    if got.max(initial=0) >= 2.0 ** 53:
+        fail("square sums reach 2**53: the float64 reference is inexact")
+    return got.astype(np.int64)
+
+
+def grouped_paths(drive, keys, vals):
+    """The three grouped paths; each driven with its own launch counts."""
+    want = square_sums(keys, vals, KEYS)
+    drive("groupByKey gpu:8 segmap", segmap_path, "segmap", keys, vals,
+          dict(enumerate(want.tolist())))
+    drive("groupByKey gpu:8 segagg", segagg_path, keys, vals)
+    gid = power_law_groups()
+    pkeys = power_law_key(gid)
+    pvals = np.arange(POWER_ROWS, dtype=np.int64) & 0xFFFF
+    sq = square_sums(gid, pvals, POWER_GROUPS)
+    del gid
+    pwant = dict(zip(power_law_key(np.arange(POWER_GROUPS)).tolist(),
+                     sq.tolist()))
+    drive("groupByKey gpu:8 segmap power-law", segmap_path,
+          "segmap power-law", pkeys, pvals, pwant)
+
+
 def profile_first_action(label, build, top=14):
     """Where the time of one first action goes, under torch.profiler:
     prints the wall time, the summed device time and the ops with the
@@ -563,6 +838,7 @@ def main():
     dev = torch.device("cuda")
     phases = kernel_phases(K, dev)
     phases.update(sort_kernel_phases(K, dev))
+    phases.update(seg_kernel_phases(K, dev))
 
     launches = {}
 
@@ -585,6 +861,13 @@ def main():
     profile_first_action(
         "gpu:8 reduceByKey count", lambda ctx: ctx.parallelize(
             Columns(keys, vals), 8).reduceByKey(lambda a, b: a + b, 8).count)
+    del keys, vals
+    keys, vals = bench_data()
+    grouped_paths(drive, keys, vals)
+    profile_first_action(
+        "gpu:8 groupByKey.mapValues(sumsq) collect", lambda ctx:
+        ctx.parallelize(Columns(keys, vals), 8).groupByKey(8)
+        .mapValues(sumsq).collect)
     del keys, vals
     skeys, svals = sort_data()
     drive("sort gpu:8", sort_path, "gpu:8", skeys, svals)

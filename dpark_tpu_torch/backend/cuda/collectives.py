@@ -12,6 +12,9 @@ rows (``n`` an ``(N,)`` int32 tensor) instead of a validity mask:
   exchange among the N shards    K4 shard_exchange
   stable sort by a key column    K5 radix_sort (every _lex_sort key pass)
   range destination + histogram  K6 range_dst_hist
+  segment table of sorted rows   K7 segment_table
+  members of each size class     K2 stable_partition (by K7's class)
+  padded groups of a size class  K8 bucket_gather (and bucket_scatter)
 
 The traced segmented scan of an unclassified user merge
 (segmented_combine) stays PyTorch in this slice.
@@ -273,3 +276,74 @@ def segment_reduce_keys(key_cols, val_leaves, n, merge_leaves, monoid=None):
     k_out, v_out, n_unique, _, _ = _merge_runs(
         ks, fills, vals, n, merge_leaves, monoid)
     return k_out, v_out, n_unique
+
+
+# ----------------------------------------------------------------------
+# segment spans + power-of-two size classes: the machinery of the device
+# segmented apply (fuse.SegMapOp).  Group sizes collapse into
+# ceil(log2) classes, so any size distribution costs at most one padded
+# group matrix per power of two.
+# ----------------------------------------------------------------------
+bucket_index = kernels.size_class
+
+
+def _segment_table(key_cols, n, want_keys=False):
+    """K7 over each shard's KEY-SORTED valid-prefix rows (a segment
+    starts where ANY key column changes): (start_rows, sizes, bucket,
+    n_seg, hist, keys) — see kernels.segment_table."""
+    return kernels.segment_table([k.contiguous() for k in key_cols], n,
+                                 want_keys=want_keys)
+
+
+def segment_spans(key_cols, n):
+    """(start_rows, sizes, n_seg): the row of segment j's first row and
+    its size ((N, cap) int32, 0 past n_seg) and (N,) n_seg."""
+    start_rows, sizes, _, n_seg, _, _ = _segment_table(key_cols, n)
+    return start_rows, sizes, n_seg
+
+
+def segment_sizes(key_cols, n):
+    """(sizes, n_seg) of the key-sorted valid prefix."""
+    _, sizes, _, n_seg, _, _ = _segment_table(key_cols, n)
+    return sizes, n_seg
+
+
+def bucket_histogram(key_cols, n):
+    """((N, 32) segment counts per power-of-two size class, (N,) largest
+    segment size) of each shard's key-sorted rows."""
+    _, sizes, _, _, hist, _ = _segment_table(key_cols, n)
+    return hist, sizes.amax(1).to(torch.int32)
+
+
+def bucket_members(bucket):
+    """Every size class's segment ids in segment order, at once: K2's
+    stable partition of the segment ids by their class ((N, cap) int32,
+    kernels.SIZE_CLASSES past n_seg).  Returns (members (N, cap) int32,
+    counts (N, SIZE_CLASSES + 1), offsets (N, SIZE_CLASSES + 1)):
+    class b's members of shard s are members[s, offsets[s, b]:][:counts[s,
+    b]]."""
+    N, cap = bucket.shape
+    ids = torch.arange(cap, dtype=torch.int32, device=bucket.device) \
+        .expand(N, cap).contiguous()
+    (members,), counts, _ = kernels.stable_partition(
+        bucket.contiguous(), kernels.SIZE_CLASSES + 1, [ids])
+    return members, counts, _excl_offsets(counts)
+
+
+def gather_bucket_groups(start_rows, sizes, members, offsets, counts, b, G,
+                         B, val_col, pad):
+    """K8: the padded (N, G, B) value matrix of size class b's groups
+    (`pad` "zero" writes 0 past a group's size, "edge" repeats its last
+    row; invalid lanes are 0)."""
+    return kernels.bucket_gather(start_rows, sizes, members,
+                                 offsets[:, b].contiguous(),
+                                 counts[:, b].contiguous(), G, B,
+                                 val_col.contiguous(), pad)
+
+
+def scatter_bucket_groups(outs, results, members, offsets, counts, b):
+    """K8: each valid lane's (N, G) results written into the (N, cap)
+    `outs` at its segment id, in place."""
+    return kernels.bucket_scatter(outs, [r.contiguous() for r in results],
+                                  members, offsets[:, b].contiguous(),
+                                  counts[:, b].contiguous())

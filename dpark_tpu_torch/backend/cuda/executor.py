@@ -10,6 +10,8 @@ hash write is K1 destination, K5 key sort, K2 partition, K3 combine, and
 its reduce side sorts (K5) and merges (K3); a no-combine write
 (groupByKey, partitionBy, sortByKey's range shuffle) is K1 or K6
 destination and K2 partition, and its reduce side only sorts by key (K5).
+A groupByKey().mapValues(f) reduce side then runs SegAggOp (K3) or, for
+SegMapOp, K7's segment table first (_run_seg_map).
 
 PyTorch runs eagerly: the reference's compiled programs (narrow,
 exchange, reduce) are plain functions here, and there is no program
@@ -65,6 +67,10 @@ class TorchExecutor:
         ("result", [rows per shard])."""
         if plan.source[0] == "ingest":
             batch = self._ingest(plan)
+        elif plan.ops and isinstance(plan.ops[0], fuse.SegMapOp):
+            # segmented apply: sort the rows, read the size-class
+            # histogram, set the op's bucket layout
+            batch = self._run_seg_map(plan)
         else:
             batch = self._exchange_and_reduce(plan)
         outs = self._run_narrow(plan, batch)
@@ -85,19 +91,59 @@ class TorchExecutor:
         key sort and, unless the shuffle repartitions only, K3 merge."""
         dep = plan.source[1]
         store = self.shuffle_store[dep.shuffle_id]
-        leaves = store["leaves"]
-        recv, n = collectives.exchange(leaves, store["counts"],
-                                       store["offsets"])
         nk = plan.src_nk
         if store["no_combine"]:
-            # sort by the full key (padding holds the sentinel: last);
-            # equal keys keep their arrival order, source-major
-            packed = collectives._lex_sort(recv, nk)
-            return layout.Batch(plan.in_treedef, list(packed), n)
+            return self._exchange_sorted(store, nk, plan.in_treedef)
+        recv, n = collectives.exchange(store["leaves"], store["counts"],
+                                       store["offsets"])
         monoid = fuse.classify_merge(dep.aggregator.merge_combiners)
         ks, vs, n_unique = collectives.segment_reduce_keys(
             recv[:nk], recv[nk:], n, plan.src_merge, monoid=monoid)
         return layout.Batch(plan.in_treedef, list(ks) + list(vs), n_unique)
+
+    @staticmethod
+    def _exchange_sorted(store, nk, treedef):
+        """The no-combine reduce side: K4 exchange, then a sort by the
+        full key (padding holds the sentinel: last); equal keys keep
+        their arrival order, source-major."""
+        recv, n = collectives.exchange(store["leaves"], store["counts"],
+                                       store["offsets"])
+        packed = collectives._lex_sort(recv, nk)
+        return layout.Batch(treedef, list(packed), n)
+
+    # ------------------------------------------------------------------
+    # segmented apply: groupByKey().mapValues(traceable f) as a vmap over
+    # power-of-two padded group classes.  Two phases: sort the rows and
+    # read the class histogram, then apply with that layout.
+    # ------------------------------------------------------------------
+    def _run_seg_map(self, plan):
+        op = plan.ops[0]
+        store = self.shuffle_store[plan.source[1].shuffle_id]
+        batch, table = self._seg_exchange_sorted(store, op.nk,
+                                                 plan.in_treedef)
+        op.table = table
+        op.layout = self._seg_bucket_layout(table[4])
+        return batch
+
+    def _seg_exchange_sorted(self, store, nk, treedef):
+        """K4 exchange and K5 key sort, then K7's segment table (start
+        rows, sizes, size classes, histogram, segment keys) in one pass
+        over the received rows."""
+        batch = self._exchange_sorted(store, nk, treedef)
+        table = collectives._segment_table(batch.cols[:nk], batch.counts,
+                                           want_keys=True)
+        return batch, table
+
+    @staticmethod
+    def _seg_bucket_layout(hist):
+        """((class, width, G), ...) of the non-empty power-of-two size
+        classes, G the class's most groups on any shard rounded to a
+        power-of-two capacity (hash skew across shards cannot overflow
+        it); one empty class when there are no groups."""
+        gmax = hist.cpu().numpy().max(axis=0)
+        lay = tuple((b, 1 << b, layout.round_capacity(int(g)))
+                    for b, g in enumerate(gmax.tolist()) if g)
+        return lay or ((0, 1, 8),)
 
     def _epilogue_merge(self, plan):
         """(merge_fn, monoid) of a combining shuffle write.  A classified

@@ -8,6 +8,12 @@ sample (in place of jax.eval_shape); anything the probe refuses —
 strings, data-dependent control flow, .item(), numpy or jnp calls on
 tensors — sends the stage to the host object path with the reason
 recorded.  analyze_stage never raises for user code.
+
+A groupByKey consumed by mapValues(f) stays on the device two ways, as
+in the reference: a provable aggregate (sum/len/min/max/mean) as
+SegAggOp (K3 over the key-sorted rows), any traceable padding-invariant
+per-group f as SegMapOp (K7 segment table, K2 size-class members, K8
+padded gather and scatter, f vmapped over each size class).
 """
 
 import contextlib
@@ -354,6 +360,330 @@ def classify_top_key(key, treedef, specs):
     return None
 
 
+class SegAggOp:
+    """groupByKey().mapValues(provable aggregate) consumed on the device:
+    the no-combine reduce leaves each shard's rows key-sorted with the
+    valid prefix first, so one K3 pass merges each run of equal keys
+    into one (k, agg) row — the (k, [v]) lists never materialize.
+
+    REQUIRES key-sorted valid-prefix input: analyze_stage installs it
+    only as ops[0] of a no-combine "hbm"-source plan, whose reduce side
+    (executor._exchange_sorted) sorts rows by key before the ops run.
+
+    Output dtypes follow the host: count -> int64; int sum/mean -> int64
+    / float64 (exact int64 sums, true division); float values keep their
+    width (K3 folds float32 in float64 and narrows back).  Float NaN
+    caveat: NaN values are treated as absent for min/max (the host
+    fold's result for a NaN-bearing group depends on arrival order), as
+    in the reference."""
+
+    def __init__(self, kind):
+        self.kind = kind
+        self.nk = 1
+
+    def probe(self, treedef, specs):
+        nk = layout.key_width(treedef, specs, kinds="if")
+        if nk is None or len(specs) != nk + 1:
+            raise TypeError("segagg needs flat (k, v) records (scalar "
+                            "or flat-tuple key, one scalar value)")
+        self.nk = nk
+        vdt, vshape = specs[nk]
+        if vshape != ():
+            raise TypeError("segagg needs a scalar value")
+        if vdt.kind not in "if" or any(dt.kind not in "if"
+                                       for dt, _ in specs[:nk]):
+            raise TypeError("segagg needs numeric key and value")
+        if any(dt.kind != "i" for dt, _ in specs[:nk]):
+            # a hash shuffle only stores int keys, so none arrive here
+            raise TypeError("segagg over float keys: K3 merges int keys")
+        if self.kind == "count":
+            odt = np.dtype(np.int64)
+        elif self.kind == "mean":
+            odt = np.dtype(np.float64) if vdt.kind == "i" else vdt
+        elif self.kind == "sum" and vdt.kind == "i":
+            odt = np.dtype(np.int64)
+        else:
+            odt = vdt
+        self._odt = layout.torch_dtype(odt)
+        return treedef, list(specs[:nk]) + [(odt, ())]
+
+    def apply(self, leaves, n):
+        from dpark_tpu_torch.backend.cuda import collectives, kernels
+        nk, kind = self.nk, self.kind
+        keys, v = [k.contiguous() for k in leaves[:nk]], leaves[nk]
+        if kind == "count":
+            vals = [torch.ones(v.shape, dtype=torch.int64, device=v.device)]
+        else:
+            wide = torch.float64 if v.is_floating_point() else torch.int64
+            vals = [v.to(wide)]
+            if kind in ("min", "max") and v.is_floating_point():
+                ident = float("inf") if kind == "min" else float("-inf")
+                vals = [torch.where(torch.isnan(vals[0]), ident, vals[0])]
+            if kind == "mean":
+                vals.append(torch.ones(v.shape, dtype=torch.int64,
+                                       device=v.device))
+        op = {"min": "min", "max": "max"}.get(kind, "add")
+        fills = [collectives._sentinel(k.dtype) for k in keys]
+        k_out, v_out, n_out, _, _ = kernels.reduce_by_key_compact(
+            keys, fills, [x.contiguous() for x in vals], n, op)
+        agg = v_out[0]
+        if kind == "mean":
+            agg = agg.to(torch.float64) / torch.clamp(v_out[1], min=1)
+        return list(k_out) + [agg.to(self._odt)], n_out
+
+
+def _seg_row_fn(f):
+    """The user's per-group function as (B,) tensor -> tuple of scalar
+    leaves; the output treedef is discovered at trace time."""
+    def fn(vs):
+        leaves, treedef = layout.tree_flatten(f(vs))
+        fn.out_treedef = treedef
+        return tuple(_as_leaf(x, vs.device) for x in leaves)
+    return fn
+
+
+def _seg_pad_cases(vdt, rng):
+    """Deterministic sample value vectors for the padding-invariance
+    check: small/large, all-negative, all-positive, zeros — the shapes
+    that defeat a wrong fill (0 is NOT neutral for max over negatives;
+    repeating the last row is NOT neutral for sums)."""
+    sizes = (1, 2, 3, 5, 7, 12)
+    cases = []
+    for s in sizes:
+        if np.dtype(vdt).kind == "i":
+            draws = [rng.randint(-1000, 1000, size=s),
+                     -rng.randint(1, 1000, size=s),
+                     rng.randint(1, 1000, size=s),
+                     np.zeros(s, np.int64)]
+        else:
+            draws = [(rng.standard_normal(s) * 100),
+                     -np.abs(rng.standard_normal(s) * 100) - 1,
+                     np.abs(rng.standard_normal(s) * 100) + 1,
+                     np.zeros(s)]
+        cases.extend(np.asarray(d, vdt) for d in draws)
+    return cases
+
+
+def _pad_vec(v, pad, width, vdt):
+    """v padded to `width` with the strategy's fill."""
+    fill = (v[-1] if (pad == "edge" and len(v)) else np.dtype(vdt).type(0))
+    return np.concatenate([v, np.full(width - len(v), fill, vdt)])
+
+
+def _seg_leaves_close(a_leaves, b_leaves):
+    """Equality for the padding-invariance check.  Floats compare at
+    1e-3 rel+abs: a wrong fill or a length-dependent result is off by
+    O(1) relative, while rounding between the host's list fold and the
+    tensor fold is ~1e-7 (float32) or less."""
+    for a, b in zip(a_leaves, b_leaves):
+        a = np.asarray(a)
+        b = np.asarray(b)
+        if a.shape != b.shape:
+            return False
+        if a.dtype.kind == "f" or b.dtype.kind == "f":
+            if not np.allclose(np.asarray(a, np.float64),
+                               np.asarray(b, np.float64),
+                               rtol=1e-3, atol=1e-3, equal_nan=True):
+                return False
+        elif not np.array_equal(a, b):
+            return False
+    return True
+
+
+# classification runs ~150 tiny eager calls of the user function: memoize
+# per (function, value dtype).  The entry pins the function, so a
+# recycled id never serves another function a stale verdict.
+_SEG_CLASS_CACHE = {}
+SEG_PAD_STRATEGIES = ("zero", "edge")
+
+
+def classify_seg_map(f, vdt):
+    """Admission for the device segmented apply: is `f` a traceable,
+    padding-invariant per-group function?
+
+    Returns (pad, out_vdef, out_specs) — pad in SEG_PAD_STRATEGIES,
+    out_vdef the output value treedef, out_specs its scalar leaf specs —
+    or (None, reason, None).
+
+    Two obligations, both checked here:
+      * f traces under torch.func.vmap over a 1-D value row (widths 4
+        and 8; the output leaf specs must not depend on the width);
+      * f is PADDING-INVARIANT under one fill: the device pads each
+        group to its power-of-two size class, so f(padded) must equal
+        f(exact) — verified concretely on seeded sample vectors padded
+        to 1x and 2x the class width, against the host call form
+        f(list), so the list -> tensor change is covered by the same
+        check.  Sum-like functions pass "zero", order statistics
+        (max - min) pass "edge" (repeat-last); anything needing the true
+        group length fails both and keeps the host path."""
+    ck = (id(f), str(np.dtype(vdt)))
+    hit = _SEG_CLASS_CACHE.get(ck)
+    if hit is not None and hit[0] is f:
+        return hit[1]
+    out = _classify_seg_map(f, np.dtype(vdt))
+    if len(_SEG_CLASS_CACHE) >= 512:
+        _SEG_CLASS_CACHE.pop(next(iter(_SEG_CLASS_CACHE)))
+    _SEG_CLASS_CACHE[ck] = (f, out)
+    return out
+
+
+def _classify_seg_map(f, vdt):
+    tdt = layout.torch_dtype(vdt)
+
+    def specs_at(width):
+        fn = _seg_row_fn(f)
+        with python_float_semantics():
+            outs = vmap(fn)(torch.ones((2, width), dtype=tdt))
+        return ([(layout.numpy_dtype(o.dtype), tuple(o.shape[1:]))
+                 for o in outs], fn.out_treedef)
+
+    try:
+        s4, vdef4 = specs_at(4)
+        s8, vdef8 = specs_at(8)
+    except Exception as e:   # user code: any failure means host path
+        return (None, "per-group function is not traceable (%s: %s)"
+                % (type(e).__name__, str(e)[:160]), None)
+    if s4 != s8 or vdef4 != vdef8:
+        return (None, "per-group function output depends on the "
+                "padded width", None)
+    if not s4:
+        return (None, "per-group function returns no leaves", None)
+    for dt, shape in s4:
+        if shape != () or dt.kind not in "if":
+            return (None, "per-group function output is not a pytree "
+                    "of numeric scalars", None)
+
+    # -- concrete padding-invariance verification -------------------
+    cases = _seg_pad_cases(vdt, np.random.RandomState(0x5E90))
+
+    def call(vs, as_list):
+        arg = (list(np.asarray(vs).tolist()) if as_list
+               else torch.as_tensor(vs))
+        with python_float_semantics():
+            return layout.tree_flatten(f(arg))
+
+    for pad in SEG_PAD_STRATEGIES:
+        try:
+            ok = True
+            for v in cases:
+                base, bdef = call(v, as_list=True)
+                if bdef != vdef4:
+                    ok = False
+                    break
+                b = 1 << max(0, int(len(v) - 1).bit_length())
+                if not all(_seg_leaves_close(
+                        base, call(_pad_vec(v, pad, width, vdt),
+                                   as_list=False)[0])
+                           for width in (b, 2 * b)):
+                    ok = False
+                    break
+        except Exception:    # user code
+            ok = False
+        if ok:
+            return (pad, vdef4, s4)
+    return (None, "per-group function is not padding-invariant "
+            "(its result needs the true group length; zero-fill and "
+            "repeat-last fills both change it)", None)
+
+
+class SegMapOp:
+    """Device segmented apply: groupByKey().mapValues(f) with a traceable,
+    padding-invariant per-group f consumed on the device.  The group
+    lists never materialize: K7 splits the key-sorted rows into segments
+    and sorts their sizes into power-of-two classes, K2 lists each
+    class's members, K8 gathers each class's groups into a padded
+    (N*G, B) matrix (the admission-verified fill past each group's
+    size), torch.func.vmap applies f across its rows, and K8 scatters the
+    results back to the segment ids.  Output rows are (key, f(group)) in
+    key order; the rest of the chain (and any shuffle write) continues on
+    the device.
+
+    REQUIRES key-sorted valid-prefix input, like SegAggOp: the executor's
+    _run_seg_map feeds it the exchange-sorted batch and sets `table` (K7's
+    output for that batch) and `layout` ((class, width, G) per non-empty
+    class, from K7's histogram) before the ops run."""
+
+    def __init__(self, f, pad):
+        self.f = f
+        self.pad = pad
+        self.nk = 1
+        self.layout = None
+        self.table = None
+
+    def probe(self, treedef, specs):
+        nk = layout.key_width(treedef, specs, kinds="if")
+        if nk is None or len(specs) != nk + 1:
+            raise TypeError("seg_map needs flat (k, v) records (scalar "
+                            "or flat-tuple key, one scalar value)")
+        self.nk = nk
+        vdt, vshape = specs[nk]
+        if vshape != () or vdt.kind not in "if":
+            raise TypeError("seg_map needs a scalar numeric value")
+        pad, vdef_or_reason, out_specs = classify_seg_map(self.f, vdt)
+        if pad is None:
+            raise TypeError(vdef_or_reason)
+        self.pad = pad
+        self._fn = _seg_row_fn(self.f)
+        self._out_dtypes = [layout.torch_dtype(dt) for dt, _ in out_specs]
+        out_treedef = (treedef[0], layout._renumber(vdef_or_reason, nk))
+        return out_treedef, list(specs[:nk]) + list(out_specs)
+
+    def apply(self, leaves, n):
+        from dpark_tpu_torch.backend.cuda import collectives
+        assert self.layout is not None and self.table is not None, \
+            "the executor sets the segment table and layout (_run_seg_map)"
+        nk = self.nk
+        vcol = leaves[nk]
+        start_rows, sizes, bucket, n_seg, _, keys = self.table
+        self.table = None
+        members, counts, offsets = collectives.bucket_members(bucket)
+        N, cap = vcol.shape
+        outs = [torch.zeros((N, cap), dtype=dt, device=vcol.device)
+                for dt in self._out_dtypes]
+        vfn = vmap(self._fn)
+        for b, width, G in self.layout:
+            vals = collectives.gather_bucket_groups(
+                start_rows, sizes, members, offsets, counts, b, G, width,
+                vcol, self.pad)
+            with python_float_semantics():
+                res = vfn(vals.view(N * G, width))
+            res = [r.reshape(N, G).to(dt)
+                   for r, dt in zip(res, self._out_dtypes)]
+            collectives.scatter_bucket_groups(outs, res, members, offsets,
+                                              counts, b)
+        return list(keys) + outs, n_seg
+
+
+def _try_seg_map(f0, meta, ndev):
+    """(SegMapOp or None, host-path reason or None) for a groupByKey
+    consumer that is not a provable aggregate: the conf gate, the value
+    shape, traceability + padding invariance (classify_seg_map), and the
+    budget guard."""
+    if not conf.SEG_MAP:
+        return None, "grouped consumer stays on host: DPARK_SEG_MAP=0"
+    treedef, specs = meta["out_treedef"], meta["out_specs"]
+    nk = layout.key_width(treedef, specs, kinds="if")
+    if nk is None or len(specs) != nk + 1 or specs[nk][1] != () \
+            or np.dtype(specs[nk][0]).kind not in "if":
+        return None, ("unsupported value pytree for grouped "
+                      "consumption (seg_map needs a single scalar "
+                      "numeric value per record)")
+    pad, reason_or_vdef, _ = classify_seg_map(f0, specs[nk][0])
+    if pad is None:
+        return None, reason_or_vdef
+    if conf.SEG_MIN_ROWS_PER_TRACE:
+        rows = int(meta["counts"].sum())
+        per_dev = max(1, rows // max(1, ndev))
+        est = min(11, max(1, int(per_dev).bit_length()))
+        if rows < conf.SEG_MIN_ROWS_PER_TRACE * est:
+            return None, (
+                "seg_map compile budget: ~%d rows over ~%d "
+                "estimated traces is under conf."
+                "SEG_MIN_ROWS_PER_TRACE=%d per trace — host loop"
+                % (rows, est, conf.SEG_MIN_ROWS_PER_TRACE))
+    return SegMapOp(f0, pad), None
+
+
 class StagePlan:
     """Everything needed to run one stage on the tensor path."""
 
@@ -411,7 +741,9 @@ def extract_chain(top):
                 and isinstance(cur.f, _SortPartFn):
             ops.append(SortOp(cur.f.ascending))
         elif isinstance(cur, MappedValuesRDD):
-            ops.append(MapOp(_mapvalue_as_record_fn(cur.f)))
+            op = MapOp(_mapvalue_as_record_fn(cur.f))
+            op.mapvalue_f = cur.f    # analyze may consume f as a seg op
+            ops.append(op)
         elif isinstance(cur, KeyedRDD):
             ops.append(MapOp(_keyby_as_record_fn(cur.f)))
         elif isinstance(cur, MappedRDD):
@@ -496,11 +828,25 @@ def analyze_stage(stage, ndev, executor):
         src_nk = meta["key_cols"]
         if meta["no_combine"]:
             # no-combine shuffle (partitionBy / groupByKey / sortByKey):
-            # rows pass through flat; a bare groupByKey groups at egest
+            # rows pass through flat; a bare groupByKey groups at egest;
+            # groupByKey().mapValues(f) runs as a segment op over the
+            # key-sorted rows when f is a provable aggregate (SegAggOp)
+            # or traceable and padding-invariant (SegMapOp)
             if not passthrough:
-                if ops or stage.is_shuffle_map:
-                    return None, GROUP_REASON
-                group_output = True
+                seg = seg_reason = None
+                f0 = getattr(ops[0], "mapvalue_f", None) if ops else None
+                if f0 is not None:
+                    kind = _monoid.classify_segagg(f0)
+                    if kind is not None:
+                        seg = SegAggOp(kind)
+                    else:
+                        seg, seg_reason = _try_seg_map(f0, meta, ndev)
+                if seg is not None:
+                    ops[0] = seg
+                elif ops or stage.is_shuffle_map:
+                    return None, seg_reason or GROUP_REASON
+                else:
+                    group_output = True
         else:
             src_merge = probe_merge(dep.aggregator.merge_combiners, treedef,
                                     specs, src_nk)

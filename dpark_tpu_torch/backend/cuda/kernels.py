@@ -9,6 +9,8 @@ Kernels (sources under csrc/, one shared library each):
   K4 shard_exchange         csrc/shard_exchange.cu
   K5 radix_sort             csrc/radix_sort.cu
   K6 range_dst_hist         csrc/range_dst_hist.cu
+  K7 segment_table          csrc/segment_table.cu
+  K8 bucket_gather          csrc/bucket_groups.cu (with bucket_scatter)
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -42,8 +44,13 @@ SOURCES = {
     "shard_exchange": "shard_exchange.cu",
     "radix_sort": "radix_sort.cu",
     "range_dst_hist": "range_dst_hist.cu",
+    "segment_table": "segment_table.cu",
+    "bucket_groups": "bucket_groups.cu",
 }
-LAUNCHES = {name: 0 for name in SOURCES}
+# launch counters: one per kernel (K8's library holds two)
+LAUNCHES = {name: 0 for name in SOURCES if name != "bucket_groups"}
+LAUNCHES.update(bucket_gather=0, bucket_scatter=0)
+SIZE_CLASSES = 32
 KEY_SENTINEL = 2 ** 63 - 1
 OPS = {"add": 0, "min": 1, "max": 2, "mul": 3, "last": 4}
 MAX_LEAVES = 16
@@ -144,6 +151,19 @@ def _bind(name, lib):
                        _P]
         fn.restype = ctypes.c_int
         return hist, fn
+    elif name == "segment_table":
+        fn = lib.dpk_segment_table
+        fn.argtypes = [_P, _P, _P, _P, _I, _P, _I, _L, _P, _P, _P, _P, _P,
+                       _P, _P]
+    elif name == "bucket_groups":
+        gather = lib.dpk_bucket_gather
+        gather.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _L, _P,
+                           _I, _P]
+        gather.restype = ctypes.c_int
+        scatter = lib.dpk_bucket_scatter
+        scatter.argtypes = [_P, _P, _P, _I, _L, _I, _P, _P, _P, _I, _P]
+        scatter.restype = ctypes.c_int
+        return gather, scatter
     else:
         fn = lib.dpk_range_dst_hist
         fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _L, _P, _P,
@@ -713,3 +733,215 @@ def range_dst_hist(key_cols, bounds, ascending, r, n_dst, n):
             hist.data_ptr(), _stream())
     _check("range_dst_hist", rc)
     return dst, hist
+
+
+# ---------------------------------------------------------------------
+# K7 segment_table
+# ---------------------------------------------------------------------
+_SEG_KINDS = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
+
+
+def size_class(sizes):
+    """Per-segment power-of-two size class ceil(log2(size)) (sizes 0/1 ->
+    0, 2 -> 1, 3..4 -> 2, ...), bit-twiddled in integers: float log2
+    rounding must not shift a 2^k-sized group into the next class."""
+    x = torch.clamp(sizes.long(), min=1) - 1
+    bits = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for shift in (32, 16, 8, 4, 2, 1):
+        big = x >= (1 << shift)
+        bits = bits + torch.where(big, shift, 0).to(torch.int32)
+        x = torch.where(big, x >> shift, x)
+    return bits + (x > 0).to(torch.int32)
+
+
+def _seg_fills(key_cols):
+    """What the segment-key outputs hold past n_seg: the key dtype's max
+    (inf for floats) in column 0, 0 in the others."""
+    k0 = key_cols[0]
+    return [float("inf") if k0.is_floating_point()
+            else torch.iinfo(k0.dtype).max] + [0] * (len(key_cols) - 1)
+
+
+def segment_table_plain(key_cols, n, want_keys=True):
+    N, cap = key_cols[0].shape
+    dev = key_cols[0].device
+    idx = torch.arange(cap, device=dev)
+    valid = idx[None, :] < n[:, None].long()
+    start = torch.zeros((N, cap), dtype=torch.bool, device=dev)
+    start[:, 0] = True
+    for c in key_cols:
+        start[:, 1:] |= c[:, 1:] != c[:, :-1]
+    start &= valid
+    n_seg = start.sum(1).to(torch.int32)
+    rank = torch.cumsum(start.long(), 1) - 1
+    pos = (torch.arange(N, device=dev)[:, None] * cap + rank)[start]
+    rows = idx.expand(N, cap)[start]
+    start_rows = torch.zeros((N, cap), dtype=torch.int32, device=dev)
+    start_rows.view(-1)[pos] = rows.to(torch.int32)
+    live = idx[None, :] < n_seg[:, None].long()
+    nxt = torch.cat([start_rows[:, 1:], start_rows[:, :1]], 1)
+    last = idx[None, :] == (n_seg[:, None].long() - 1)
+    nxt = torch.where(last, n[:, None].to(torch.int32), nxt)
+    sizes = torch.where(live, nxt - start_rows, 0).to(torch.int32)
+    bucket = torch.where(live, size_class(sizes), SIZE_CLASSES).to(
+        torch.int32)
+    hist = shard_bincount(bucket, SIZE_CLASSES + 1)[:, :SIZE_CLASSES]
+    keys = None
+    if want_keys:
+        keys = []
+        for c, fill in zip(key_cols, _seg_fills(key_cols)):
+            o = torch.full_like(c, fill)
+            o.view(-1)[pos] = c[start]
+            keys.append(o)
+    return start_rows, sizes, bucket, n_seg, hist.contiguous(), keys
+
+
+def segment_table(key_cols, n, want_keys=True):
+    """The segment table of each shard's key-sorted rows ((N, cap) key
+    columns, 1-4 of int32/int64/float64; the first n[s] rows valid): a
+    segment starts at row 0 and wherever any key column differs (!=) from
+    the row before.  Returns (start_rows, sizes, bucket, n_seg, hist,
+    keys): (N, cap) int32 start row, size and size class of segment j
+    (0, 0, SIZE_CLASSES past n_seg), (N,) int32 n_seg, (N, SIZE_CLASSES)
+    int32 class histogram, and with want_keys the key columns at each
+    start row (_seg_fills past n_seg), else None."""
+    key_cols = list(key_cols)
+    N, cap = key_cols[0].shape[:2]
+    _check_cols(key_cols, N, cap, "key columns")
+    _need(1 <= len(key_cols) <= 4 and all(
+        c.dim() == 2 and c.dtype in _SEG_KINDS for c in key_cols),
+        "1..4 (N, cap) key columns of int32/int64/float64")
+    _need(cap < 2 ** 31, "row ids are int32: cap must be < 2**31")
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    if not _on_cuda(key_cols + [n]):
+        return segment_table_plain(key_cols, n, want_keys)
+    fn = _kernel("segment_table")
+    dev = key_cols[0].device
+    start_rows = torch.empty((N, cap), dtype=torch.int32, device=dev)
+    sizes = torch.empty_like(start_rows)
+    bucket = torch.empty_like(start_rows)
+    n_seg = torch.empty((N,), dtype=torch.int32, device=dev)
+    hist = torch.zeros((N, SIZE_CLASSES), dtype=torch.int32, device=dev)
+    keys = [torch.empty_like(c) for c in key_cols] if want_keys else None
+    if cap == 0:
+        n_seg.zero_()
+        return start_rows, sizes, bucket, n_seg, hist, keys
+    blockcnt = torch.empty((N, -(-cap // 1024)), dtype=torch.int32,
+                           device=dev)
+    # each fill as the bit pattern of its column's dtype
+    fill_bits = [int(torch.tensor(f, dtype=c.dtype).view(
+        torch.int64 if c.element_size() == 8 else torch.int32))
+        for f, c in zip(_seg_fills(key_cols), key_cols)]
+    nk = len(key_cols)
+    rc = fn(_ptrs(key_cols),
+            _ptrs(keys) if want_keys else (ctypes.c_void_p * nk)(),
+            (ctypes.c_int * nk)(*[_SEG_KINDS[c.dtype] for c in key_cols]),
+            (ctypes.c_int64 * nk)(*fill_bits), nk, n.data_ptr(), N, cap,
+            start_rows.data_ptr(), sizes.data_ptr(), bucket.data_ptr(),
+            n_seg.data_ptr(), hist.data_ptr(), blockcnt.data_ptr(),
+            _stream())
+    _check("segment_table", rc)
+    return start_rows, sizes, bucket, n_seg, hist, keys
+
+
+# ---------------------------------------------------------------------
+# K8 bucket_gather / bucket_scatter
+# ---------------------------------------------------------------------
+def _lanes_of(members, boff, bcnt, G):
+    """(seg (N, G) int64 segment id of each lane, clipped; lane valid
+    (N, G) bool)."""
+    N, cap = members.shape
+    g = torch.arange(G, device=members.device)
+    valid = g[None, :] < bcnt[:, None].long()
+    at = torch.clamp(boff[:, None].long() + g[None, :], max=max(cap - 1, 0))
+    seg = torch.where(valid, torch.gather(members.long(), 1, at), 0)
+    return seg, valid
+
+
+def bucket_gather_plain(start_rows, sizes, members, boff, bcnt, G, B, vals,
+                        pad):
+    N, cap = vals.shape
+    seg, valid = _lanes_of(members, boff, bcnt, G)
+    st = torch.gather(start_rows.long(), 1, seg)
+    sz = torch.gather(sizes.long(), 1, seg)
+    o = torch.arange(B, device=vals.device)
+    if pad == "edge":
+        off = torch.minimum(o[None, None, :],
+                            torch.clamp(sz, min=1)[:, :, None] - 1)
+        keep = valid[:, :, None].expand(N, G, B)
+    else:
+        off = o[None, None, :].expand(N, G, B)
+        keep = valid[:, :, None] & (o[None, None, :] < sz[:, :, None])
+    rows = torch.clamp(st[:, :, None] + off, 0, max(cap - 1, 0))
+    got = torch.gather(vals, 1, rows.reshape(N, G * B)).view(N, G, B)
+    return torch.where(keep, got, torch.zeros((), dtype=vals.dtype,
+                                              device=vals.device))
+
+
+def bucket_gather(start_rows, sizes, members, boff, bcnt, G, B, vals, pad):
+    """The padded (N, G, B) value matrix of one size class: lane g of
+    shard s holds group members[s, boff[s] + g] (valid when g < bcnt[s]),
+    its rows start_rows[seg] .. + sizes[seg] of `vals` ((N, cap)), padded
+    to B columns with 0 ("zero") or the group's last row ("edge");
+    invalid lanes are all 0."""
+    N, cap = vals.shape[:2]
+    _check_cols([start_rows, sizes, members, vals], N, cap,
+                "segment table and values")
+    _need(all(t.dtype == torch.int32 for t in
+              (start_rows, sizes, members, boff, bcnt))
+          and boff.shape == (N,) and bcnt.shape == (N,)
+          and boff.is_contiguous() and bcnt.is_contiguous(),
+          "segment table int32 (N, cap), boff/bcnt contiguous (N,) int32")
+    _need(vals.dim() == 2, "vals must be a (N, cap) column")
+    _need(pad in ("zero", "edge"), "pad must be 'zero' or 'edge'")
+    _need(G >= 1 and B >= 1, "G and B must be positive")
+    if not _on_cuda([start_rows, sizes, members, boff, bcnt, vals]):
+        return bucket_gather_plain(start_rows, sizes, members, boff, bcnt,
+                                   G, B, vals, pad)
+    gather_fn, _ = _kernel("bucket_groups")
+    out = torch.empty((N, G, B), dtype=vals.dtype, device=vals.device)
+    rc = gather_fn(start_rows.data_ptr(), sizes.data_ptr(),
+                   members.data_ptr(), boff.data_ptr(), bcnt.data_ptr(), N,
+                   cap, int(G), int(B), vals.data_ptr(), vals.element_size(),
+                   out.data_ptr(), int(pad == "edge"), _stream())
+    _check("bucket_gather", rc)
+    return out
+
+
+def bucket_scatter_plain(outs, results, members, boff, bcnt):
+    N, G = results[0].shape
+    seg, valid = _lanes_of(members, boff, bcnt, G)
+    rows = torch.arange(N, device=members.device)[:, None].expand(N, G)
+    for o, r in zip(outs, results):
+        o[rows[valid], seg[valid]] = r[valid].to(o.dtype)
+    return outs
+
+
+def bucket_scatter(outs, results, members, boff, bcnt):
+    """Write each valid lane's results ((N, G) leaves) into `outs` ((N,
+    cap) leaves of the same dtypes) at its segment id members[s, boff[s]
+    + g], IN PLACE; invalid lanes write nothing.  Returns outs."""
+    outs, results = list(outs), list(results)
+    N, cap = outs[0].shape[:2]
+    G = results[0].shape[1]
+    _check_cols(outs + [members], N, cap, "outputs and members")
+    _check_cols(results, N, G, "results")
+    _need(len(outs) == len(results) and 1 <= len(outs) <= MAX_LEAVES
+          and all(o.dtype == r.dtype and o.dim() == 2
+                  for o, r in zip(outs, results)),
+          "1..%d (N, cap) outputs matching the (N, G) results' dtypes"
+          % MAX_LEAVES)
+    _need(all(t.dtype == torch.int32 for t in (members, boff, bcnt))
+          and boff.shape == (N,) and bcnt.shape == (N,)
+          and boff.is_contiguous() and bcnt.is_contiguous(),
+          "members int32 (N, cap), boff/bcnt contiguous (N,) int32")
+    if not _on_cuda(outs + results + [members, boff, bcnt]):
+        return bucket_scatter_plain(outs, results, members, boff, bcnt)
+    _, scatter_fn = _kernel("bucket_groups")
+    rc = scatter_fn(members.data_ptr(), boff.data_ptr(), bcnt.data_ptr(), N,
+                    cap, int(G), _ptrs(results), _ptrs(outs),
+                    (ctypes.c_int64 * len(outs))(
+                        *[o.element_size() for o in outs]),
+                    len(outs), _stream())
+    _check("bucket_scatter", rc)
+    return outs

@@ -228,7 +228,9 @@ def batch_from_numpy(treedef, counts, cols, device):
 def egest(batch):
     """Batch -> list of per-shard row lists on the host."""
     counts = batch.counts.cpu().numpy()
-    host_cols = [c.cpu().numpy() for c in batch.cols]
+    # only the longest valid prefix crosses to the host, not the padding
+    m = int(counts.max()) if len(counts) else 0
+    host_cols = [c[:, :m].cpu().numpy() for c in batch.cols]
     tdef = batch.treedef
     out = []
     for d in range(batch.ndev):

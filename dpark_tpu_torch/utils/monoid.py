@@ -1,7 +1,8 @@
 """EXACT algebraic classification of 2-arg merge callables and of
-1-arg per-group aggregates (port of dpark_tpu/utils/monoid.py), plus the monoid identities and the plain
-reductions the executor's reduce(f) path needs (from dpark_tpu/bagel.py
-monoid_identity and backend/tpu/bagel.py _local_reduce).
+1-arg per-group aggregates (port of dpark_tpu/utils/monoid.py), plus
+the monoid identities and the plain reductions the executor's reduce(f)
+path needs (from dpark_tpu/bagel.py monoid_identity and
+backend/tpu/bagel.py _local_reduce).
 
 A classified monoid unlocks the single-pass segment reduction of K3
 instead of the traced scan of the user's function; a wrong answer here
