@@ -23,11 +23,13 @@ NVIDIA GPU.
    1,024) and over 67,107,840 power-law rows (16,384 groups, group g of
    2^(g mod 16) rows: 1,024 groups in each of 16 size classes), checked
    exactly against numpy (SegMapOp: K7, K2, K8); then mapValues(sum /
-   len / min / max / mean) with the combiner rewrite off (SegAggOp: K3)
-   and sum once more with it on (a combining shuffle);
+   len / min / max / mean) with the combiner rewrite off (SegAggOp: K3
+   once a job) and, as a path of its own, sum with it on (a combining
+   shuffle);
 6. every stage of every checked job must take the tensor path, and every
    kernel of a path must launch during that path's run (counts reset
-   just before it, read just after);
+   just before it, read just after), as often as PATH_MIN_LAUNCHES
+   asks where a path must launch a kernel more than once;
 7. profiles the first action of each gpu:8 path, prints one JSON line
    describing every kernel, then the result line.
 
@@ -95,6 +97,17 @@ PATH_KERNELS = {
     "groupByKey gpu:8 segagg": [
         "hash_dst_hist", "stable_partition", "shard_exchange", "radix_sort",
         "reduce_by_key_compact"],
+    # the combiner rewrite turns mapValues(sum) into a combining shuffle
+    "groupByKey gpu:8 rewritten sum": [
+        "hash_dst_hist", "stable_partition", "reduce_by_key_compact",
+        "shard_exchange", "radix_sort"],
+}
+SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
+              "mean": lambda vs: sum(vs) / len(vs)}
+# kernels a path must launch more than once: K3 once for each SegAggOp
+# job (its no-combine shuffle launches no K3 of its own)
+PATH_MIN_LAUNCHES = {
+    "groupByKey gpu:8 segagg": {"reduce_by_key_compact": len(SEGAGG_FNS)},
 }
 # the path whose launches the kernels line reports for each kernel
 LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
@@ -402,6 +415,7 @@ def seg_table_case(K, keys, n, library=True):
     names = ["start_rows", "sizes", "bucket", "n_seg", "hist"]
     err = max_err([("K7 " + nm, x, y) for nm, x, y in zip(names, a, b)]
                   + [("K7 keys", a[5][0], b[5][0])])
+    n_seg = int(a[3].sum().item())
     lib = None
     if library:
         flat = keys.view(-1)
@@ -412,11 +426,16 @@ def seg_table_case(K, keys, n, library=True):
         "ms": timed(lambda: K.segment_table([keys], n)),
         "plain_ms": timed(lambda: K.segment_table_plain([keys], n),
                           reps=3),
-        # keys and n read once; the five outputs and the segment keys
-        # written once
-        "bound_ms": bound_ms(nbytes(keys, n, *a[:5], a[5][0])),
+        # keys and n read once; per segment its start row, size, class
+        # and key written once, and n_seg and the histogram per shard
+        "bound_ms": bound_ms(nbytes(keys, n, a[3], a[4]) + n_seg * (
+            3 * 4 + keys.element_size())),
         "library_ms": lib,
-        "notes": {"segments": int(a[3].sum().item())},
+        # the kernel also writes the fill of every padded (N, cap) slot:
+        # the bound with those writes counted
+        "notes": {"segments": n_seg,
+                  "bound_padded_ms": "%.4f" % bound_ms(nbytes(
+                      keys, n, *a[:5], a[5][0]))},
     }
 
 
@@ -713,11 +732,8 @@ def segmap_path(label, keys, vals, want):
     ctx.stop()
 
 
-def segagg_path(keys, vals):
-    """groupByKey(8).mapValues(sum / len / min / max / mean) with the
-    combiner rewrite off (SegAggOp), then sum with it on (a combining
-    shuffle), collected and checked exactly against numpy."""
-    from dpark_tpu_torch import Columns, DparkContext, conf
+def segagg_wants(keys, vals):
+    """numpy's sum / len / min / max / mean of each key's values."""
     order = np.argsort(keys, kind="stable")
     starts = np.searchsorted(keys[order], np.arange(KEYS))
     sv = vals[order]
@@ -727,14 +743,21 @@ def segagg_path(keys, vals):
              "min": np.minimum.reduceat(sv, starts),
              "max": np.maximum.reduceat(sv, starts),
              "mean": sums / lens}
-    fns = {"sum": sum, "len": len, "min": min, "max": max,
-           "mean": lambda vs: sum(vs) / len(vs)}
+    return {name: {k: w[k].item() for k in range(KEYS)}
+            for name, w in wants.items()}
+
+
+def segagg_path(keys, vals, wants):
+    """groupByKey(8).mapValues(sum / len / min / max / mean) with the
+    combiner rewrite off (SegAggOp, a no-combine shuffle), collected and
+    checked exactly against numpy."""
+    from dpark_tpu_torch import Columns, DparkContext, conf
     ctx = DparkContext("gpu:8")
     r = ctx.parallelize(Columns(keys, vals), 8)
     old = conf.GROUP_AGG_REWRITE
     conf.GROUP_AGG_REWRITE = False
     try:
-        for name, f in fns.items():
+        for name, f in SEGAGG_FNS.items():
             label = "segagg %s" % name
             got = act("gpu:8 %s collect" % label,
                       r.groupByKey(8).mapValues(f).collect)
@@ -742,17 +765,24 @@ def segagg_path(keys, vals):
             st = ctx.scheduler.history[-1]["stage_info"]
             if st[0]["combine"]:
                 fail("%s: the grouping shuffle combined" % label)
-            check_groups(label, got, {k: wants[name][k].item()
-                                      for k in range(KEYS)})
+            check_groups(label, got, wants[name])
     finally:
         conf.GROUP_AGG_REWRITE = old
+    ctx.stop()
+
+
+def rewritten_sum_path(keys, vals, wants):
+    """groupByKey(8).mapValues(sum) with the combiner rewrite on: the
+    stage record must show a combining shuffle; checked against numpy."""
+    from dpark_tpu_torch import Columns, DparkContext
+    ctx = DparkContext("gpu:8")
+    r = ctx.parallelize(Columns(keys, vals), 8)
     got = act("gpu:8 rewritten sum collect",
               r.groupByKey(8).mapValues(sum).collect)
     check_stages(ctx, "rewritten sum")
     if not ctx.scheduler.history[-1]["stage_info"][0]["combine"]:
         fail("rewritten sum: the stage record shows no combining shuffle")
-    check_groups("rewritten sum", got, {k: wants["sum"][k].item()
-                                        for k in range(KEYS)})
+    check_groups("rewritten sum", got, wants["sum"])
     ctx.stop()
 
 
@@ -768,11 +798,15 @@ def square_sums(gid, vals, groups):
 
 
 def grouped_paths(drive, keys, vals):
-    """The three grouped paths; each driven with its own launch counts."""
+    """The four grouped paths; each driven with its own launch counts."""
     want = square_sums(keys, vals, KEYS)
     drive("groupByKey gpu:8 segmap", segmap_path, "segmap", keys, vals,
           dict(enumerate(want.tolist())))
-    drive("groupByKey gpu:8 segagg", segagg_path, keys, vals)
+    wants = segagg_wants(keys, vals)
+    drive("groupByKey gpu:8 segagg", segagg_path, keys, vals, wants)
+    drive("groupByKey gpu:8 rewritten sum", rewritten_sum_path, keys, vals,
+          wants)
+    del wants
     gid = power_law_groups()
     pkeys = power_law_key(gid)
     pvals = np.arange(POWER_ROWS, dtype=np.int64) & 0xFFFF
@@ -853,6 +887,10 @@ def main():
         missing = [k for k in PATH_KERNELS[path] if not launches[path][k]]
         if missing:
             fail("kernels not launched on the %s path: %s" % (path, missing))
+        for k, least in PATH_MIN_LAUNCHES.get(path, {}).items():
+            if launches[path][k] < least:
+                fail("%s launched %d times on the %s path, want >= %d"
+                     % (k, launches[path][k], path, least))
 
     keys, vals = bench_data()
     drive("reduceByKey gpu:8", main_path, "gpu:8", keys, vals)

@@ -284,35 +284,12 @@ def segment_reduce_keys(key_cols, val_leaves, n, merge_leaves, monoid=None):
 # ceil(log2) classes, so any size distribution costs at most one padded
 # group matrix per power of two.
 # ----------------------------------------------------------------------
-bucket_index = kernels.size_class
-
-
 def _segment_table(key_cols, n, want_keys=False):
     """K7 over each shard's KEY-SORTED valid-prefix rows (a segment
     starts where ANY key column changes): (start_rows, sizes, bucket,
     n_seg, hist, keys) — see kernels.segment_table."""
     return kernels.segment_table([k.contiguous() for k in key_cols], n,
                                  want_keys=want_keys)
-
-
-def segment_spans(key_cols, n):
-    """(start_rows, sizes, n_seg): the row of segment j's first row and
-    its size ((N, cap) int32, 0 past n_seg) and (N,) n_seg."""
-    start_rows, sizes, _, n_seg, _, _ = _segment_table(key_cols, n)
-    return start_rows, sizes, n_seg
-
-
-def segment_sizes(key_cols, n):
-    """(sizes, n_seg) of the key-sorted valid prefix."""
-    _, sizes, _, n_seg, _, _ = _segment_table(key_cols, n)
-    return sizes, n_seg
-
-
-def bucket_histogram(key_cols, n):
-    """((N, 32) segment counts per power-of-two size class, (N,) largest
-    segment size) of each shard's key-sorted rows."""
-    _, sizes, _, _, hist, _ = _segment_table(key_cols, n)
-    return hist, sizes.amax(1).to(torch.int32)
 
 
 def bucket_members(bucket):

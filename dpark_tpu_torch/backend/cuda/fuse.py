@@ -654,11 +654,12 @@ class SegMapOp:
         return list(keys) + outs, n_seg
 
 
-def _try_seg_map(f0, meta, ndev):
+def _try_seg_map(f0, meta):
     """(SegMapOp or None, host-path reason or None) for a groupByKey
     consumer that is not a provable aggregate: the conf gate, the value
-    shape, traceability + padding invariance (classify_seg_map), and the
-    budget guard."""
+    shape, traceability + padding invariance (classify_seg_map).  The
+    port runs eagerly, so it has no per-bucket compile cost to guard as
+    the reference's DPARK_SEG_MIN_ROWS_PER_TRACE does."""
     if not conf.SEG_MAP:
         return None, "grouped consumer stays on host: DPARK_SEG_MAP=0"
     treedef, specs = meta["out_treedef"], meta["out_specs"]
@@ -671,16 +672,6 @@ def _try_seg_map(f0, meta, ndev):
     pad, reason_or_vdef, _ = classify_seg_map(f0, specs[nk][0])
     if pad is None:
         return None, reason_or_vdef
-    if conf.SEG_MIN_ROWS_PER_TRACE:
-        rows = int(meta["counts"].sum())
-        per_dev = max(1, rows // max(1, ndev))
-        est = min(11, max(1, int(per_dev).bit_length()))
-        if rows < conf.SEG_MIN_ROWS_PER_TRACE * est:
-            return None, (
-                "seg_map compile budget: ~%d rows over ~%d "
-                "estimated traces is under conf."
-                "SEG_MIN_ROWS_PER_TRACE=%d per trace — host loop"
-                % (rows, est, conf.SEG_MIN_ROWS_PER_TRACE))
     return SegMapOp(f0, pad), None
 
 
@@ -840,7 +831,7 @@ def analyze_stage(stage, ndev, executor):
                     if kind is not None:
                         seg = SegAggOp(kind)
                     else:
-                        seg, seg_reason = _try_seg_map(f0, meta, ndev)
+                        seg, seg_reason = _try_seg_map(f0, meta)
                 if seg is not None:
                     ops[0] = seg
                 elif ops or stage.is_shuffle_map:

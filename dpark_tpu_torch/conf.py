@@ -52,9 +52,3 @@ GROUP_AGG_REWRITE = os.environ.get("DPARK_GROUP_AGG_REWRITE",
 # vmap over power-of-two padded group buckets.  "0" keeps such stages on
 # the host object path.
 SEG_MAP = os.environ.get("DPARK_SEG_MAP", "1") != "0"
-
-# budget guard of the segmented apply: a stage whose estimated row count
-# is below (estimated buckets x this many rows) keeps the host loop
-# (fallback_reason "seg_map compile budget").  0 disables the guard.
-SEG_MIN_ROWS_PER_TRACE = int(os.environ.get(
-    "DPARK_SEG_MIN_ROWS_PER_TRACE", "0") or 0)

@@ -439,17 +439,17 @@ def test_seg_map_builtin_max_declines(gctx):
         "per-group function is not traceable (")
 
 
-def test_seg_map_compile_budget_guard(gctx):
-    old = conf.SEG_MIN_ROWS_PER_TRACE
-    conf.SEG_MIN_ROWS_PER_TRACE = 10_000_000
-    try:
-        got = dict(gctx.parallelize(ROWS, _P(gctx)).groupByKey(_P(gctx))
-                   .mapValues(_sumsq).collect())
-    finally:
-        conf.SEG_MIN_ROWS_PER_TRACE = old
-    assert got == {k: _sumsq(vs) for k, vs in _groups(ROWS).items()}
-    assert _kinds(gctx)["MappedValuesRDD"] == "object"
-    assert "compile budget" in _reasons(gctx)[0]
+def test_seg_map_small_stage_rides_device(gctx, lctx):
+    """The port runs eagerly, with no per-bucket compile to budget: a
+    stage of a few rows (most shards empty) still takes the device."""
+    rows = [(5, 2), (9, -3), (5, 4)]
+    P = _P(gctx)
+
+    def build(c):
+        return dict(c.parallelize(rows, P).groupByKey(P)
+                    .mapValues(_sumsq).collect())
+    assert _same_as_local(build, gctx, lctx) == {5: 20, 9: 9}
+    assert _array_only(gctx)
 
 
 def test_seg_map_disabled_by_conf(gctx):

@@ -142,15 +142,14 @@ def test_segment_table_matches_reference(name, case):
             want = np.where(live, cols[c][s][r_start],
                             np.iinfo(np.int64).max if c == 0 else 0)
             np.testing.assert_array_equal(kc[s].numpy(), want)
-    hist2, max_size = col.bucket_histogram(tcols, _t(n))
-    assert torch.equal(hist2, hist)
-    spans = col.segment_spans(tcols, _t(n))
-    for got, want in zip(spans, (start_rows, sizes, n_seg)):
+    # the executor's entry (collectives._segment_table) gives the same
+    # table, and each shard's largest size is the reference's max_size
+    table = col._segment_table(tcols, _t(n), want_keys=True)
+    for got, want in zip(table[:5], (start_rows, sizes, bucket, n_seg,
+                                     hist)):
         assert torch.equal(got, want)
-    sizes2, n_seg2 = col.segment_sizes(tcols, _t(n))
-    assert torch.equal(sizes2, sizes) and torch.equal(n_seg2, n_seg)
     for s in range(len(n)):
-        assert int(max_size[s]) == _ref_table(cols, n, s)[4]
+        assert int(sizes[s].max()) == _ref_table(cols, n, s)[4]
 
 
 def test_segment_table_float_keys_follow_not_equal():
