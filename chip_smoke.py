@@ -3,10 +3,10 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the eight CUDA kernels
+1. prints the card's name and power limit, builds the ten CUDA kernels
    from csrc/ (one nvcc each, all started together) and prints the build
    time;
-2. holds each kernel (K1-K8) against its plain PyTorch version on the
+2. holds each kernel (K1-K10) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows), and
    times kernel, plain version, bound and library call;
 3. drives the reduceByKey path through the public API: bench.py's data
@@ -26,12 +26,21 @@ NVIDIA GPU.
    len / min / max / mean) with the combiner rewrite off (SegAggOp: K3
    once a job) and, as a path of its own, sum with it on (a combining
    shuffle);
-6. every stage of every checked job must take the tensor path, and every
+6. drives the device Pregel on gpu:8 through run_pregel over a Graph500
+   Kronecker graph at scale 22, edge factor 16 (4,194,304 vertices,
+   67,108,864 directed edges): PageRank (20 supersteps, checked against
+   a numpy power iteration, rtol 1e-10) and SSSP (min combine, integer
+   weights, checked exactly against scipy's Dijkstra), after holding K9
+   and K10 against their plain versions on that graph;
+7. every stage of every checked job must take the tensor path, and every
    kernel of a path must launch during that path's run (counts reset
-   just before it, read just after), as often as PATH_MIN_LAUNCHES
-   asks where a path must launch a kernel more than once;
-7. profiles the first action of each gpu:8 path, prints one JSON line
-   describing every kernel, then the result line.
+   just before it, read just after), as often as PATH_MIN_LAUNCHES (or
+   the path itself: one K9 launch a superstep, one K10 launch a
+   superstep with mail) asks where a path must launch a kernel more than
+   once;
+8. profiles the first action of each gpu:8 path and one PageRank
+   superstep, times the top path's K5 + K2 composition, prints one JSON
+   line describing every kernel, then the result line.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
@@ -74,6 +83,10 @@ SOURCES = {
                       "dpark_tpu/backend/tpu/collectives.py:605"),
     "bucket_scatter": ("dpark_tpu_torch/backend/cuda/csrc/bucket_groups.cu",
                        "dpark_tpu/backend/tpu/fuse.py:880"),
+    "edge_gather": ("dpark_tpu_torch/backend/cuda/csrc/edge_gather.cu",
+                    "dpark_tpu/backend/tpu/bagel.py:285"),
+    "pregel_deliver": ("dpark_tpu_torch/backend/cuda/csrc/pregel_deliver.cu",
+                       "dpark_tpu/backend/tpu/bagel.py:364"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
@@ -101,6 +114,11 @@ PATH_KERNELS = {
     "groupByKey gpu:8 rewritten sum": [
         "hash_dst_hist", "stable_partition", "reduce_by_key_compact",
         "shard_exchange", "radix_sort"],
+    # a superstep: K9 gather and send, K2 pack, K1 + K5 + K2 + K3
+    # pre-combine, K4 exchange, K5 + K3 combine, K10 delivery
+    "pregel gpu:8": ["hash_dst_hist", "stable_partition",
+                     "reduce_by_key_compact", "shard_exchange", "radix_sort",
+                     "edge_gather", "pregel_deliver"],
 }
 SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
               "mean": lambda vs: sum(vs) / len(vs)}
@@ -108,14 +126,26 @@ SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
 # job (its no-combine shuffle launches no K3 of its own)
 PATH_MIN_LAUNCHES = {
     "groupByKey gpu:8 segagg": {"reduce_by_key_compact": len(SEGAGG_FNS)},
+    # one K9 a superstep, one K10 a superstep with mail: PageRank's 21
+    # and 20 at least (pregel_path returns the exact counts of both runs)
+    "pregel gpu:8": {"edge_gather": 21, "pregel_deliver": 20},
 }
 # the path whose launches the kernels line reports for each kernel
 LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "segment_table": "groupByKey gpu:8 segmap",
              "bucket_gather": "groupByKey gpu:8 segmap",
-             "bucket_scatter": "groupByKey gpu:8 segmap"}
+             "bucket_scatter": "groupByKey gpu:8 segmap",
+             "edge_gather": "pregel gpu:8", "pregel_deliver": "pregel gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
+# Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
+GRAPH_SCALE = 22                   # 4,194,304 vertices
+EDGE_FACTOR = 16                   # 67,108,864 edges
+KRONECKER_ABC = (0.57, 0.19, 0.19)
+DAMPING = 0.85
+PR_STEPS = 20                      # rank updates; max_superstep = 21
+SSSP_MAX_SUPERSTEP = 400
+PR_RTOL = 1e-10                    # float64 sums in another order
 
 
 def fail(msg):
@@ -818,22 +848,290 @@ def grouped_paths(drive, keys, vals):
           "segmap power-law", pkeys, pvals, pwant)
 
 
-def profile_first_action(label, build, top=14):
-    """Where the time of one first action goes, under torch.profiler:
-    prints the wall time, the summed device time and the ops with the
-    most device time.  build(ctx) returns the action to run."""
-    from torch.profiler import ProfilerActivity, profile
-    from dpark_tpu_torch import DparkContext
+def kronecker_graph(scale, edge_factor, seed=20261021, parts=16):
+    """Graph500's Kronecker generator (its reference code's bit loop: A, B,
+    C = 0.57, 0.19, 0.19), vertex labels randomly permuted and edges
+    shuffled, from seeded numpy generators: `parts` slices of the edge
+    list each draw from a child of the seed (threads fill them at once;
+    the graph does not depend on the thread count).  Each generated pair
+    is one directed edge (Graph500 treats it as undirected).  Returns (n,
+    src, dst, source): `source` is the permuted label of Kronecker vertex
+    0."""
+    from concurrent.futures import ThreadPoolExecutor
+    n, m = 1 << scale, edge_factor << scale
+    a, b, c = KRONECKER_ABC
+    ab = a + b
+    thr = np.array([a / ab, c / (1 - ab)], np.float32)
+    src = np.zeros(m, np.int32)            # scale < 31: labels fit int32
+    dst = np.zeros(m, np.int32)
+    seeds = np.random.SeedSequence(seed).spawn(parts + 1)
+
+    def fill(k):
+        rng = np.random.default_rng(seeds[k])
+        lo, hi = k * m // parts, (k + 1) * m // parts
+        s, d = src[lo:hi], dst[lo:hi]
+        for bit in range(scale):
+            ii = rng.random(hi - lo, dtype=np.float32) > ab
+            jj = rng.random(hi - lo, dtype=np.float32) > thr[ii.view(np.uint8)]
+            np.bitwise_or(s, np.left_shift(ii, bit, dtype=np.int32), out=s)
+            np.bitwise_or(d, np.left_shift(jj, bit, dtype=np.int32), out=d)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, range(parts)))
+    rng = np.random.default_rng(seeds[parts])
+    perm = rng.permutation(n)
+    shuffle = rng.permutation(m)
+    return n, perm[src[shuffle]], perm[dst[shuffle]], int(perm[0])
+
+
+def pagerank_fns(n):
+    """PageRank as examples/pagerank.py writes it, in torch ops: superstep
+    0 keeps the initial rank, later ones (1 - d)/n + d * mail."""
+    def compute(value, msg, has_msg, active, agg, superstep):
+        is0 = (superstep == 0) * 1.0
+        return (is0 * value + (1 - is0) * ((1 - DAMPING) / n
+                                           + DAMPING * msg),
+                superstep < PR_STEPS)
+
+    def send(value, edge_value, degree):
+        return value / degree
+    return compute, send
+
+
+def sssp_fns():
+    def compute(dist, msg, has_msg, active, agg, superstep):
+        new = torch.minimum(dist, msg)
+        return new, new < dist
+
+    def send(dist, weight, degree):
+        return dist + weight
+    return compute, send
+
+
+def pagerank_numpy(n, src, dst):
+    """The same recurrence, superstep for superstep, as an independent
+    power iteration."""
+    deg = np.bincount(src, minlength=n)
+    r = np.full(n, 1.0 / n)
+    for _ in range(PR_STEPS):
+        # (r / deg)[src] is r[src] / deg[src], one division a vertex (a
+        # vertex with no out-edge divides by 0 and is never gathered)
+        with np.errstate(divide="ignore"):
+            share = (r / deg)[src]
+        r = (1 - DAMPING) / n + DAMPING * np.bincount(dst, weights=share,
+                                                      minlength=n)
+    return r
+
+
+def dijkstra_numpy(n, src, dst, w, source):
+    """scipy's Dijkstra from `source`, after collapsing parallel edges to
+    their least weight (a CSR matrix would SUM duplicate entries)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    # (src, dst) in the high bits, the weight (1..99) in the low 7: one
+    # sort puts each pair's least weight first
+    packed = np.sort((src * n + dst) << 7 | w.astype(np.int64))
+    pair = packed >> 7
+    first = np.ones(len(pair), bool)
+    first[1:] = pair[1:] != pair[:-1]
+    pair, least = pair[first], (packed[first] & 127).astype(np.float64)
+    g = csr_matrix((least, (pair // n, pair % n)), shape=(n, n))
+    return dijkstra(g, directed=True, indices=source)
+
+
+def pregel_kernel_phases(K, dev, graph):
+    """K9 and K10 against their plain versions at the PageRank run's
+    shapes on the Graph500 graph (a DevicePregel after superstep 0: K9
+    over every edge slot; K10 on the messages superstep 1 delivers),
+    then one PageRank superstep under the profiler."""
+    from dpark_tpu_torch.backend.cuda import collectives as C
+    from dpark_tpu_torch.backend.cuda.bagel import DevicePregel
+    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
+    n, src, dst, _ = graph
+    dp = DevicePregel(TorchExecutor(N_SHARDS, dev), np.arange(n),
+                      np.full(n, 1.0 / n), (src, dst), *pagerank_fns(n),
+                      max_superstep=PR_STEPS + 1)
+    dp._p_step(0, None)
+    out = {}
+    V, E = int(dp.vcnt.sum().item()), int(dp.ecnt.sum().item())
+    slot, ecnt, vals, gate = dp.e_slot, dp.ecnt, dp.values, dp.active
+    a = K.edge_gather(slot, ecnt, vals, gate)
+    b = K.edge_gather_plain(slot, ecnt, vals, gate)
+    err = max_err([("K9 rank", a[0][0], b[0][0]), ("K9 sa", a[1], b[1])])
+    live = torch.arange(dp.cap_e, device=dev)[None, :] < ecnt[:, None]
+
+    def library_k9():
+        idx = slot.long()
+        return ([torch.gather(v, 1, idx) for v in vals],
+                torch.gather(gate, 1, idx) & live)
+    row = sum(v[0, 0].numel() * v.element_size() for v in vals)
+    out["edge_gather"] = {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.edge_gather(slot, ecnt, vals, gate)),
+        "plain_ms": timed(lambda: K.edge_gather_plain(slot, ecnt, vals,
+                                                      gate), reps=3),
+        # each input read once (the slot of every edge, every vertex's
+        # leaves and gate), each output written once (a row and a flag
+        # per edge)
+        "bound_ms": bound_ms(E * (4 + row + 1) + V * (row + 1)),
+        "library_ms": timed(library_k9),
+        "notes": {"edges": E, "vertices": V,
+                  "bound_vertex_read_per_edge_ms": "%.4f" % bound_ms(
+                      E * (4 + 2 * row + 2)),
+                  "bound_padded_ms": "%.4f" % bound_ms(
+                      slot.numel() * (4 + row + 1) + V * (row + 1))},
+    }
+    print_phase("edge_gather", out["edge_gather"])
+    pending, _ = dp._p_gen()
+    counts, offsets, kk, vv = pending
+    recv, rn = C.exchange([kk] + vv, counts, offsets)
+    uk, uv, nu = C.segment_reduce_keys([recv[0]], recv[1:], rn, dp._merge,
+                                       monoid="add")
+    uk = uk[0]
+    del recv
+    vid, vcnt = dp.vid, dp.vcnt
+    a = K.pregel_deliver(vid, vcnt, uk, nu, uv, "add")
+    b = K.pregel_deliver_plain(vid, vcnt, uk, nu, uv, "add")
+    err = max_err([("K10 msg", a[0][0], b[0][0]), ("K10 has", a[1], b[1])])
+    U = int(nu.sum().item())
+    live_u = torch.arange(uk.shape[1], device=dev)[None, :] < nu[:, None]
+    valid_v = C.valid_rows(vcnt, dp.cap_v)
+
+    def library_k10():
+        keys = torch.where(live_u, uk, K.KEY_SENTINEL)
+        pos = torch.searchsorted(keys, vid).clamp_(0, uk.shape[1] - 1)
+        has = (torch.gather(keys, 1, pos) == vid) & valid_v
+        return torch.where(has, torch.gather(uv[0], 1, pos), 0.0), has
+    out["pregel_deliver"] = {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.pregel_deliver(vid, vcnt, uk, nu, uv, "add")),
+        "plain_ms": timed(lambda: K.pregel_deliver_plain(
+            vid, vcnt, uk, nu, uv, "add"), reps=3),
+        # ids, unique keys and their messages read once; a message and a
+        # flag written per vertex
+        "bound_ms": bound_ms(V * (8 + 8 + 1) + U * (8 + 8)),
+        "library_ms": timed(library_k10),
+        "notes": {"vertices": V, "unique_targets": U,
+                  "cap_v": dp.cap_v, "cap_u": uk.shape[1]},
+    }
+    print_phase("pregel_deliver", out["pregel_deliver"])
+    del uk, uv, nu, a, b
+    profile_window("gpu:8 PageRank superstep 1 (deliver, compute, "
+                   "generate)", lambda: (dp._p_step(1, pending),
+                                         dp._p_gen()))
+    del dp, pending
+    torch.cuda.empty_cache()
+    return out
+
+
+def topk_phase(dev):
+    """B7, the top path's per-shard pre-top (executor._device_topk: K5 on
+    the order-reversed key, K2 by validity, keep n rows), at 8 x 8,388,608
+    bench rows, top 10 by value; against torch.sort(stable=True) per shard
+    plus a slice and the rows' gather (library), torch.topk beside it."""
+    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
+    from dpark_tpu_torch.backend.cuda.layout import Batch
+    keys, vals = (torch.from_numpy(c.reshape(N_SHARDS, CAP)).to(dev)
+                  for c in bench_data())
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    ex, top = TorchExecutor(N_SHARDS, dev), 10
+    batch = Batch(None, [keys, vals], n)
+
+    def composed():
+        return ex._device_topk(None, batch, ("leaves", [1]), top, False)
+
+    def library():
+        o = torch.sort(-1 - vals, dim=1, stable=True).indices[:, :top]
+        return torch.gather(keys, 1, o), torch.gather(vals, 1, o)
+    got, want = composed(), library()
+    err = max_err([("B7 keys", got.cols[0], want[0]),
+                   ("B7 vals", got.cols[1], want[1])])
+    rec = {
+        "max_abs_err": err, "ms": timed(composed),
+        "plain_ms": timed(library),
+        # the order key read once, the kept rows written once
+        "bound_ms": bound_ms(nbytes(vals, n) + N_SHARDS * top * 16),
+        "library_ms": timed(library),
+        "notes": {"topk_ms": "%.4f" % timed(
+            lambda: torch.topk(vals, top, dim=1))},
+    }
+    print_phase("top-n composed of K5 + K2", rec)
+    del keys, vals, batch, got, want
+    torch.cuda.empty_cache()
+
+
+def pregel_path(graph, weights):
+    """PageRank and SSSP through run_pregel on gpu:8, checked against
+    numpy's power iteration (rtol PR_RTOL) and scipy's Dijkstra
+    (exactly).  Returns the least K9 and K10 launches the runs need: one
+    K9 a superstep, one K10 a superstep with mail."""
+    from dpark_tpu_torch import DparkContext, run_pregel
+    n, src, dst, source = graph
     ctx = DparkContext("gpu:8")
-    action = build(ctx)
+    ids = np.arange(n, dtype=np.int64)
+    steps = delivered = 0
+
+    def run(label, *args, **kw):
+        nonlocal steps, delivered
+        torch.cuda.reset_peak_memory_stats()
+        out = act(label, lambda: run_pregel(ctx, ids, *args, **kw))
+        print("pregel %s: peak device memory %.2f GB" % (
+            label, torch.cuda.max_memory_allocated() / 1e9), flush=True)
+        st = ctx.scheduler._pregel_stats
+        if not ctx.scheduler._pregel_device_used:
+            fail("%s left the device: %s" % (
+                label, ctx.scheduler._pregel_fallback_reason))
+        print("pregel %s: setup_s=%.3f supersteps=%d delivered=%d "
+              "superstep_loop_s=%.3f per_superstep_ms=%.2f cap_v=%d "
+              "cap_e=%d" % (label, st["setup_seconds"], st["supersteps"],
+                            st["delivered"], st["superstep_seconds"],
+                            st["superstep_seconds"] / st["supersteps"] * 1e3,
+                            st["cap_v"], st["cap_e"]), flush=True)
+        steps += st["supersteps"]
+        delivered += st["delivered"]
+        return out, st
+    (gids, ranks, _), st = run(
+        "gpu:8 PageRank", np.full(n, 1.0 / n), (src, dst),
+        *pagerank_fns(n), combine="add", max_superstep=PR_STEPS + 1)
+    if st["supersteps"] != PR_STEPS + 1:
+        fail("PageRank ran %d supersteps" % st["supersteps"])
+    want = pagerank_numpy(n, src, dst)
+    if not (np.array_equal(gids, ids)
+            and np.allclose(ranks, want, rtol=PR_RTOL, atol=0)):
+        fail("PageRank differs from numpy's power iteration: max rel err %g"
+             % np.max(np.abs(ranks - want) / want))
+    print("pregel PageRank: max rel err vs numpy %.3g (rtol %g)" % (
+        np.max(np.abs(ranks - want) / want), PR_RTOL), flush=True)
+    del ranks, want
+    (gids, dist, _), st = run(
+        "gpu:8 SSSP", np.full(n, np.inf), (src, dst), *sssp_fns(),
+        combine="min", edge_values=weights,
+        initial_messages=(np.array([source]), np.array([0.0])),
+        max_superstep=SSSP_MAX_SUPERSTEP)
+    if st["supersteps"] >= SSSP_MAX_SUPERSTEP:
+        fail("SSSP did not halt before superstep %d" % SSSP_MAX_SUPERSTEP)
+    ref = dijkstra_numpy(n, src, dst, weights, source)
+    if not (np.array_equal(gids, ids) and np.array_equal(dist, ref)):
+        fail("SSSP differs from Dijkstra at %d vertices"
+             % int((dist != ref).sum()))
+    print("pregel SSSP: %d reachable, max distance %g, equal to Dijkstra"
+          % (int(np.isfinite(ref).sum()), ref[np.isfinite(ref)].max()),
+          flush=True)
+    ctx.stop()
+    return {"edge_gather": steps, "pregel_deliver": delivered}
+
+
+def profile_window(label, window, top=14):
+    """Where the time of one window of device work goes, under
+    torch.profiler: the wall time, the summed device time and the ops
+    with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        action()
+        window()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ctx.stop()
     rows = []
     for ev in prof.key_averages():
         # device-side events only (kernels, memcpys): a host op's device
@@ -853,6 +1151,16 @@ def profile_first_action(label, build, top=14):
     for dev_us, name, count in rows[:top]:
         print("profile  %9.3f ms  x%-4d %s" % (dev_us / 1e3, count,
                                                 name[:90]))
+
+
+def profile_first_action(label, build, top=14):
+    """Where the time of one first action goes (profile_window).
+    build(ctx) returns the action to run."""
+    from dpark_tpu_torch import DparkContext
+    ctx = DparkContext("gpu:8")
+    action = build(ctx)
+    profile_window(label, action, top)
+    ctx.stop()
 
 
 def main():
@@ -880,14 +1188,15 @@ def main():
         """One path's run with the launch counts set to 0 just before it
         and read just after; every kernel of the path must launch."""
         K.reset_launches()
-        fn(*args)
+        need = fn(*args)
         launches[path] = dict(K.LAUNCHES)
         print("launches %s: %s" % (path, json.dumps(launches[path])),
               flush=True)
         missing = [k for k in PATH_KERNELS[path] if not launches[path][k]]
         if missing:
             fail("kernels not launched on the %s path: %s" % (path, missing))
-        for k, least in PATH_MIN_LAUNCHES.get(path, {}).items():
+        mins = dict(PATH_MIN_LAUNCHES.get(path, {}), **(need or {}))
+        for k, least in mins.items():
             if launches[path][k] < least:
                 fail("%s launched %d times on the %s path, want >= %d"
                      % (k, launches[path][k], path, least))
@@ -913,6 +1222,21 @@ def main():
     profile_first_action(
         "gpu:8 sortByKey count", lambda ctx: ctx.parallelize(
             Columns(skeys, svals), 8).sortByKey(numSplits=8).count)
+    del skeys, svals
+    topk_phase(dev)
+
+    t0 = time.perf_counter()
+    graph = kronecker_graph(GRAPH_SCALE, EDGE_FACTOR)
+    weights = np.random.default_rng(20261022).integers(
+        1, 100, len(graph[1])).astype(np.float64)
+    print("graph: Kronecker scale %d edge factor %d: %d vertices, %d edges, "
+          "max out-degree %d, generated in %.1f s" % (
+              GRAPH_SCALE, EDGE_FACTOR, graph[0], len(graph[1]),
+              np.bincount(graph[1]).max(), time.perf_counter() - t0),
+          flush=True)
+    phases.update(pregel_kernel_phases(K, dev, graph))
+    drive("pregel gpu:8", pregel_path, graph, weights)
+    del graph, weights
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

@@ -11,6 +11,8 @@ Kernels (sources under csrc/, one shared library each):
   K6 range_dst_hist         csrc/range_dst_hist.cu
   K7 segment_table          csrc/segment_table.cu
   K8 bucket_gather          csrc/bucket_groups.cu (with bucket_scatter)
+  K9 edge_gather            csrc/edge_gather.cu
+  K10 pregel_deliver        csrc/pregel_deliver.cu
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -46,6 +48,8 @@ SOURCES = {
     "range_dst_hist": "range_dst_hist.cu",
     "segment_table": "segment_table.cu",
     "bucket_groups": "bucket_groups.cu",
+    "edge_gather": "edge_gather.cu",
+    "pregel_deliver": "pregel_deliver.cu",
 }
 # launch counters: one per kernel (K8's library holds two)
 LAUNCHES = {name: 0 for name in SOURCES if name != "bucket_groups"}
@@ -164,6 +168,13 @@ def _bind(name, lib):
         scatter.argtypes = [_P, _P, _P, _I, _L, _I, _P, _P, _P, _I, _P]
         scatter.restype = ctypes.c_int
         return gather, scatter
+    elif name == "edge_gather":
+        fn = lib.dpk_edge_gather
+        fn.argtypes = [_P, _P, _I, _L, _L, _P, _P, _P, _I, _P, _P, _P]
+    elif name == "pregel_deliver":
+        fn = lib.dpk_pregel_deliver
+        fn.argtypes = [_P, _P, _I, _L, _P, _P, _L, _P, _P, _P, _P, _P, _I,
+                       _P, _P]
     else:
         fn = lib.dpk_range_dst_hist
         fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _L, _P, _P,
@@ -343,7 +354,9 @@ def stable_partition(bucket, nb, leaves, src_idx=None):
 # ---------------------------------------------------------------------
 # K3 reduce_by_key_compact
 # ---------------------------------------------------------------------
-def _identity(op, dtype):
+def identity(op, dtype):
+    """A monoid's identity for a torch dtype: 0 (add), 1 (mul), +inf /
+    -inf (float min / max), the dtype's max / min (int min / max)."""
     if op == "add":
         return 0
     if op == "mul":
@@ -384,7 +397,7 @@ def reduce_by_key_compact_plain(key_cols, fills, val_leaves, n, op,
             is_tail[:, :-1] &= ~(valid[:, 1:] & ~start[:, 1:])
             o[pos[is_tail]] = flat_v[is_tail.view(-1)]
         else:
-            o[pos[keep]] = torch.full((), _identity(op, v.dtype),
+            o[pos[keep]] = torch.full((), identity(op, v.dtype),
                                       dtype=v.dtype, device=dev)
             red = {"add": "sum", "mul": "prod", "min": "amin",
                    "max": "amax"}[op]
@@ -945,3 +958,130 @@ def bucket_scatter(outs, results, members, boff, bcnt):
                     len(outs), _stream())
     _check("bucket_scatter", rc)
     return outs
+
+
+# ---------------------------------------------------------------------
+# K9 edge_gather
+# ---------------------------------------------------------------------
+def edge_gather_plain(e_slot, ecnt, leaves, gate):
+    cap_e = e_slot.shape[1]
+    idx = e_slot.long()
+    out = [shard_rows(leaf, idx) for leaf in leaves]
+    live = torch.arange(cap_e, device=e_slot.device)[None, :] \
+        < ecnt[:, None].long()
+    return out, shard_rows(gate, idx) & live
+
+
+def edge_gather(e_slot, ecnt, leaves, gate):
+    """The vertex state seen from each edge slot: for every (shard, edge
+    slot), each vertex leaf's row e_slot[s, e] of shard s ((N, cap_v, ...)
+    leaves -> (N, cap_e, ...)), and the send flag sa[s, e] = gate[s,
+    e_slot[s, e]] & (e < ecnt[s]).  `e_slot` is (N, cap_e) int32 (padded
+    slots hold 0 and gather vertex row 0, as the reference does), `ecnt`
+    (N,) int32, `gate` (N, cap_v) bool.  Returns (gathered leaves, sa)."""
+    leaves = list(leaves)
+    N, cap_e = e_slot.shape
+    cap_v = gate.shape[1] if gate.dim() == 2 else -1
+    _need(e_slot.dtype == torch.int32 and e_slot.is_contiguous(),
+          "e_slot must be a contiguous (N, cap_e) int32 tensor")
+    _need(ecnt.dtype == torch.int32 and ecnt.shape == (N,),
+          "ecnt must be (N,) int32")
+    _need(gate.dtype == torch.bool and gate.shape == (N, cap_v)
+          and gate.is_contiguous() and cap_v >= 1,
+          "gate must be a contiguous (N, cap_v) bool tensor")
+    _check_cols(leaves, N, cap_v, "vertex leaves")
+    if not _on_cuda([e_slot, ecnt, gate] + leaves):
+        return edge_gather_plain(e_slot, ecnt, leaves, gate)
+    fn = _kernel("edge_gather")
+    dev = e_slot.device
+    out = [torch.empty((N, cap_e) + tuple(leaf.shape[2:]), dtype=leaf.dtype,
+                       device=dev) for leaf in leaves]
+    sa = torch.empty((N, cap_e), dtype=torch.bool, device=dev)
+    # one launch per MAX_LEAVES leaves (each rewrites the same sa)
+    for i in range(0, max(1, len(leaves)), MAX_LEAVES):
+        part = leaves[i:i + MAX_LEAVES]
+        rc = fn(e_slot.data_ptr(), ecnt.data_ptr(), N, cap_e, cap_v,
+                _ptrs(part), _ptrs(out[i:i + MAX_LEAVES]),
+                (ctypes.c_int64 * max(1, len(part)))(
+                    *[_row_bytes(leaf) for leaf in part]),
+                len(part), gate.data_ptr(), sa.data_ptr(), _stream())
+        _check("edge_gather", rc)
+    return out, sa
+
+
+# ---------------------------------------------------------------------
+# K10 pregel_deliver
+# ---------------------------------------------------------------------
+def _elem_bits(value, dtype):
+    """(bit pattern as a non-negative int, element size) of one value."""
+    t = torch.tensor(value, dtype=dtype).reshape(1)
+    w = t.element_size()
+    iv = t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}[w])
+    return int(iv.item()) & ((1 << (8 * w)) - 1), w
+
+
+def pregel_deliver_plain(vid, vcnt, uk, n_unique, leaves, combine):
+    N, cap_v = vid.shape
+    cap_u = uk.shape[1]
+    dev = vid.device
+    live_u = (torch.arange(cap_u, device=dev)[None, :]
+              < n_unique[:, None].long())
+    keys = torch.where(live_u, uk, KEY_SENTINEL)
+    pos = torch.searchsorted(keys, vid).clamp_(0, cap_u - 1)
+    valid = torch.arange(cap_v, device=dev)[None, :] < vcnt[:, None].long()
+    has = (torch.gather(keys, 1, pos) == vid) & valid & (vid != KEY_SENTINEL)
+    out = []
+    for u in leaves:
+        got = shard_rows(u, pos)
+        ident = torch.full((), identity(combine, u.dtype),
+                           dtype=u.dtype, device=dev)
+        out.append(torch.where(has.view(has.shape + (1,) * (got.dim() - 2)),
+                               got, ident))
+    return out, has
+
+
+def pregel_deliver(vid, vcnt, uk, n_unique, leaves, combine):
+    """Each vertex slot's combined inbound message: bisect its id (`vid`,
+    (N, cap_v) int64, ascending per shard, the sentinel past vcnt[s])
+    into its shard's unique message keys uk[s, :n_unique[s]] ((N, cap_u)
+    int64, ascending).  Where found (and the slot valid, its id not the
+    sentinel) each message leaf's row ((N, cap_u, ...) -> (N, cap_v, ...))
+    is copied, else the `combine` monoid's identity written; a message to
+    an id with no vertex is dropped.  Returns (message leaves, has (N,
+    cap_v) bool)."""
+    leaves = list(leaves)
+    N, cap_v = vid.shape
+    cap_u = uk.shape[1] if uk.dim() == 2 else 0
+    _need(combine in ("add", "min", "max", "mul"),
+          "unknown monoid %r" % (combine,))
+    _need(vid.dtype == torch.int64 and vid.is_contiguous()
+          and uk.dtype == torch.int64 and uk.is_contiguous()
+          and uk.shape == (N, cap_u) and cap_u >= 1,
+          "vid (N, cap_v) and uk (N, cap_u) must be contiguous int64")
+    _need(vcnt.dtype == torch.int32 and vcnt.shape == (N,)
+          and n_unique.dtype == torch.int32 and n_unique.shape == (N,),
+          "vcnt and n_unique must be (N,) int32")
+    _check_cols(leaves, N, cap_u, "message leaves")
+    if not _on_cuda([vid, vcnt, uk, n_unique] + leaves):
+        return pregel_deliver_plain(vid, vcnt, uk, n_unique, leaves,
+                                    combine)
+    fn = _kernel("pregel_deliver")
+    dev = vid.device
+    out = [torch.empty((N, cap_v) + tuple(u.shape[2:]), dtype=u.dtype,
+                       device=dev) for u in leaves]
+    has = torch.empty((N, cap_v), dtype=torch.bool, device=dev)
+    for i in range(0, max(1, len(leaves)), MAX_LEAVES):
+        part = leaves[i:i + MAX_LEAVES]
+        idents = [_elem_bits(identity(combine, u.dtype), u.dtype)
+                  for u in part]
+        k = max(1, len(part))
+        rc = fn(vid.data_ptr(), vcnt.data_ptr(), N, cap_v, uk.data_ptr(),
+                n_unique.data_ptr(), cap_u, _ptrs(part),
+                _ptrs(out[i:i + MAX_LEAVES]),
+                (ctypes.c_int64 * k)(*[_row_bytes(u) for u in part]),
+                (ctypes.c_uint64 * k)(*[b for b, _ in idents]),
+                (ctypes.c_int * k)(*[w for _, w in idents]), len(part),
+                has.data_ptr(), _stream())
+        _check("pregel_deliver", rc)
+    return out, has

@@ -37,6 +37,49 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert res["mods"] == []
 
 
+_PREGEL_PROBE = r"""
+import json, sys
+import numpy as np
+from dpark_tpu_torch import DparkContext, run_pregel
+c = DparkContext("gpu:2", device="cpu")
+n = 16
+ids = np.arange(n, dtype=np.int64)
+src, dst = np.repeat(ids, 2), np.concatenate([(ids + 1) % n, (ids + 3) % n])
+
+
+def compute(value, msg, has_msg, active, agg, superstep):
+    is0 = (superstep == 0) * 1.0
+    return is0 * value + (1 - is0) * (0.15 / n + 0.85 * msg), superstep < 5
+
+
+def send(value, edge_value, degree):
+    return value / degree
+
+
+_, ranks, _ = run_pregel(c, ids, np.full(n, 1.0 / n), (src, dst), compute,
+                         send)
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith("jax.")
+              or m == "dpark_tpu" or m.startswith("dpark_tpu."))
+print(json.dumps({"sum": float(ranks.sum()), "mods": mods,
+                  "device": c.scheduler._pregel_device_used}))
+"""
+
+
+def test_pregel_imports_no_jax_and_no_reference_package():
+    """The same probe over a small run_pregel on gpu:2 (the device Pregel
+    with the kernels' plain versions)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _PREGEL_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert abs(res["sum"] - 1.0) < 1e-9
+    assert res["device"] is True
+    assert res["mods"] == []
+
+
 def test_gpu_master_needs_cuda():
     import torch
     from dpark_tpu_torch import DparkContext
