@@ -465,3 +465,33 @@ def test_device_errors_propagate(monkeypatch, fault):
         assert not getattr(c.scheduler, "_pregel_device_used", False)
     finally:
         c.stop()
+
+
+@pytest.mark.parametrize("spread", [1, 4, 5, 1 << 20])
+def test_sorted_positions_matches_searchsorted(spread):
+    """Host setup's edge source lookup (a table over dense labels, a
+    binary search over sparse ones) finds every present id where the
+    reference's clipped np.searchsorted does, and never finds an absent
+    one."""
+    from dpark_tpu_torch.backend.cuda.bagel import _sorted_positions
+    rng = np.random.default_rng(spread)
+    sorted_ids = np.unique(rng.integers(-50, 400, 300)) * spread
+    keys = np.concatenate([rng.choice(sorted_ids, 500),
+                           rng.integers(-60 * spread, 500 * spread, 200)])
+    got = _sorted_positions(sorted_ids, keys)
+    want = np.clip(np.searchsorted(sorted_ids, keys), 0,
+                   sorted_ids.size - 1)
+    found = sorted_ids[want] == keys
+    assert np.array_equal(got[found], want[found])
+    assert not np.any(sorted_ids[got[~found]] == keys[~found])
+    assert _sorted_positions(sorted_ids[:0], keys).shape == keys.shape
+
+
+@pytest.mark.parametrize("ndev", [1, 8, 300, 70_000])
+def test_shard_order_matches_stable_argsort(ndev):
+    """Host setup's edge order on a narrow copy of the shard ids equals
+    the reference's stable argsort of the int64 column."""
+    from dpark_tpu_torch.backend.cuda.bagel import _shard_order
+    shard = np.random.default_rng(ndev).integers(0, ndev, 5000)
+    assert np.array_equal(_shard_order(shard, ndev),
+                          np.argsort(shard, kind="stable"))
