@@ -3,10 +3,10 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the ten CUDA kernels
+1. prints the card's name and power limit, builds the eleven CUDA kernels
    from csrc/ (one nvcc each, all started together) and prints the build
    time;
-2. holds each kernel (K1-K10) against its plain PyTorch version on the
+2. holds each kernel (K1-K11) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows), and
    times kernel, plain version, bound and library call;
 3. drives the reduceByKey path through the public API: bench.py's data
@@ -32,20 +32,29 @@ NVIDIA GPU.
    a numpy power iteration, rtol 1e-10) and SSSP (min combine, integer
    weights, checked exactly against scipy's Dijkstra), after holding K9
    and K10 against their plain versions on that graph;
-7. every stage of every checked job must take the tensor path, and every
+7. drives the object Bagel on gpu:8 through Bagel.run over a GAP urand
+   graph at scale 20, edge factor 16 (1,048,576 Vertex objects,
+   16,777,216 Edge objects, both endpoints uniform): PageRank with
+   Message(target, rank * Edge.value), 20 updates, checked against a
+   numpy power iteration (rtol 1e-10), on bucketed degree classes, after
+   holding K11 against its plain version on one superstep's emission
+   blocks;
+8. every stage of every checked job must take the tensor path, and every
    kernel of a path must launch during that path's run (counts reset
    just before it, read just after), as often as PATH_MIN_LAUNCHES (or
    the path itself: one K9 launch a superstep, one K10 launch a
-   superstep with mail) asks where a path must launch a kernel more than
-   once;
-8. profiles the first action of each gpu:8 path and one PageRank
-   superstep, times the top path's K5 + K2 composition, prints one JSON
-   line describing every kernel, then the result line.
+   superstep with mail, or a class with mail) asks where a path must
+   launch a kernel more than once;
+9. profiles the first action of each gpu:8 path and one PageRank
+   superstep of each Pregel, times the top path's K5 + K2 composition,
+   prints one JSON line describing every kernel, then the result line.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
 
 import json
+import operator
+import resource
 import subprocess
 import sys
 import time
@@ -87,6 +96,8 @@ SOURCES = {
                     "dpark_tpu/backend/tpu/bagel.py:285"),
     "pregel_deliver": ("dpark_tpu_torch/backend/cuda/csrc/pregel_deliver.cu",
                        "dpark_tpu/backend/tpu/bagel.py:364"),
+    "obj_emit_pack": ("dpark_tpu_torch/backend/cuda/csrc/obj_emit_pack.cu",
+                      "dpark_tpu/backend/tpu/bagel_obj.py:892"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
@@ -119,6 +130,11 @@ PATH_KERNELS = {
     "pregel gpu:8": ["hash_dst_hist", "stable_partition",
                      "reduce_by_key_compact", "shard_exchange", "radix_sort",
                      "edge_gather", "pregel_deliver"],
+    # an object superstep: K10 per class, the vmapped compute, K11 pack,
+    # K1 + K5 + K2 + K3 pre-combine, K4 exchange, K5 + K3 combine
+    "bagel gpu:8": ["hash_dst_hist", "stable_partition",
+                    "reduce_by_key_compact", "shard_exchange", "radix_sort",
+                    "pregel_deliver", "obj_emit_pack"],
 }
 SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
               "mean": lambda vs: sum(vs) / len(vs)}
@@ -129,13 +145,17 @@ PATH_MIN_LAUNCHES = {
     # one K9 a superstep, one K10 a superstep with mail: PageRank's 21
     # and 20 at least (pregel_path returns the exact counts of both runs)
     "pregel gpu:8": {"edge_gather": 21, "pregel_deliver": 20},
+    # one K11 a superstep that emits (PageRank's first 20); K10 once per
+    # class a superstep with mail (bagel_path returns 20 x the classes)
+    "bagel gpu:8": {"obj_emit_pack": 20},
 }
 # the path whose launches the kernels line reports for each kernel
 LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "segment_table": "groupByKey gpu:8 segmap",
              "bucket_gather": "groupByKey gpu:8 segmap",
              "bucket_scatter": "groupByKey gpu:8 segmap",
-             "edge_gather": "pregel gpu:8", "pregel_deliver": "pregel gpu:8"}
+             "edge_gather": "pregel gpu:8", "pregel_deliver": "pregel gpu:8",
+             "obj_emit_pack": "bagel gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 # Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
@@ -146,6 +166,11 @@ DAMPING = 0.85
 PR_STEPS = 20                      # rank updates; max_superstep = 21
 SSSP_MAX_SUPERSTEP = 400
 PR_RTOL = 1e-10                    # float64 sums in another order
+# the GAP Benchmark Suite's urand graph (Beamer, Asanovic, Patterson,
+# arXiv:1508.03619): both endpoints uniform, edge factor 16; scale 27
+# cut to 20, every vertex and edge a Python object on the driver
+URAND_SCALE = 20                   # 1,048,576 vertices
+URAND_EDGE_FACTOR = 16             # 16,777,216 edges
 
 
 def fail(msg):
@@ -1122,6 +1147,171 @@ def pregel_path(graph, weights):
     return {"edge_gather": steps, "pregel_deliver": delivered}
 
 
+def urand_graph(scale, edge_factor, seed=20261023):
+    """GAP's urand: `edge_factor << scale` directed edges, both endpoints
+    uniform over 2^scale vertices (duplicates and self-loops kept)."""
+    n, m = 1 << scale, edge_factor << scale
+    rng = np.random.default_rng(seed)
+    return n, rng.integers(0, n, m), rng.integers(0, n, m)
+
+
+def urand_layout(n, src, dst):
+    """The object walk's output, in numpy: out-degrees, edge targets in
+    per-vertex order, and each edge's value 1 / out-degree of its
+    source."""
+    deg = np.bincount(src, minlength=n)
+    order = np.argsort(src, kind="stable")
+    inv = 1.0 / np.maximum(deg, 1)
+    return deg, dst[order], inv[src[order]]
+
+
+def bagel_pagerank(n):
+    """tests/test_bagel_obj_general.py's PageRank with Message(target,
+    rank * Edge.value) in place of the len(outEdges) split (so bucketed
+    degree classes stay sound)."""
+    from dpark_tpu_torch import Message, Vertex
+
+    def compute(vert, msg, agg, s):
+        new = vert.value if s == 0 else (
+            0.15 / n + 0.85 * (msg if msg is not None else 0.0))
+        v = Vertex(vert.id, new, vert.outEdges, s < PR_STEPS)
+        if s < PR_STEPS and vert.outEdges:
+            return (v, [Message(e.target_id, new * e.value)
+                        for e in vert.outEdges])
+        return (v, [])
+    return compute
+
+
+def bagel_pagerank_numpy(n, src, dst):
+    """The same recurrence as a numpy power iteration: each edge carries
+    rank * (1 / out-degree), as the messages do."""
+    w = 1.0 / np.bincount(src, minlength=n)[src]
+    r = np.full(n, 1.0 / n)
+    for _ in range(PR_STEPS):
+        r = 0.15 / n + 0.85 * np.bincount(dst, weights=r[src] * w,
+                                          minlength=n)
+    return r
+
+
+def bagel_kernel_phase(K, dev, graph):
+    """K11 against its plain version on the emission blocks of PageRank's
+    superstep 1 on the urand graph (a DeviceObjectPregel built from the
+    object walk's numpy output), then one superstep under the profiler."""
+    from dpark_tpu_torch.backend.cuda.bagel_obj import DeviceObjectPregel
+    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
+    from dpark_tpu_torch.utils import pytree
+    n, src, dst = graph
+    deg, tgt, ev = urand_layout(n, src, dst)
+    dop = DeviceObjectPregel(
+        TorchExecutor(N_SHARDS, dev), bagel_pagerank(n), "add", pytree.LEAF,
+        np.arange(n, dtype=np.int64), [np.full(n, 1.0 / n)],
+        np.ones(n, bool), deg, tgt, ev, None, PR_STEPS + 1,
+        combine_op=operator.add)
+    del deg, tgt, ev
+    pending, _, _ = dop._p_step(0, None)
+    blocks, _ = dop._step_blocks(1, pending)
+    a = K.obj_emit_pack(blocks)
+    b = K.obj_emit_pack_plain(blocks)
+    err = max_err([("K11 dst", a[0], b[0]), ("K11 rank", a[1][0], b[1][0]),
+                   ("K11 counts", a[2], b[2])])
+    kept = int(a[2].sum().item())
+    slots = sum(d.numel() for _, d, _ in blocks)
+    rows = sum(g.numel() for g, _, _ in blocks)
+
+    def library():
+        d = torch.cat([torch.where(g[:, :, None], x, K.KEY_SENTINEL)
+                       .reshape(N_SHARDS, -1) for g, x, _ in blocks], 1)
+        v = torch.cat([lv[0].reshape(N_SHARDS, -1) for _, _, lv in blocks], 1)
+        o = torch.argsort((d == K.KEY_SENTINEL).to(torch.int8), dim=1,
+                          stable=True)
+        return torch.gather(d, 1, o), torch.gather(v, 1, o)
+    rec = {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.obj_emit_pack(blocks)),
+        "plain_ms": timed(lambda: K.obj_emit_pack_plain(blocks), reps=3),
+        # every gate and dst slot read once, each kept slot's rank read,
+        # its packed (dst, rank) row written
+        "bound_ms": bound_ms(rows + slots * 8 + kept * (8 + 8 + 8)),
+        "library_ms": timed(library, reps=3),
+        "notes": {"blocks": len(blocks), "slots": slots, "kept": kept,
+                  "cap_out": a[0].shape[1], "classes": dop.classes},
+    }
+    print_phase("obj_emit_pack", rec)
+    del a, b, blocks
+    profile_window("gpu:8 object PageRank superstep 1 (deliver per class, "
+                   "compute, pack, pre-combine)",
+                   lambda: dop._p_step(1, pending))
+    del dop, pending
+    torch.cuda.empty_cache()
+    return {"obj_emit_pack": rec}
+
+
+def bagel_path(graph):
+    """Object PageRank through Bagel.run on gpu:8 over the urand graph,
+    checked against numpy's power iteration (rtol PR_RTOL).  Returns the
+    least K10 launches: one per class a superstep with mail."""
+    from dpark_tpu_torch import (BasicCombiner, DparkContext, Edge, Vertex)
+    from dpark_tpu_torch.backend.cuda import bagel_obj
+    n, src, dst = graph
+    t0 = time.perf_counter()
+    deg, tgt, ev = urand_layout(n, src, dst)
+    offs = np.concatenate([[0], np.cumsum(deg)]).tolist()
+    tgt, ev = tgt.tolist(), ev.tolist()
+    rows = [(v, Vertex(v, 1.0 / n, list(map(
+        Edge, tgt[offs[v]:offs[v + 1]], ev[offs[v]:offs[v + 1]]))))
+        for v in range(n)]
+    del deg, tgt, ev, offs
+    print("bagel: %d Vertex and %d Edge objects built in %.1f s" % (
+        n, len(src), time.perf_counter() - t0), flush=True)
+    ctx = DparkContext("gpu:8")
+    torch.cuda.reset_peak_memory_stats()
+    final = act("gpu:8 object PageRank Bagel.run", lambda: _bagel_run(
+        ctx, rows, bagel_pagerank(n), BasicCombiner(operator.add)))
+    sched = ctx.scheduler
+    if not sched._pregel_device_used:
+        fail("object PageRank left the device: %s"
+             % sched._pregel_fallback_reason)
+    stats = dict(bagel_obj.LAST_RUN_STATS)
+    if not stats["bucketed"]:
+        fail("object PageRank did not run on bucketed classes: %s" % stats)
+    st = sched._pregel_stats
+    print("bagel object PageRank: setup_s=%.3f (walk %.3f) supersteps=%d "
+          "delivered=%d superstep_loop_s=%.3f per_superstep_ms=%.2f "
+          "canary_s=%.3f classes=%d widths=%s caps=%s" % (
+              st["setup_seconds"], st["walk_seconds"], st["supersteps"],
+              st["delivered"], st["superstep_seconds"],
+              st["superstep_seconds"] / st["supersteps"] * 1e3,
+              st["canary_seconds"], st["classes"], st["widths"], st["caps"]),
+          flush=True)
+    print("bagel object PageRank: peak device memory %.2f GB, host peak "
+          "RSS %.2f GB" % (torch.cuda.max_memory_allocated() / 1e9,
+                           resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                           / 1e6), flush=True)
+    if st["supersteps"] != PR_STEPS + 1:
+        fail("object PageRank ran %d supersteps" % st["supersteps"])
+    got = act("gpu:8 object PageRank collect", final.collect)
+    ids = np.fromiter((vid for vid, _ in got), np.int64, len(got))
+    ranks = np.fromiter((v.value for _, v in got), np.float64, len(got))
+    del got, rows, final
+    want = bagel_pagerank_numpy(n, src, dst)
+    if len(ids) != n or not (np.array_equal(np.sort(ids), np.arange(n))
+                             and np.allclose(ranks, want[ids], rtol=PR_RTOL,
+                                             atol=0)):
+        fail("object PageRank differs from numpy's power iteration: max "
+             "rel err %g" % np.max(np.abs(ranks - want[ids]) / want[ids]))
+    print("bagel object PageRank: max rel err vs numpy %.3g (rtol %g)" % (
+        np.max(np.abs(ranks - want[ids]) / want[ids]), PR_RTOL), flush=True)
+    ctx.stop()
+    return {"pregel_deliver": st["delivered"] * st["classes"]}
+
+
+def _bagel_run(ctx, rows, compute, combiner):
+    from dpark_tpu_torch import Bagel
+    return Bagel.run(ctx, ctx.parallelize(rows, N_SHARDS),
+                     ctx.parallelize([], N_SHARDS), compute,
+                     combiner=combiner, max_superstep=PR_STEPS + 1)
+
+
 def profile_window(label, window, top=14):
     """Where the time of one window of device work goes, under
     torch.profiler: the wall time, the summed device time and the ops
@@ -1239,6 +1429,15 @@ def main():
     phases.update(pregel_kernel_phases(K, dev, graph))
     drive("pregel gpu:8", pregel_path, graph, weights)
     del graph, weights
+
+    graph = urand_graph(URAND_SCALE, URAND_EDGE_FACTOR)
+    print("graph: urand scale %d edge factor %d: %d vertices, %d edges, "
+          "max out-degree %d" % (URAND_SCALE, URAND_EDGE_FACTOR, graph[0],
+                                 len(graph[1]), np.bincount(graph[1]).max()),
+          flush=True)
+    phases.update(bagel_kernel_phase(K, dev, graph))
+    drive("bagel gpu:8", bagel_path, graph)
+    del graph
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

@@ -13,6 +13,7 @@ Kernels (sources under csrc/, one shared library each):
   K8 bucket_gather          csrc/bucket_groups.cu (with bucket_scatter)
   K9 edge_gather            csrc/edge_gather.cu
   K10 pregel_deliver        csrc/pregel_deliver.cu
+  K11 obj_emit_pack         csrc/obj_emit_pack.cu
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -50,6 +51,7 @@ SOURCES = {
     "bucket_groups": "bucket_groups.cu",
     "edge_gather": "edge_gather.cu",
     "pregel_deliver": "pregel_deliver.cu",
+    "obj_emit_pack": "obj_emit_pack.cu",
 }
 # launch counters: one per kernel (K8's library holds two)
 LAUNCHES = {name: 0 for name in SOURCES if name != "bucket_groups"}
@@ -175,6 +177,14 @@ def _bind(name, lib):
         fn = lib.dpk_pregel_deliver
         fn.argtypes = [_P, _P, _I, _L, _P, _P, _L, _P, _P, _P, _P, _P, _I,
                        _P, _P]
+    elif name == "obj_emit_pack":
+        count = lib.dpk_obj_emit_count
+        count.argtypes = [_P, _I, _I, _I, _L, _P, _P, _P]
+        count.restype = ctypes.c_int
+        scatter = lib.dpk_obj_emit_scatter
+        scatter.argtypes = [_P, _I, _I, _I, _I, _L, _P, _P, _L, _P, _P]
+        scatter.restype = ctypes.c_int
+        return count, scatter
     else:
         fn = lib.dpk_range_dst_hist
         fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _L, _P, _P,
@@ -1021,7 +1031,16 @@ def _elem_bits(value, dtype):
     return int(iv.item()) & ((1 << (8 * w)) - 1), w
 
 
-def pregel_deliver_plain(vid, vcnt, uk, n_unique, leaves, combine):
+def _deliver_fills(leaves, combine, fills):
+    """The value written where a slot has no mail, one per leaf: `fills`
+    when given, else the combine monoid's identity."""
+    if fills is None:
+        return [identity(combine, u.dtype) for u in leaves]
+    return list(fills)
+
+
+def pregel_deliver_plain(vid, vcnt, uk, n_unique, leaves, combine,
+                         fills=None):
     N, cap_v = vid.shape
     cap_u = uk.shape[1]
     dev = vid.device
@@ -1032,29 +1051,32 @@ def pregel_deliver_plain(vid, vcnt, uk, n_unique, leaves, combine):
     valid = torch.arange(cap_v, device=dev)[None, :] < vcnt[:, None].long()
     has = (torch.gather(keys, 1, pos) == vid) & valid & (vid != KEY_SENTINEL)
     out = []
-    for u in leaves:
+    for u, fill in zip(leaves, _deliver_fills(leaves, combine, fills)):
         got = shard_rows(u, pos)
-        ident = torch.full((), identity(combine, u.dtype),
-                           dtype=u.dtype, device=dev)
+        ident = torch.full((), fill, dtype=u.dtype, device=dev)
         out.append(torch.where(has.view(has.shape + (1,) * (got.dim() - 2)),
                                got, ident))
     return out, has
 
 
-def pregel_deliver(vid, vcnt, uk, n_unique, leaves, combine):
+def pregel_deliver(vid, vcnt, uk, n_unique, leaves, combine, fills=None):
     """Each vertex slot's combined inbound message: bisect its id (`vid`,
-    (N, cap_v) int64, ascending per shard, the sentinel past vcnt[s])
-    into its shard's unique message keys uk[s, :n_unique[s]] ((N, cap_u)
-    int64, ascending).  Where found (and the slot valid, its id not the
+    (N, cap_v) int64 in any order, the sentinel past vcnt[s]) into its
+    shard's unique message keys uk[s, :n_unique[s]] ((N, cap_u) int64,
+    ascending).  Where found (and the slot valid, its id not the
     sentinel) each message leaf's row ((N, cap_u, ...) -> (N, cap_v, ...))
-    is copied, else the `combine` monoid's identity written; a message to
-    an id with no vertex is dropped.  Returns (message leaves, has (N,
-    cap_v) bool)."""
+    is copied, else the `combine` monoid's identity written, or with
+    `fills` (one value per leaf; `combine` may then be None) that leaf's
+    fill; a message to an id with no vertex is dropped.  Returns (message
+    leaves, has (N, cap_v) bool)."""
     leaves = list(leaves)
     N, cap_v = vid.shape
     cap_u = uk.shape[1] if uk.dim() == 2 else 0
-    _need(combine in ("add", "min", "max", "mul"),
-          "unknown monoid %r" % (combine,))
+    if fills is None:
+        _need(combine in ("add", "min", "max", "mul"),
+              "unknown monoid %r" % (combine,))
+    else:
+        _need(len(fills) == len(leaves), "one fill per message leaf")
     _need(vid.dtype == torch.int64 and vid.is_contiguous()
           and uk.dtype == torch.int64 and uk.is_contiguous()
           and uk.shape == (N, cap_u) and cap_u >= 1,
@@ -1065,16 +1087,17 @@ def pregel_deliver(vid, vcnt, uk, n_unique, leaves, combine):
     _check_cols(leaves, N, cap_u, "message leaves")
     if not _on_cuda([vid, vcnt, uk, n_unique] + leaves):
         return pregel_deliver_plain(vid, vcnt, uk, n_unique, leaves,
-                                    combine)
+                                    combine, fills)
     fn = _kernel("pregel_deliver")
     dev = vid.device
     out = [torch.empty((N, cap_v) + tuple(u.shape[2:]), dtype=u.dtype,
                        device=dev) for u in leaves]
     has = torch.empty((N, cap_v), dtype=torch.bool, device=dev)
+    all_fills = _deliver_fills(leaves, combine, fills)
     for i in range(0, max(1, len(leaves)), MAX_LEAVES):
         part = leaves[i:i + MAX_LEAVES]
-        idents = [_elem_bits(identity(combine, u.dtype), u.dtype)
-                  for u in part]
+        idents = [_elem_bits(f, u.dtype)
+                  for f, u in zip(all_fills[i:i + MAX_LEAVES], part)]
         k = max(1, len(part))
         rc = fn(vid.data_ptr(), vcnt.data_ptr(), N, cap_v, uk.data_ptr(),
                 n_unique.data_ptr(), cap_u, _ptrs(part),
@@ -1085,3 +1108,122 @@ def pregel_deliver(vid, vcnt, uk, n_unique, leaves, combine):
                 has.data_ptr(), _stream())
         _check("pregel_deliver", rc)
     return out, has
+
+
+# ---------------------------------------------------------------------
+# K11 obj_emit_pack
+# ---------------------------------------------------------------------
+def _emit_width(counts):
+    """The packed width of K11's outputs: the fine capacity class of the
+    largest shard's count (read with one host sync)."""
+    from dpark_tpu_torch.backend.cuda.layout import round_capacity_fine
+    return round_capacity_fine(int(counts.max().item()))
+
+
+def _emit_tail(dst, leaves, counts):
+    """Past counts[s]: the sentinel in dst, zeros in the leaves."""
+    cap_out = dst.shape[1]
+    tail = torch.arange(cap_out, device=dst.device)[None, :] \
+        >= counts[:, None].long()
+    dst = torch.where(tail, KEY_SENTINEL, dst)
+    out = []
+    for leaf in leaves:
+        t = tail.view(tail.shape + (1,) * (leaf.dim() - 2))
+        out.append(torch.where(t, torch.zeros((), dtype=leaf.dtype,
+                                               device=leaf.device), leaf))
+    return dst, out
+
+
+def obj_emit_pack_plain(blocks):
+    N = blocks[0][0].shape[0]
+    nl = len(blocks[0][2])
+    dsts = [torch.where(gate[:, :, None], dst, KEY_SENTINEL).reshape(N, -1)
+            for gate, dst, _ in blocks]
+    vals = [torch.cat([lv[li].reshape((N, -1) + tuple(lv[li].shape[3:]))
+                       for _, _, lv in blocks], 1) for li in range(nl)]
+    dst_flat = torch.cat(dsts, 1)
+    keep = dst_flat != KEY_SENTINEL
+    # collectives.compact on the plain path: a two-bucket stable partition
+    packed, _, _ = stable_partition_plain((~keep).to(torch.int32), 2,
+                                          [dst_flat] + vals)
+    counts = keep.sum(1).to(torch.int32)
+    cap_out = _emit_width(counts)
+    width = packed[0].shape[1]
+    if cap_out > width:
+        packed = [torch.cat([p, torch.zeros(
+            (N, cap_out - width) + tuple(p.shape[2:]), dtype=p.dtype,
+            device=p.device)], 1) for p in packed]
+    packed = [p[:, :cap_out].contiguous() for p in packed]
+    dst, leaves = _emit_tail(packed[0], packed[1:], counts)
+    return dst, leaves, counts
+
+
+def obj_emit_pack(blocks):
+    """Pack one superstep's emitted messages.  `blocks` is a list of
+    (gate (N, cap) bool, dst (N, cap, m) int64, [leaf (N, cap, m, ...)])
+    emission blocks, in order; every block carries the same message
+    leaves (dtypes and trailing shapes).  Each shard's slots with
+    gate[s, i] and dst[s, i, j] != the sentinel are packed in (block, i,
+    j) order to the front of (N, cap_out) outputs, cap_out the fine
+    capacity class of the largest shard's count; the tails hold the
+    sentinel (dst) and zeros (leaves).  Returns (dst, leaves, counts (N,)
+    int32)."""
+    blocks = [(g, d, list(lv)) for g, d, lv in blocks]
+    _need(len(blocks) >= 1, "at least one emission block")
+    N = blocks[0][0].shape[0]
+    nl = len(blocks[0][2])
+    _need(nl <= MAX_LEAVES, "at most %d message leaves" % MAX_LEAVES)
+    spec = [(leaf.dtype, tuple(leaf.shape[3:])) for leaf in blocks[0][2]]
+    tensors = []
+    for gate, dst, lv in blocks:
+        _need(gate.dtype == torch.bool and gate.dim() == 2
+              and gate.shape[0] == N and gate.is_contiguous(),
+              "each gate must be a contiguous (N, cap) bool tensor")
+        cap = gate.shape[1]
+        _need(dst.dtype == torch.int64 and dst.dim() == 3
+              and dst.shape[:2] == (N, cap) and dst.is_contiguous(),
+              "each dst must be a contiguous (N, cap, m) int64 tensor")
+        m = dst.shape[2]
+        _need(len(lv) == nl and all(
+            leaf.is_contiguous() and leaf.dim() >= 3
+            and tuple(leaf.shape[:3]) == (N, cap, m)
+            and (leaf.dtype, tuple(leaf.shape[3:])) == sp
+            for leaf, sp in zip(lv, spec)),
+            "each block's message leaves must be contiguous (N, cap, m, "
+            "...) tensors of the first block's dtypes and shapes")
+        tensors += [gate, dst] + lv
+    if not _on_cuda(tensors):
+        return obj_emit_pack_plain(blocks)
+    count_fn, scatter_fn = _kernel("obj_emit_pack")
+    dev = blocks[0][0].device
+    W = 5 + nl
+    rows, tiles = [], 0
+    for gate, dst, lv in blocks:
+        cap, m = dst.shape[1], dst.shape[2]
+        rows += [gate.data_ptr(), dst.data_ptr(), cap, m, tiles]
+        rows += [leaf.data_ptr() for leaf in lv]
+        tiles += -(-cap * m // 1024)
+    lb = [leaf.element_size() * math.prod(leaf.shape[3:])
+          for leaf in blocks[0][2]]
+    tileoff = torch.empty((N, max(1, tiles)), dtype=torch.int32, device=dev)
+    counts = torch.empty((N,), dtype=torch.int32, device=dev)
+    # the descriptor table: the output leaf pointers are filled in after
+    # the outputs are sized
+    table = torch.tensor(rows + lb + [0] * nl, dtype=torch.int64)
+    desc = table.to(dev)
+    _check("obj_emit_pack", count_fn(desc.data_ptr(), len(blocks), W, N,
+                                     tiles, tileoff.data_ptr(),
+                                     counts.data_ptr(), _stream()),
+           count=False)
+    cap_out = _emit_width(counts)
+    dst_out = torch.empty((N, cap_out), dtype=torch.int64, device=dev)
+    leaves = [torch.empty((N, cap_out) + shp, dtype=dt, device=dev)
+              for dt, shp in spec]
+    table[len(rows) + nl:] = torch.tensor([o.data_ptr() for o in leaves],
+                                          dtype=torch.int64)
+    desc = table.to(dev)
+    rc = scatter_fn(desc.data_ptr(), len(blocks), W, nl, N, tiles,
+                    tileoff.data_ptr(), counts.data_ptr(), cap_out,
+                    dst_out.data_ptr(), _stream())
+    _check("obj_emit_pack", rc)
+    return dst_out, leaves, counts

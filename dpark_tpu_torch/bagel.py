@@ -1,23 +1,37 @@
-"""Vectorized Pregel of the PyTorch port: `run_pregel` (port of the
-vectorized section of dpark_tpu/bagel.py).
+"""Bagel of the PyTorch port (port of dpark_tpu/bagel.py): the object
+contract (`Bagel.run` over Vertex / Edge / Message objects) and the
+vectorized Pregel (`run_pregel`).
 
-Columnar vertex state, edge-centric vectorized compute/send, monoid
-message combine.  On the gpu master each superstep runs over the N
-logical shards on the device (backend/cuda/bagel.py: K9 gathers the
+Bagel.run collects the graph to the driver once.  On the gpu master a
+numeric program is columnarized onto the device
+(`_run_columnar` -> backend/cuda/bagel_obj.DeviceObjectPregel: the user
+compute vmapped per out-degree class, K11 packs the emitted messages,
+K1-K5 combine and exchange them, K10 delivers them); anything the device
+path does not admit runs the driver-resident host loop (`_run_fast`)
+from superstep 0, and ctx.scheduler._pregel_fallback_reason says why.
+The reference's third path, the RDD-algebra superstep loop, is not
+ported (it needs groupWith / cogroup, ROADMAP A11): where the reference
+would run it, Bagel.run raises NotImplementedError.
+
+run_pregel: columnar vertex state, edge-centric vectorized compute/send,
+monoid message combine.  On the gpu master each superstep runs over the
+N logical shards on the device (backend/cuda/bagel.py: K9 gathers the
 vertex state onto the edges, messages are pre-combined and exchanged
 with K1-K5, K10 delivers them); on `local` the vectorized numpy loop
-below (`_pregel_host`) is the golden model.
-
-User functions are written with torch ops: both paths hand them torch
-tensors (CPU tensors on the host loop) and run them with float64 as the
-default dtype, so an int / int gives float64 as numpy does.
+below (`_pregel_host`) is the golden model.  Its user functions are
+written with torch ops: both paths hand them torch tensors (CPU tensors
+on the host loop) and run them with float64 as the default dtype, so an
+int / int gives float64 as numpy does.
 """
 
 import logging
+import os
+import time
 
 import numpy as np
 import torch
 
+from dpark_tpu_torch.utils import pytree
 from dpark_tpu_torch.utils.monoid import monoid_identity
 
 logger = logging.getLogger("dpark_tpu_torch.bagel")
@@ -28,6 +42,447 @@ PREGEL_MONOIDS = ("add", "min", "max", "mul")
 class PregelInputError(ValueError):
     """Invalid run_pregel input (bad ids/edges/messages).  Never triggers
     the device->host fallback: the input is wrong on both paths."""
+
+
+class Vertex:
+    def __init__(self, id, value, outEdges=None, active=True):
+        self.id = id
+        self.value = value
+        self.outEdges = outEdges or []
+        self.active = active
+
+    def __repr__(self):
+        return "<Vertex(%s, %r, active=%s)>" % (
+            self.id, self.value, self.active)
+
+
+class Edge:
+    def __init__(self, target_id, value=None):
+        self.target_id = target_id
+        self.value = value
+
+
+class Message:
+    def __init__(self, target_id, value):
+        self.target_id = target_id
+        self.value = value
+
+
+class Combiner:
+    """Pre-shuffle message combine (reference: Bagel Combiner)."""
+
+    def createCombiner(self, msg):
+        return [msg]
+
+    def mergeValue(self, combiner, msg):
+        combiner.append(msg)
+        return combiner
+
+    def mergeCombiners(self, a, b):
+        a.extend(b)
+        return a
+
+
+class BasicCombiner(Combiner):
+    """Combine message values with a binary op (e.g. operator.add)."""
+
+    def __init__(self, op):
+        self.op = op
+
+    def createCombiner(self, msg):
+        return msg
+
+    def mergeValue(self, combiner, msg):
+        return self.op(combiner, msg)
+
+    def mergeCombiners(self, a, b):
+        return self.op(a, b)
+
+
+class Aggregator:
+    """Global per-superstep reduce over all vertices; the result is
+    visible to every vertex in the NEXT superstep."""
+
+    def createAggregator(self, vert):
+        raise NotImplementedError
+
+    def mergeAggregators(self, a, b):
+        raise NotImplementedError
+
+
+# the knobs of the reference, under its environment names and defaults:
+# the driver-resident host loop (DPARK_BAGEL_FAST=0 turns it off), the
+# vertex bound of the driver-resident paths, the device columnarizer
+# (DPARK_BAGEL_DEVICE=0 turns it off), the exact-class and degree caps,
+# power-of-two degree buckets (DPARK_BAGEL_BUCKETS=0 turns them off), and
+# the compile-budget guard, which the port does not enforce (ROADMAP
+# C10: an eager run compiles nothing)
+FAST_OBJECT_RUN = os.environ.get("DPARK_BAGEL_FAST", "1") != "0"
+FAST_MAX_VERTICES = int(os.environ.get("DPARK_BAGEL_FAST_MAX",
+                                       str(4_000_000)))
+DEVICE_OBJECT_RUN = os.environ.get("DPARK_BAGEL_DEVICE", "1") != "0"
+MAX_DEGREE_CLASSES = int(os.environ.get("DPARK_BAGEL_MAX_CLASSES", "24"))
+MAX_DEGREE = int(os.environ.get("DPARK_BAGEL_MAX_DEGREE", "1024"))
+DEGREE_BUCKETS = os.environ.get("DPARK_BAGEL_BUCKETS", "1") != "0"
+BAGEL_MIN_ROWS_PER_TRACE = int(os.environ.get(
+    "DPARK_BAGEL_MIN_ROWS_PER_TRACE", "0") or 0)
+
+RDD_LOOP_MISSING = ("the RDD-algebra Bagel superstep loop is not ported "
+                    "(it needs groupWith / cogroup, ROADMAP A11)")
+
+
+class _ObjectPathNeeded(Exception):
+    """Raised inside the driver-resident object run when the program does
+    something only the RDD path models (vertex id rebinding), or when the
+    graph is too large to collect; inputs are untouched."""
+
+
+class _NotColumnarizable(Exception):
+    """Raised while deciding whether an object Bagel program can ride the
+    device; inputs untouched, the host loop runs instead."""
+
+
+def _is_int_id(x):
+    return not isinstance(x, bool) and isinstance(x, (int, np.integer))
+
+
+def _int_type(t):
+    return issubclass(t, (int, np.integer)) and not issubclass(t, bool)
+
+
+def _num_type(t):
+    return (issubclass(t, (int, float, np.integer, np.floating))
+            and not issubclass(t, bool))
+
+
+def _edge_columns(edges, ev_state):
+    """(targets, values, ev_state) of one vertex's out-edges: the targets
+    as a list of ints, the values as a list (empty when all None).  The
+    common case checks the distinct types of each column at once; any
+    odd edge sends the vertex through the reference's edge-by-edge
+    checks, which raise its first error in its order."""
+    tl = [e.target_id for e in edges]
+    vl = [getattr(e, "value", None) for e in edges]
+    vtypes = set(map(type, vl))
+    if all(map(_int_type, set(map(type, tl)))):
+        if vtypes == {type(None)} and ev_state is not True:
+            return tl, [], False
+        if vtypes and ev_state is not False and all(map(_num_type, vtypes)):
+            return tl, vl, True
+        if not edges:
+            return tl, [], ev_state
+    ev_vals = []
+    for e in edges:
+        t = e.target_id
+        if not _is_int_id(t):
+            raise _NotColumnarizable("non-integer edge target")
+        val = getattr(e, "value", None)
+        if val is None:
+            if ev_state is True:
+                raise _NotColumnarizable("mixed None/numeric edge values")
+            ev_state = False
+        else:
+            if ev_state is False:
+                raise _NotColumnarizable("mixed None/numeric edge values")
+            if isinstance(val, bool) or not isinstance(
+                    val, (int, float, np.integer, np.floating)):
+                raise _NotColumnarizable(
+                    "non-numeric edge value %r" % (val,))
+            ev_state = True
+            ev_vals.append(val)
+    return tl, ev_vals, ev_state
+
+
+class Bagel:
+    @classmethod
+    def run(cls, ctx, verts, msgs, compute,
+            combiner=None, aggregator=None,
+            max_superstep=80, numSplits=None, checkpoint_interval=10):
+        """verts: RDD of (id, Vertex); msgs: RDD of (id, message_value).
+
+        compute(vertex, messages_or_combined, aggregated, superstep)
+          -> (new_vertex, [Message, ...])
+        Returns the final verts RDD.
+
+        The graph is collected to the driver once.  On the gpu master a
+        numeric program runs on the device (_run_columnar); otherwise,
+        and whenever the device path does not admit the program, the
+        driver-resident host loop (_run_fast) runs from superstep 0, so
+        compute must tolerate re-execution.  Where the reference falls
+        back to its RDD-algebra loop (a graph over FAST_MAX_VERTICES, a
+        compute that rebinds vertex ids, DPARK_BAGEL_FAST=0) the port
+        raises NotImplementedError (ROADMAP A11).  checkpoint_interval
+        belongs to that loop and is ignored.
+        """
+        combiner = combiner or Combiner()
+        numSplits = numSplits or len(verts.splits)
+        ctx.start()
+        sched = ctx.scheduler
+        want_columnar = DEVICE_OBJECT_RUN \
+            and getattr(sched, "executor", None) is not None
+        if want_columnar:
+            sched._pregel_device_used = False
+            sched._pregel_fallback_reason = None
+        collected = None
+        need = None
+        if want_columnar or FAST_OBJECT_RUN:
+            try:
+                collected = cls._collect_bounded(verts, msgs)
+            except (_ObjectPathNeeded, MemoryError) as e:
+                need = e
+        if collected is not None and want_columnar:
+            try:
+                return cls._run_columnar(ctx, collected, compute,
+                                         combiner, aggregator,
+                                         max_superstep, numSplits)
+            except _NotColumnarizable as e:
+                logger.warning("object Bagel program is not "
+                               "device-columnarizable (%s); "
+                               "driver-resident host path", e)
+                sched._pregel_fallback_reason = str(e)
+        if collected is not None and FAST_OBJECT_RUN:
+            try:
+                return cls._run_fast(ctx, collected, compute, combiner,
+                                     aggregator, max_superstep, numSplits)
+            except (_ObjectPathNeeded, MemoryError) as e:
+                need = e
+        raise NotImplementedError(
+            "%s; the driver-resident paths cannot run this program (%s)"
+            % (RDD_LOOP_MISSING, need or "DPARK_BAGEL_FAST=0")) from need
+
+    @classmethod
+    def _run_columnar(cls, ctx, collected, compute, combiner,
+                      aggregator, max_superstep, numSplits):
+        """Columnarize an object-Bagel program onto the device
+        (backend/cuda/bagel_obj.py): integer vertex ids and message
+        targets, numeric pytree vertex values of one structure, numeric
+        message values, Edge.value all None or all numeric, a
+        BasicCombiner, no Aggregator, at most MAX_DEGREE out-edges.
+        Anything else raises _NotColumnarizable before any device work;
+        shape and dtype checks run on every superstep's call of the
+        compute, before the superstep is committed."""
+        from dpark_tpu_torch.backend.cuda.fuse import classify_merge
+        t0 = time.perf_counter()
+        if aggregator is not None:
+            raise _NotColumnarizable("object Aggregator contract")
+        if type(combiner) is BasicCombiner:
+            monoid = classify_merge(combiner.op)
+        elif type(combiner) is Combiner:
+            raise _NotColumnarizable("list-combining default Combiner")
+        else:
+            raise _NotColumnarizable("custom Combiner %r"
+                                     % type(combiner).__name__)
+        graph, pend = collected
+        n = len(graph)
+        if n == 0:
+            raise _NotColumnarizable("empty graph")
+
+        ids_l, act_l, deg_l = [], [], []
+        vdef = None
+        vleaf_lists = None
+        tgt_all, ev_vals = [], []
+        ev_state = None       # None undecided / False all-None / True
+        out_edges = {}
+        for vid, v in graph.items():
+            if not isinstance(v, Vertex):
+                raise _NotColumnarizable("vertex is %r, not Vertex"
+                                         % type(v).__name__)
+            if not _is_int_id(vid):
+                raise _NotColumnarizable("non-integer vertex id %r"
+                                         % (vid,))
+            leaves, treedef = pytree.tree_flatten(v.value)
+            if vdef is None:
+                vdef = treedef
+                vleaf_lists = [[] for _ in leaves]
+            elif treedef != vdef:
+                raise _NotColumnarizable(
+                    "vertex value structure varies across vertices")
+            if not leaves:
+                raise _NotColumnarizable(
+                    "vertex value has no numeric leaves")
+            for li, leaf in enumerate(leaves):
+                if isinstance(leaf, bool):
+                    raise _NotColumnarizable(
+                        "non-numeric vertex value leaf %r" % (leaf,))
+                arr = np.asarray(leaf)
+                if arr.dtype.kind not in "if":
+                    raise _NotColumnarizable(
+                        "non-numeric vertex value leaf %r" % (leaf,))
+                vleaf_lists[li].append(arr)
+            edges = list(v.outEdges)
+            if len(edges) > MAX_DEGREE:
+                raise _NotColumnarizable("degree %d > %d"
+                                         % (len(edges), MAX_DEGREE))
+            tl, vl, ev_state = _edge_columns(edges, ev_state)
+            tgt_all.extend(tl)
+            ev_vals.extend(vl)
+            out_edges[int(vid)] = v.outEdges
+            ids_l.append(int(vid))
+            act_l.append(bool(v.active))
+            deg_l.append(len(edges))
+        for t, _ in pend:
+            if not _is_int_id(t):
+                raise _NotColumnarizable("non-integer message target")
+
+        ids = np.asarray(ids_l, np.int64)
+        degs = np.asarray(deg_l, np.int64)
+        if not DEGREE_BUCKETS and len(set(deg_l)) > MAX_DEGREE_CLASSES:
+            raise _NotColumnarizable(
+                "%d degree classes > %d (each distinct degree is a "
+                "separate trace)" % (len(set(deg_l)),
+                                     MAX_DEGREE_CLASSES))
+        try:
+            vleaves = [np.stack(col) for col in vleaf_lists]
+        except ValueError:
+            raise _NotColumnarizable("vertex value leaf shapes vary")
+        for col in vleaves:
+            if col.dtype.kind not in "if":
+                raise _NotColumnarizable("vertex values dtype %s"
+                                         % col.dtype)
+        act = np.asarray(act_l, bool)
+        tgt_flat = np.asarray(tgt_all, np.int64)
+        ev_flat = None
+        if ev_state:
+            ev_flat = np.asarray(ev_vals)
+            if ev_flat.dtype.kind not in "if":
+                raise _NotColumnarizable("edge values dtype %s"
+                                         % ev_flat.dtype)
+        pend_cols = None
+        if pend:
+            # initial message values may be any small numeric pytree of
+            # one structure: its leaves ride as separate columns
+            mdef0 = None
+            leaf_lists = None
+            for _, v in pend:
+                leaves, mdef = pytree.tree_flatten(v)
+                if mdef0 is None:
+                    mdef0, leaf_lists = mdef, [[] for _ in leaves]
+                elif mdef != mdef0:
+                    raise _NotColumnarizable(
+                        "initial message value structure varies")
+                if not leaves:
+                    raise _NotColumnarizable(
+                        "initial message value has no numeric leaves")
+                for li, leaf in enumerate(leaves):
+                    if isinstance(leaf, bool):
+                        raise _NotColumnarizable(
+                            "non-numeric message value leaf")
+                    leaf_lists[li].append(np.asarray(leaf))
+            try:
+                pleaves = [np.stack(col) for col in leaf_lists]
+            except ValueError:
+                raise _NotColumnarizable(
+                    "initial message leaf shapes vary")
+            for col in pleaves:
+                if col.dtype.kind not in "if":
+                    raise _NotColumnarizable("non-numeric message value")
+            pend_cols = (np.asarray([t for t, _ in pend], np.int64),
+                         pleaves, mdef0)
+        walk_seconds = time.perf_counter() - t0
+
+        from dpark_tpu_torch.backend.cuda.bagel_obj import (
+            DeviceObjectPregel, UserCodeError, _DegreeDependent)
+        try:
+            dop = DeviceObjectPregel(
+                ctx.scheduler.executor, compute, monoid, vdef, ids,
+                vleaves, act, degs, tgt_flat, ev_flat, pend_cols,
+                max_superstep, combine_op=combiner.op)
+            out_ids, out_leaves, out_act = dop.run()
+        except PregelInputError as e:
+            # inputs the device rejects (a vertex id equal to its padding
+            # sentinel) run on the object path
+            raise _NotColumnarizable(
+                "device Pregel rejected inputs (%s)" % e)
+        except (UserCodeError, _DegreeDependent) as e:
+            # the user's code raised under vmap after admission, or a
+            # later superstep's canary refused the buckets
+            raise _NotColumnarizable(
+                "device object Pregel failed (%s)" % str(e)[:200])
+        sched = ctx.scheduler
+        sched._pregel_device_used = True
+        sched._pregel_fallback_reason = None
+        dop.stats["setup_seconds"] += walk_seconds
+        dop.stats["walk_seconds"] = walk_seconds
+        sched._pregel_stats = dop.stats
+        out = []
+        for i, vid in enumerate(out_ids.tolist()):
+            leaves_i = []
+            for col in out_leaves:
+                x = col[i]
+                if x.ndim == 0:
+                    x = float(x) if x.dtype.kind == "f" else int(x)
+                leaves_i.append(x)
+            val = pytree.tree_unflatten(vdef, leaves_i)
+            out.append((vid, Vertex(vid, val, out_edges[vid],
+                                    bool(out_act[i]))))
+        return ctx.parallelize(out, numSplits)
+
+    @classmethod
+    def _collect_bounded(cls, verts, msgs):
+        """(graph dict, pending list) for the driver-resident paths --
+        count first so an oversized graph never collect-then-OOMs."""
+        n = verts.count()
+        if n > FAST_MAX_VERTICES:
+            raise _ObjectPathNeeded(
+                "%d vertices > DPARK_BAGEL_FAST_MAX=%d"
+                % (n, FAST_MAX_VERTICES))
+        return dict(verts.collect()), list(msgs.collect())
+
+    @classmethod
+    def _run_fast(cls, ctx, collected, compute, combiner, aggregator,
+                  max_superstep, numSplits):
+        """Driver-resident object supersteps: the reference's semantics
+        (inactive no-mail vertices pass through, messages to unknown ids
+        drop, halting when no vertex is active and no message pending),
+        delivery by per-target fold through the user's Combiner."""
+        graph, pending = collected
+        graph = dict(graph)                  # the loop rebinds its copy
+        pending = list(pending)
+        superstep = 0
+        while superstep < max_superstep:
+            aggregated = None
+            if aggregator is not None:
+                it = iter(graph.values())
+                first = next(it, None)
+                if first is not None:
+                    aggregated = aggregator.createAggregator(first)
+                    for v in it:
+                        aggregated = aggregator.mergeAggregators(
+                            aggregated, aggregator.createAggregator(v))
+
+            mail = {}
+            for target, value in pending:
+                if target not in graph:
+                    continue                 # unknown ids drop
+                if target in mail:
+                    mail[target] = combiner.mergeValue(mail[target], value)
+                else:
+                    mail[target] = combiner.createCombiner(value)
+
+            pending = []
+            new_graph = {}
+            for vid, vert in graph.items():
+                vmail = mail.get(vid)
+                if vmail is None and not vert.active:
+                    new_graph[vid] = vert    # untouched pass-through
+                    continue
+                new_vert, out_msgs = compute(vert, vmail, aggregated,
+                                             superstep)
+                if new_vert.id != vid:
+                    raise _ObjectPathNeeded(
+                        "compute rebound vertex id %r -> %r"
+                        % (vid, new_vert.id))
+                new_graph[vid] = new_vert
+                for m in out_msgs:
+                    pending.append((m.target_id, m.value))
+            graph = new_graph
+            num_active = sum(1 for v in graph.values() if v.active)
+            superstep += 1
+            logger.debug("fast superstep %d: active=%d msgs=%d",
+                         superstep, num_active, len(pending))
+            if not pending and num_active == 0:
+                break
+        return ctx.parallelize(list(graph.items()), numSplits)
 
 
 def as_leaves(x):

@@ -80,6 +80,50 @@ def test_pregel_imports_no_jax_and_no_reference_package():
     assert res["mods"] == []
 
 
+_BAGEL_PROBE = r"""
+import json, operator, sys
+from dpark_tpu_torch import (Bagel, BasicCombiner, DparkContext, Edge,
+                             Message, Vertex)
+c = DparkContext("gpu:2", device="cpu")
+n = 12
+
+
+def compute(vert, msg, agg, s):
+    new = vert.value if s == 0 else 0.15 / n + 0.85 * (
+        msg if msg is not None else 0.0)
+    v = Vertex(vert.id, new, vert.outEdges, s < 4)
+    if s < 4:
+        return v, [Message(e.target_id, new * e.value) for e in vert.outEdges]
+    return v, []
+
+
+rows = [(i, Vertex(i, 1.0 / n, [Edge((i + 1) % n, 0.5),
+                                Edge((i + 5) % n, 0.5)])) for i in range(n)]
+final = Bagel.run(c, c.parallelize(rows, 2), c.parallelize([], 2), compute,
+                  combiner=BasicCombiner(operator.add))
+total = sum(v.value for _, v in final.collect())
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith("jax.")
+              or m == "dpark_tpu" or m.startswith("dpark_tpu."))
+print(json.dumps({"sum": total, "mods": mods,
+                  "device": c.scheduler._pregel_device_used}))
+"""
+
+
+def test_object_bagel_imports_no_jax_and_no_reference_package():
+    """The same probe over an object Bagel.run on gpu:2 (DeviceObjectPregel
+    with the kernels' plain versions)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _BAGEL_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert abs(res["sum"] - 1.0) < 1e-9
+    assert res["device"] is True
+    assert res["mods"] == []
+
+
 def test_gpu_master_needs_cuda():
     import torch
     from dpark_tpu_torch import DparkContext
