@@ -53,6 +53,7 @@ Exits non-zero, printing no result, without CUDA or outside the repo.
 """
 
 import json
+import math
 import operator
 import resource
 import subprocess
@@ -1165,6 +1166,19 @@ def urand_layout(n, src, dst):
     return deg, dst[order], inv[src[order]]
 
 
+def urand_objects(graph):
+    """The graph as Bagel.run's input rows: (id, Vertex(id, 1 / n, [Edge(
+    target, 1 / out-degree), ...])) for every vertex, in id order."""
+    from dpark_tpu_torch import Edge, Vertex
+    n, src, dst = graph
+    deg, tgt, ev = urand_layout(n, src, dst)
+    offs = np.concatenate([[0], np.cumsum(deg)]).tolist()
+    tgt, ev = tgt.tolist(), ev.tolist()
+    return [(v, Vertex(v, 1.0 / n, list(map(
+        Edge, tgt[offs[v]:offs[v + 1]], ev[offs[v]:offs[v + 1]]))))
+        for v in range(n)]
+
+
 def bagel_pagerank(n):
     """tests/test_bagel_obj_general.py's PageRank with Message(target,
     rank * Edge.value) in place of the len(outEdges) split (so bucketed
@@ -1217,6 +1231,12 @@ def bagel_kernel_phase(K, dev, graph):
     kept = int(a[2].sum().item())
     slots = sum(d.numel() for _, d, _ in blocks)
     rows = sum(g.numel() for g, _, _ in blocks)
+    # the dst slots of the rows whose gate is set: the only targets the
+    # function needs (the mail and no-mail gates of a class partition
+    # its rows; padded rows are closed)
+    gated = sum(int(g.sum().item()) * d.shape[2] for g, d, _ in blocks)
+    leaf_b = sum(x.element_size() * math.prod(x.shape[3:])
+                 for x in blocks[0][2])
 
     def library():
         d = torch.cat([torch.where(g[:, :, None], x, K.KEY_SENTINEL)
@@ -1229,11 +1249,13 @@ def bagel_kernel_phase(K, dev, graph):
         "max_abs_err": err,
         "ms": timed(lambda: K.obj_emit_pack(blocks)),
         "plain_ms": timed(lambda: K.obj_emit_pack_plain(blocks), reps=3),
-        # every gate and dst slot read once, each kept slot's rank read,
-        # its packed (dst, rank) row written
-        "bound_ms": bound_ms(rows + slots * 8 + kept * (8 + 8 + 8)),
+        # every gate read once, the gated rows' dst slots read, each
+        # kept slot's leaves read and its packed row written (the
+        # sentinel tail past each shard's count is padding)
+        "bound_ms": bound_ms(rows + gated * 8 + kept * (8 + 2 * leaf_b)),
         "library_ms": timed(library, reps=3),
-        "notes": {"blocks": len(blocks), "slots": slots, "kept": kept,
+        "notes": {"blocks": len(blocks), "slots": slots,
+                  "gated_slots": gated, "kept": kept,
                   "cap_out": a[0].shape[1], "classes": dop.classes},
     }
     print_phase("obj_emit_pack", rec)
@@ -1250,17 +1272,11 @@ def bagel_path(graph):
     """Object PageRank through Bagel.run on gpu:8 over the urand graph,
     checked against numpy's power iteration (rtol PR_RTOL).  Returns the
     least K10 launches: one per class a superstep with mail."""
-    from dpark_tpu_torch import (BasicCombiner, DparkContext, Edge, Vertex)
+    from dpark_tpu_torch import BasicCombiner, DparkContext
     from dpark_tpu_torch.backend.cuda import bagel_obj
     n, src, dst = graph
     t0 = time.perf_counter()
-    deg, tgt, ev = urand_layout(n, src, dst)
-    offs = np.concatenate([[0], np.cumsum(deg)]).tolist()
-    tgt, ev = tgt.tolist(), ev.tolist()
-    rows = [(v, Vertex(v, 1.0 / n, list(map(
-        Edge, tgt[offs[v]:offs[v + 1]], ev[offs[v]:offs[v + 1]]))))
-        for v in range(n)]
-    del deg, tgt, ev, offs
+    rows = urand_objects(graph)
     print("bagel: %d Vertex and %d Edge objects built in %.1f s" % (
         n, len(src), time.perf_counter() - t0), flush=True)
     ctx = DparkContext("gpu:8")

@@ -25,10 +25,12 @@
 // (read once per CUDA block into shared memory), not in a parameter
 // struct indexed by a loop variable: a superstep has up to 2 x 24 blocks.
 //
-// Bound: bytes.  Every gate (1 B a row) and every dst slot (8 B) is read;
-// each kept slot's leaf rows are read and its packed row (8 B + leaves)
-// written once.  The second pass rereads the gates and targets (L2 for
-// small blocks); staging a tile in shared memory is later work.
+// Bound: bytes.  Every gate (1 B a row) is read, and the dst slots (8 B)
+// of the rows whose gate is set (both passes read a slot's gate before
+// its target); each kept slot's leaf rows are read and its packed row
+// (8 B + leaves) written once.  The second pass rereads the gates and
+// targets (L2 for small blocks); staging a tile in shared memory is
+// later work.
 #include "common.cuh"
 
 #define K11_TILE 1024
@@ -106,10 +108,10 @@ static __global__ void k11_scatter(const int64_t* desc, int nblocks, int W,
   const int64_t* dst = (const int64_t*)d[1];
   bool keep = false;
   int64_t target = 0;
-  if (k < cap * m) {
-    const bool* gate = (const bool*)d[0];
+  // the gate first: a closed row's targets are never read
+  if (k < cap * m && ((const bool*)d[0])[(int64_t)s * cap + k / m]) {
     target = dst[src];
-    keep = gate[(int64_t)s * cap + k / m] && target != INT64_MAX;
+    keep = target != INT64_MAX;
   }
   int total;
   const int rank = block_excl_scan(keep ? 1 : 0, sm, &total);

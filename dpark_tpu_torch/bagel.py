@@ -114,9 +114,9 @@ class Aggregator:
 # the driver-resident host loop (DPARK_BAGEL_FAST=0 turns it off), the
 # vertex bound of the driver-resident paths, the device columnarizer
 # (DPARK_BAGEL_DEVICE=0 turns it off), the exact-class and degree caps,
-# power-of-two degree buckets (DPARK_BAGEL_BUCKETS=0 turns them off), and
-# the compile-budget guard, which the port does not enforce (ROADMAP
-# C10: an eager run compiles nothing)
+# and power-of-two degree buckets (DPARK_BAGEL_BUCKETS=0 turns them off).
+# The reference's compile-budget guard (DPARK_BAGEL_MIN_ROWS_PER_TRACE)
+# is not read: an eager run compiles nothing (ROADMAP C10)
 FAST_OBJECT_RUN = os.environ.get("DPARK_BAGEL_FAST", "1") != "0"
 FAST_MAX_VERTICES = int(os.environ.get("DPARK_BAGEL_FAST_MAX",
                                        str(4_000_000)))
@@ -124,8 +124,6 @@ DEVICE_OBJECT_RUN = os.environ.get("DPARK_BAGEL_DEVICE", "1") != "0"
 MAX_DEGREE_CLASSES = int(os.environ.get("DPARK_BAGEL_MAX_CLASSES", "24"))
 MAX_DEGREE = int(os.environ.get("DPARK_BAGEL_MAX_DEGREE", "1024"))
 DEGREE_BUCKETS = os.environ.get("DPARK_BAGEL_BUCKETS", "1") != "0"
-BAGEL_MIN_ROWS_PER_TRACE = int(os.environ.get(
-    "DPARK_BAGEL_MIN_ROWS_PER_TRACE", "0") or 0)
 
 RDD_LOOP_MISSING = ("the RDD-algebra Bagel superstep loop is not ported "
                     "(it needs groupWith / cogroup, ROADMAP A11)")
@@ -155,27 +153,18 @@ def _num_type(t):
             and not issubclass(t, bool))
 
 
-def _edge_columns(edges, ev_state):
-    """(targets, values, ev_state) of one vertex's out-edges: the targets
-    as a list of ints, the values as a list (empty when all None).  The
-    common case checks the distinct types of each column at once; any
-    odd edge sends the vertex through the reference's edge-by-edge
-    checks, which raise its first error in its order."""
-    tl = [e.target_id for e in edges]
-    vl = [getattr(e, "value", None) for e in edges]
-    vtypes = set(map(type, vl))
-    if all(map(_int_type, set(map(type, tl)))):
-        if vtypes == {type(None)} and ev_state is not True:
-            return tl, [], False
-        if vtypes and ev_state is not False and all(map(_num_type, vtypes)):
-            return tl, vl, True
-        if not edges:
-            return tl, [], ev_state
-    ev_vals = []
+def _edge_columns_loop(edges, ev_state):
+    """(targets, values, ev_state) of one vertex's out-edges, checked edge
+    by edge as the reference does (its errors, in its order): the
+    targets as a list of ints, the values as a list (empty when all
+    None).  ev_state is None while undecided, False when every value so
+    far is None, True when every value is numeric."""
+    tl, ev_vals = [], []
     for e in edges:
         t = e.target_id
         if not _is_int_id(t):
             raise _NotColumnarizable("non-integer edge target")
+        tl.append(t)
         val = getattr(e, "value", None)
         if val is None:
             if ev_state is True:
@@ -191,6 +180,137 @@ def _edge_columns(edges, ev_state):
             ev_state = True
             ev_vals.append(val)
     return tl, ev_vals, ev_state
+
+
+def _edge_columns(edges, ev_state):
+    """_edge_columns_loop's result, checked by the distinct types of each
+    column at once; a vertex with any odd edge goes through the
+    edge-by-edge loop, which raises the reference's first error."""
+    tl = [e.target_id for e in edges]
+    vl = [getattr(e, "value", None) for e in edges]
+    vtypes = set(map(type, vl))
+    if all(map(_int_type, set(map(type, tl)))):
+        if vtypes == {type(None)} and ev_state is not True:
+            return tl, [], False
+        if vtypes and ev_state is not False and all(map(_num_type, vtypes)):
+            return tl, vl, True
+        if not edges:
+            return tl, [], ev_state
+    return _edge_columns_loop(edges, ev_state)
+
+
+def _walk(graph, pend):
+    """The object walk of _run_columnar: the collected graph ({id:
+    Vertex}) and initial messages ([(target, value)]) as numpy columns,
+    (ids, vdef, vleaves, act, degs, tgt_flat, ev_flat, pend_cols,
+    out_edges), or _NotColumnarizable with the reference's reason."""
+    n = len(graph)
+    if n == 0:
+        raise _NotColumnarizable("empty graph")
+
+    ids_l, act_l, deg_l = [], [], []
+    vdef = None
+    vleaf_lists = None
+    tgt_all, ev_vals = [], []
+    ev_state = None       # None undecided / False all-None / True
+    out_edges = {}
+    for vid, v in graph.items():
+        if not isinstance(v, Vertex):
+            raise _NotColumnarizable("vertex is %r, not Vertex"
+                                     % type(v).__name__)
+        if not _is_int_id(vid):
+            raise _NotColumnarizable("non-integer vertex id %r"
+                                     % (vid,))
+        leaves, treedef = pytree.tree_flatten(v.value)
+        if vdef is None:
+            vdef = treedef
+            vleaf_lists = [[] for _ in leaves]
+        elif treedef != vdef:
+            raise _NotColumnarizable(
+                "vertex value structure varies across vertices")
+        if not leaves:
+            raise _NotColumnarizable(
+                "vertex value has no numeric leaves")
+        for li, leaf in enumerate(leaves):
+            if isinstance(leaf, bool):
+                raise _NotColumnarizable(
+                    "non-numeric vertex value leaf %r" % (leaf,))
+            arr = np.asarray(leaf)
+            if arr.dtype.kind not in "if":
+                raise _NotColumnarizable(
+                    "non-numeric vertex value leaf %r" % (leaf,))
+            vleaf_lists[li].append(arr)
+        edges = list(v.outEdges)
+        if len(edges) > MAX_DEGREE:
+            raise _NotColumnarizable("degree %d > %d"
+                                     % (len(edges), MAX_DEGREE))
+        tl, vl, ev_state = _edge_columns(edges, ev_state)
+        tgt_all.extend(tl)
+        ev_vals.extend(vl)
+        out_edges[int(vid)] = v.outEdges
+        ids_l.append(int(vid))
+        act_l.append(bool(v.active))
+        deg_l.append(len(edges))
+    for t, _ in pend:
+        if not _is_int_id(t):
+            raise _NotColumnarizable("non-integer message target")
+
+    ids = np.asarray(ids_l, np.int64)
+    degs = np.asarray(deg_l, np.int64)
+    if not DEGREE_BUCKETS and len(set(deg_l)) > MAX_DEGREE_CLASSES:
+        raise _NotColumnarizable(
+            "%d degree classes > %d (each distinct degree is a "
+            "separate trace)" % (len(set(deg_l)),
+                                 MAX_DEGREE_CLASSES))
+    try:
+        vleaves = [np.stack(col) for col in vleaf_lists]
+    except ValueError:
+        raise _NotColumnarizable("vertex value leaf shapes vary")
+    for col in vleaves:
+        if col.dtype.kind not in "if":
+            raise _NotColumnarizable("vertex values dtype %s"
+                                     % col.dtype)
+    act = np.asarray(act_l, bool)
+    tgt_flat = np.asarray(tgt_all, np.int64)
+    ev_flat = None
+    if ev_state:
+        ev_flat = np.asarray(ev_vals)
+        if ev_flat.dtype.kind not in "if":
+            raise _NotColumnarizable("edge values dtype %s"
+                                     % ev_flat.dtype)
+    pend_cols = None
+    if pend:
+        # initial message values may be any small numeric pytree of
+        # one structure: its leaves ride as separate columns
+        mdef0 = None
+        leaf_lists = None
+        for _, v in pend:
+            leaves, mdef = pytree.tree_flatten(v)
+            if mdef0 is None:
+                mdef0, leaf_lists = mdef, [[] for _ in leaves]
+            elif mdef != mdef0:
+                raise _NotColumnarizable(
+                    "initial message value structure varies")
+            if not leaves:
+                raise _NotColumnarizable(
+                    "initial message value has no numeric leaves")
+            for li, leaf in enumerate(leaves):
+                if isinstance(leaf, bool):
+                    raise _NotColumnarizable(
+                        "non-numeric message value leaf")
+                leaf_lists[li].append(np.asarray(leaf))
+        try:
+            pleaves = [np.stack(col) for col in leaf_lists]
+        except ValueError:
+            raise _NotColumnarizable(
+                "initial message leaf shapes vary")
+        for col in pleaves:
+            if col.dtype.kind not in "if":
+                raise _NotColumnarizable("non-numeric message value")
+        pend_cols = (np.asarray([t for t, _ in pend], np.int64),
+                     pleaves, mdef0)
+    return (ids, vdef, vleaves, act, degs, tgt_flat, ev_flat, pend_cols,
+            out_edges)
 
 
 class Bagel:
@@ -272,112 +392,8 @@ class Bagel:
         else:
             raise _NotColumnarizable("custom Combiner %r"
                                      % type(combiner).__name__)
-        graph, pend = collected
-        n = len(graph)
-        if n == 0:
-            raise _NotColumnarizable("empty graph")
-
-        ids_l, act_l, deg_l = [], [], []
-        vdef = None
-        vleaf_lists = None
-        tgt_all, ev_vals = [], []
-        ev_state = None       # None undecided / False all-None / True
-        out_edges = {}
-        for vid, v in graph.items():
-            if not isinstance(v, Vertex):
-                raise _NotColumnarizable("vertex is %r, not Vertex"
-                                         % type(v).__name__)
-            if not _is_int_id(vid):
-                raise _NotColumnarizable("non-integer vertex id %r"
-                                         % (vid,))
-            leaves, treedef = pytree.tree_flatten(v.value)
-            if vdef is None:
-                vdef = treedef
-                vleaf_lists = [[] for _ in leaves]
-            elif treedef != vdef:
-                raise _NotColumnarizable(
-                    "vertex value structure varies across vertices")
-            if not leaves:
-                raise _NotColumnarizable(
-                    "vertex value has no numeric leaves")
-            for li, leaf in enumerate(leaves):
-                if isinstance(leaf, bool):
-                    raise _NotColumnarizable(
-                        "non-numeric vertex value leaf %r" % (leaf,))
-                arr = np.asarray(leaf)
-                if arr.dtype.kind not in "if":
-                    raise _NotColumnarizable(
-                        "non-numeric vertex value leaf %r" % (leaf,))
-                vleaf_lists[li].append(arr)
-            edges = list(v.outEdges)
-            if len(edges) > MAX_DEGREE:
-                raise _NotColumnarizable("degree %d > %d"
-                                         % (len(edges), MAX_DEGREE))
-            tl, vl, ev_state = _edge_columns(edges, ev_state)
-            tgt_all.extend(tl)
-            ev_vals.extend(vl)
-            out_edges[int(vid)] = v.outEdges
-            ids_l.append(int(vid))
-            act_l.append(bool(v.active))
-            deg_l.append(len(edges))
-        for t, _ in pend:
-            if not _is_int_id(t):
-                raise _NotColumnarizable("non-integer message target")
-
-        ids = np.asarray(ids_l, np.int64)
-        degs = np.asarray(deg_l, np.int64)
-        if not DEGREE_BUCKETS and len(set(deg_l)) > MAX_DEGREE_CLASSES:
-            raise _NotColumnarizable(
-                "%d degree classes > %d (each distinct degree is a "
-                "separate trace)" % (len(set(deg_l)),
-                                     MAX_DEGREE_CLASSES))
-        try:
-            vleaves = [np.stack(col) for col in vleaf_lists]
-        except ValueError:
-            raise _NotColumnarizable("vertex value leaf shapes vary")
-        for col in vleaves:
-            if col.dtype.kind not in "if":
-                raise _NotColumnarizable("vertex values dtype %s"
-                                         % col.dtype)
-        act = np.asarray(act_l, bool)
-        tgt_flat = np.asarray(tgt_all, np.int64)
-        ev_flat = None
-        if ev_state:
-            ev_flat = np.asarray(ev_vals)
-            if ev_flat.dtype.kind not in "if":
-                raise _NotColumnarizable("edge values dtype %s"
-                                         % ev_flat.dtype)
-        pend_cols = None
-        if pend:
-            # initial message values may be any small numeric pytree of
-            # one structure: its leaves ride as separate columns
-            mdef0 = None
-            leaf_lists = None
-            for _, v in pend:
-                leaves, mdef = pytree.tree_flatten(v)
-                if mdef0 is None:
-                    mdef0, leaf_lists = mdef, [[] for _ in leaves]
-                elif mdef != mdef0:
-                    raise _NotColumnarizable(
-                        "initial message value structure varies")
-                if not leaves:
-                    raise _NotColumnarizable(
-                        "initial message value has no numeric leaves")
-                for li, leaf in enumerate(leaves):
-                    if isinstance(leaf, bool):
-                        raise _NotColumnarizable(
-                            "non-numeric message value leaf")
-                    leaf_lists[li].append(np.asarray(leaf))
-            try:
-                pleaves = [np.stack(col) for col in leaf_lists]
-            except ValueError:
-                raise _NotColumnarizable(
-                    "initial message leaf shapes vary")
-            for col in pleaves:
-                if col.dtype.kind not in "if":
-                    raise _NotColumnarizable("non-numeric message value")
-            pend_cols = (np.asarray([t for t, _ in pend], np.int64),
-                         pleaves, mdef0)
+        (ids, vdef, vleaves, act, degs, tgt_flat, ev_flat, pend_cols,
+         out_edges) = _walk(*collected)
         walk_seconds = time.perf_counter() - t0
 
         from dpark_tpu_torch.backend.cuda.bagel_obj import (

@@ -470,13 +470,49 @@ def test_degree_dependent_compute_uses_exact_classes(ref_tpu):
     assert stats == {k: want[k] for k in STATS_KEYS}
 
 
-def test_compile_budget_knob_not_enforced():
+def test_compile_budget_knob_not_enforced(ref_tpu):
     """ROADMAP C10: DPARK_BAGEL_MIN_ROWS_PER_TRACE guards XLA compile
-    cost, which an eager port does not pay: the reference falls back to
-    the host loop, the port stays on the device.  Results equal."""
-    with mock.patch.object(REF, "BAGEL_MIN_ROWS_PER_TRACE", 10_000_000), \
-            mock.patch.object(PORT, "BAGEL_MIN_ROWS_PER_TRACE", 10_000_000):
+    cost, which an eager port does not pay: under the knob the reference
+    falls back to the host loop, while the port, which does not read
+    it, stays on the device.  Results equal."""
+    assert not hasattr(PORT, "BAGEL_MIN_ROWS_PER_TRACE")
+    with mock.patch.object(REF, "BAGEL_MIN_ROWS_PER_TRACE", 10_000_000):
+        _, why = ref_columnar(ref_tpu, prog_budget)
+        assert why.startswith("compile budget: "), why
         check(prog_budget, masters=["gpu:2"], device=True)
+
+
+class _OddInt(int):
+    pass
+
+
+_E = PORT.Edge
+
+
+@pytest.mark.parametrize("edges, ev_state", [
+    ([], None), ([], False), ([], True),
+    ([_E(1), _E(np.int32(2))], None),
+    ([_E(1), _E(2)], True),
+    ([_E(1, 0.5), _E(2, 3), _E(3, np.float32(1.5))], None),
+    ([_E(1, 0.5)], False),
+    ([_E(1, None), _E(2, 0.5)], None),
+    ([_E(1, 0.5), _E(2, None)], None),
+    ([_E(1, 0.5), _E(2, True)], None),
+    ([_E(1, 0.5), _E(2, "x")], True),
+    ([_E(1), _E(2.0)], None),
+    ([_E(True), _E(2)], None),
+    ([_E(_OddInt(4), 1.0), _E(np.uint8(5), 2)], None),
+], ids=lambda x: None)
+def test_edge_columns_equal_the_edge_by_edge_checks(edges, ev_state):
+    """The walk's per-type check gives the edge-by-edge loop's columns and
+    state, or raises its error."""
+    def outcome(fn):
+        try:
+            return fn(list(edges), ev_state)
+        except PORT._NotColumnarizable as e:
+            return "raises: %s" % e
+    want = outcome(PORT._edge_columns_loop)
+    assert outcome(PORT._edge_columns) == want
 
 
 # ----------------------------------------------------------------------
