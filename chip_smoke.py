@@ -3,12 +3,14 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the eleven CUDA kernels
-   from csrc/ (one nvcc each, all started together) and prints the build
-   time;
-2. holds each kernel (K1-K11) against its plain PyTorch version on the
-   card, at the main paths' shapes (8 shards of 8,388,608 rows), and
-   times kernel, plain version, bound and library call;
+1. prints the card's name and power limit, builds the twelve CUDA kernel
+   libraries from csrc/ (one nvcc each, all started together) and prints
+   the build time;
+2. holds each kernel (K1-K12) against its plain PyTorch version on the
+   card, at the main paths' shapes (8 shards of 8,388,608 rows; K12 at
+   the join path's), and times kernel, plain version, bound and library
+   call; times the plain segmented scan (B8) and the per-shard monoid
+   reduction (B9) at the main shape;
 3. drives the reduceByKey path through the public API: bench.py's data
    (64Mi int64 pairs over 65,536 keys) -> reduceByKey -> count / collect
    / top / reduce, a map+filter chain before the shuffle, on gpu:8 and
@@ -25,7 +27,8 @@ NVIDIA GPU.
    exactly against numpy (SegMapOp: K7, K2, K8); then mapValues(sum /
    len / min / max / mean) with the combiner rewrite off (SegAggOp: K3
    once a job) and, as a path of its own, sum with it on (a combining
-   shuffle);
+   shuffle); a tuple-value reduceByKey (the traced merge: the segmented
+   scan, B8) over bench.py's data;
 6. drives the device Pregel on gpu:8 through run_pregel over a Graph500
    Kronecker graph at scale 22, edge factor 16 (4,194,304 vertices,
    67,108,864 directed edges): PageRank (20 supersteps, checked against
@@ -39,19 +42,28 @@ NVIDIA GPU.
    numpy power iteration (rtol 1e-10), on bucketed degree classes, after
    holding K11 against its plain version on one superstep's emission
    blocks;
-8. every stage of every checked job must take the tensor path, and every
+8. drives the device join on gpu:8 over TPC-H lineitem and orders at
+   scale factor 10, generated from a seed by the specification's row
+   rules (15,000,000 orders, about 60,000,000 lines): the join's count,
+   and the revenue of each customer (Q10's shape: join -> map ->
+   reduceByKey), checked exactly against numpy; a cogroup count over a
+   2^20-row part of the tables (the host merge of rows exchanged and
+   sorted on the device), after holding K12 against its plain version at
+   the path's shapes and on one hot key (4,096 x 4,096 pairs);
+9. every stage of every checked job must take the tensor path, and every
    kernel of a path must launch during that path's run (counts reset
    just before it, read just after), as often as PATH_MIN_LAUNCHES (or
    the path itself: one K9 launch a superstep, one K10 launch a
    superstep with mail, or a class with mail) asks where a path must
    launch a kernel more than once;
-9. profiles the first action of each gpu:8 path and one PageRank
+10. profiles the first action of each gpu:8 path and one PageRank
    superstep of each Pregel, times the top path's K5 + K2 composition,
    prints one JSON line describing every kernel, then the result line.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 """
 
+import contextlib
 import json
 import math
 import operator
@@ -99,6 +111,10 @@ SOURCES = {
                        "dpark_tpu/backend/tpu/bagel.py:364"),
     "obj_emit_pack": ("dpark_tpu_torch/backend/cuda/csrc/obj_emit_pack.cu",
                       "dpark_tpu/backend/tpu/bagel_obj.py:892"),
+    "join_ranges": ("dpark_tpu_torch/backend/cuda/csrc/join_expand.cu",
+                    "dpark_tpu/backend/tpu/executor.py:3137"),
+    "join_expand": ("dpark_tpu_torch/backend/cuda/csrc/join_expand.cu",
+                    "dpark_tpu/backend/tpu/executor.py:3176"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
@@ -136,6 +152,16 @@ PATH_KERNELS = {
     "bagel gpu:8": ["hash_dst_hist", "stable_partition",
                     "reduce_by_key_compact", "shard_exchange", "radix_sort",
                     "pregel_deliver", "obj_emit_pack"],
+    # the traced tuple merge: K1 + K5 + K2, the segmented scan, K3 "last"
+    "tuple reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
+                                "reduce_by_key_compact", "shard_exchange",
+                                "radix_sort"],
+    # both sides' no-combine writes (K1, K2), exchanges (K4) and key
+    # sorts (K5), K12's ranges and expansion, then the revenue's
+    # combining write (K1, K5, K2, K3) and its merge (K4, K5, K3)
+    "join gpu:8": ["hash_dst_hist", "stable_partition", "shard_exchange",
+                   "radix_sort", "join_ranges", "join_expand",
+                   "reduce_by_key_compact"],
 }
 SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
               "mean": lambda vs: sum(vs) / len(vs)}
@@ -149,6 +175,8 @@ PATH_MIN_LAUNCHES = {
     # one K11 a superstep that emits (PageRank's first 20); K10 once per
     # class a superstep with mail (bagel_path returns 20 x the classes)
     "bagel gpu:8": {"obj_emit_pack": 20},
+    # one K12 ranges and one expansion a join action (count, revenue)
+    "join gpu:8": {"join_ranges": 2, "join_expand": 2},
 }
 # the path whose launches the kernels line reports for each kernel
 LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
@@ -156,7 +184,8 @@ LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "bucket_gather": "groupByKey gpu:8 segmap",
              "bucket_scatter": "groupByKey gpu:8 segmap",
              "edge_gather": "pregel gpu:8", "pregel_deliver": "pregel gpu:8",
-             "obj_emit_pack": "bagel gpu:8"}
+             "obj_emit_pack": "bagel gpu:8",
+             "join_ranges": "join gpu:8", "join_expand": "join gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 # Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
@@ -172,6 +201,10 @@ PR_RTOL = 1e-10                    # float64 sums in another order
 # cut to 20, every vertex and edge a Python object on the driver
 URAND_SCALE = 20                   # 1,048,576 vertices
 URAND_EDGE_FACTOR = 16             # 16,777,216 edges
+# TPC-H (Standard Specification, section 4.2.3) at scale factor 10
+TPCH_SF = 10
+COGROUP_ROWS = 1 << 20             # lineitem rows of the cogroup count
+SKEW_ROWS = 4096                   # one key's rows on each join side
 
 
 def fail(msg):
@@ -1328,6 +1361,311 @@ def _bagel_run(ctx, rows, compute, combiner):
                      combiner=combiner, max_superstep=PR_STEPS + 1)
 
 
+@contextlib.contextmanager
+def counting(owner, name, calls):
+    """Count the calls of owner.name (a plain-torch function, which has no
+    launch counter) into calls[name] while the block runs."""
+    orig = getattr(owner, name)
+
+    def wrapper(*a, **kw):
+        calls[name] = calls.get(name, 0) + 1
+        return orig(*a, **kw)
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def _pair_sum(x, y):
+    return (x[0] + y[0], x[1] + y[1])
+
+
+def plain_phases(dev):
+    """B8 and B9, plain torch, at the main path's shape (8 x 8,388,608
+    rows): the segmented scan of a traced tuple merge
+    (collectives.segmented_combine, log2(CAP) vmapped merge steps) over
+    bench keys sorted per shard and (value, 1) pairs; and the per-shard
+    monoid reduction of a reduce action (executor._monoid_reduce: the
+    masked sum, min and max of one int64 column)."""
+    from dpark_tpu_torch.backend.cuda import collectives, fuse
+    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
+    from dpark_tpu_torch.backend.cuda.layout import Batch
+    keys, vals = bench_data()
+    order = np.argsort(keys.reshape(N_SHARDS, CAP), axis=1, kind="stable")
+    k = torch.from_numpy(np.take_along_axis(
+        keys.reshape(N_SHARDS, CAP), order, 1)).to(dev)
+    v = torch.from_numpy(vals.reshape(N_SHARDS, CAP)).to(dev)
+    ones = torch.ones_like(v)
+    del keys, vals, order
+    merge = fuse.probe_merge(_pair_sum, (0, (1, 2)),
+                             [(np.dtype(np.int64), ())] * 3, 1)
+    starts = collectives._starts([k])
+
+    def scan():
+        return collectives.segmented_combine(starts, [v, ones], merge)
+    got = scan()
+    # the scan's last row of each run holds the run's sums: check them
+    last = torch.ones_like(starts)
+    last[:, :-1] = starts[:, 1:]
+    want_sum = torch.zeros_like(v).scatter_add_(
+        1, torch.cumsum(starts, 1) - 1, v)
+    want_len = torch.zeros_like(v).scatter_add_(
+        1, torch.cumsum(starts, 1) - 1, ones)
+    seg = (torch.cumsum(starts, 1) - 1)[last]
+    rows = torch.arange(N_SHARDS, device=dev)[:, None].expand(
+        N_SHARDS, CAP)[last]
+    if not (torch.equal(got[0][last], want_sum[rows, seg])
+            and torch.equal(got[1][last], want_len[rows, seg])):
+        fail("segmented_combine: a run's last row is not its sum")
+    b8 = {"ms": timed(scan, reps=3),
+          # the run flags and both value leaves read once, both scanned
+          # leaves written once
+          "bound_ms": bound_ms(nbytes(starts, v, ones) + nbytes(v, ones)),
+          "steps": math.ceil(math.log2(CAP))}
+    print("phase segmented_combine (B8, plain torch): ms=%.4f bound_ms=%.4f "
+          "library_ms=none merge_steps=%d" % (b8["ms"], b8["bound_ms"],
+                                              b8["steps"]), flush=True)
+    del got, want_sum, want_len, last, seg, rows
+    ex = TorchExecutor(N_SHARDS, dev)
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    batch = Batch(0, [v], n)
+    red = ex._monoid_reduce(batch, "add")
+    if int(red[0].sum().item()) != int(v.sum().item()):
+        fail("_monoid_reduce: the shard sums differ from torch.sum")
+    b9 = {"ms": timed(lambda: ex._monoid_reduce(batch, "add")),
+          # one int64 column and the counts read once, three (N,) results
+          "bound_ms": bound_ms(nbytes(v, n) + 3 * 8 * N_SHARDS)}
+    print("phase _monoid_reduce (B9, plain torch): ms=%.4f bound_ms=%.4f "
+          "library_ms=%.4f" % (b9["ms"], b9["bound_ms"],
+                               timed(lambda: (v.sum(1), v.amin(1),
+                                              v.amax(1)))), flush=True)
+    del k, v, ones, starts, batch, red
+    torch.cuda.empty_cache()
+    return b8, b9
+
+
+def tuple_reduce_path(keys, vals):
+    """reduceByKey of (value, 1) pairs with a tuple merge on gpu:8: the
+    merge is traced, so both sides merge through the segmented scan (B8)
+    and K3's "last"; checked exactly against numpy.  Returns the scan's
+    calls."""
+    from dpark_tpu_torch import Columns, DparkContext
+    from dpark_tpu_torch.backend.cuda import collectives
+    calls = {}
+    ctx = DparkContext("gpu:8")
+    r = (ctx.parallelize(Columns(keys, vals), 8)
+         .map(lambda kv: (kv[0], (kv[1], 1)))
+         .reduceByKey(_pair_sum, 8))
+    with counting(collectives, "segmented_combine", calls):
+        got = act("gpu:8 tuple reduceByKey collect", r.collect)
+    check_stages(ctx, "tuple reduceByKey")
+    sums = np.bincount(keys, weights=vals, minlength=KEYS).astype(np.int64)
+    lens = np.bincount(keys, minlength=KEYS)
+    if len(got) != KEYS or any(
+            (s_, n_) != (int(sums[k_]), int(lens[k_]))
+            for k_, (s_, n_) in got):
+        fail("tuple reduceByKey differs from numpy")
+    ctx.stop()
+    print("calls tuple reduceByKey gpu:8: segmented_combine=%d"
+          % calls.get("segmented_combine", 0), flush=True)
+    if calls.get("segmented_combine", 0) < 2:
+        fail("the tuple merge did not run the segmented scan on both sides")
+
+
+def tpch_data(sf=None, seed=20261024):
+    """TPC-H orders and lineitem at scale factor `sf`, by the
+    specification's row rules (section 4.2.3): (l_orderkey, revenue,
+    o_orderkey, o_custkey, each line's custkey), int64.
+
+    o_orderkey is sparse, (i // 8) * 32 + i % 8 + 1; o_custkey uniform in
+    [1, 150,000 sf], never a multiple of 3; each order has 1-7 lines;
+    l_partkey uniform in [1, 200,000 sf], l_quantity in 1-50,
+    l_discount in 0-10 percent; p_retailprice in cents is 90000 +
+    (partkey // 10) % 20001 + 100 (partkey % 1000).  revenue =
+    l_extendedprice (1 - l_discount) in units of 10^-4: quantity x price
+    cents x (100 - discount percent), exact in int64."""
+    sf = TPCH_SF if sf is None else sf
+    rng = np.random.default_rng(seed)
+    n_orders = int(1_500_000 * sf)
+    i = np.arange(n_orders, dtype=np.int64)
+    o_orderkey = (i // 8) * 32 + i % 8 + 1
+    c = rng.integers(0, int(100_000 * sf), n_orders)  # the non-multiples of 3
+    o_custkey = c + c // 2 + 1
+    del i, c
+    lines = rng.integers(1, 8, n_orders)
+    l_orderkey = np.repeat(o_orderkey, lines)
+    l_custkey = np.repeat(o_custkey, lines)
+    n = len(l_orderkey)
+    partkey = rng.integers(1, int(200_000 * sf) + 1, n)
+    price = 90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000)
+    del partkey
+    revenue = rng.integers(1, 51, n) * price * (100 - rng.integers(0, 11, n))
+    return l_orderkey, revenue, o_orderkey, o_custkey, l_custkey
+
+
+def _join_side(dev, keys, vals, bounds, cap):
+    """(N, cap) key and value columns holding rows [bounds[s],
+    bounds[s + 1]) in shard s (the sentinel in the key padding)."""
+    kc = torch.full((N_SHARDS, cap), INT64_MAX, dtype=torch.int64)
+    vc = torch.zeros((N_SHARDS, cap), dtype=torch.int64)
+    for s in range(N_SHARDS):
+        lo, hi = bounds[s], bounds[s + 1]
+        kc[s, :hi - lo] = torch.from_numpy(keys[lo:hi])
+        vc[s, :hi - lo] = torch.from_numpy(vals[lo:hi])
+    n = torch.tensor(np.diff(bounds), dtype=torch.int32)
+    return kc.to(dev), vc.to(dev), n.to(dev)
+
+
+def join_case(K, A, AV, a_n, B, BV, b_n, label, library=True):
+    """K12 on one pair of key-sorted sides against its plain version;
+    ranges and expansion timed apart, each with its bound (the rows this
+    data needs read once, every output slot written once) and its
+    library calls (torch.searchsorted left and right and torch.cumsum;
+    torch.searchsorted of the slots into the offsets and torch.gather)."""
+    from dpark_tpu_torch.backend.cuda.layout import round_capacity
+    N, cap_a = A.shape
+    cap_b = B.shape[1]
+    r = K.join_ranges([A], a_n, [B], b_n)
+    rp = K.join_ranges_plain([A], a_n, [B], b_n)
+    err = max_err([("K12 lo", r[0], rp[0]), ("K12 per", r[1], rp[1]),
+                   ("K12 offs", r[2], rp[2]), ("K12 totals", r[3], rp[3])])
+    total = int(r[3].sum().item())
+    cap_out = round_capacity(int(r[3].max().item()) or 1)
+    x = K.join_expand([A, AV], [BV], *r, a_n, cap_out)
+    y = K.join_expand_plain([A, AV], [BV], *rp, a_n, cap_out)
+    err = max(err, max_err([("K12 key", x[0], y[0]), ("K12 a", x[1], y[1]),
+                            ("K12 b", x[2], y[2])]))
+    na, nb = int(a_n.sum().item()), int(b_n.sum().item())
+    valid = torch.arange(cap_a, device=A.device)[None, :] < a_n[:, None]
+    t = torch.arange(cap_out, device=A.device).expand(N, cap_out) \
+        .contiguous()
+
+    def lib_ranges():
+        lo = torch.searchsorted(B, A)
+        hi = torch.searchsorted(B, A, right=True)
+        per = torch.where(valid, hi - lo, 0)
+        return lo, per, torch.cumsum(per, 1)
+    lo, per, end = lib_ranges()
+
+    def lib_expand():
+        i = torch.searchsorted(end, t, right=True).clamp_(max=cap_a - 1)
+        bi = (torch.gather(lo, 1, i) + t - torch.gather(end - per, 1, i)) \
+            .clamp_(0, cap_b - 1)
+        return (torch.gather(A, 1, i), torch.gather(AV, 1, i),
+                torch.gather(BV, 1, bi))
+    notes = {"a_rows": na, "b_rows": nb, "pairs": total,
+             "cap_a": cap_a, "cap_b": cap_b, "cap_out": cap_out}
+    recs = {
+        "join_ranges": {
+            "max_abs_err": err,
+            "ms": timed(lambda: K.join_ranges([A], a_n, [B], b_n)),
+            "plain_ms": timed(lambda: K.join_ranges_plain(
+                [A], a_n, [B], b_n), reps=1),
+            # both sides' valid keys read once; lo, per and offs written
+            "bound_ms": bound_ms((na + nb) * 8 + 3 * nbytes(r[0])
+                                 + nbytes(a_n, b_n, r[3])),
+            "library_ms": timed(lib_ranges, reps=3) if library else None,
+            "notes": notes},
+        "join_expand": {
+            "max_abs_err": err,
+            "ms": timed(lambda: K.join_expand([A, AV], [BV], *r, a_n,
+                                              cap_out)),
+            "plain_ms": timed(lambda: K.join_expand_plain(
+                [A, AV], [BV], *rp, a_n, cap_out), reps=1),
+            # A's key, value, lo and offs of its valid rows and B's values
+            # read once; every output slot (key, a, b) written once
+            "bound_ms": bound_ms(na * 32 + nb * 8 + 3 * N * cap_out * 8
+                                 + nbytes(a_n, r[3])),
+            "library_ms": timed(lib_expand, reps=3) if library else None,
+            "notes": notes},
+    }
+    for name, rec in recs.items():
+        print_phase("%s %s" % (name, label), rec)
+    print("phase K12 %s: ranges + expansion ms=%.4f bound_ms=%.4f" % (
+        label, recs["join_ranges"]["ms"] + recs["join_expand"]["ms"],
+        recs["join_ranges"]["bound_ms"] + recs["join_expand"]["bound_ms"]),
+        flush=True)
+    return recs
+
+
+def join_kernel_phase(K, dev, data):
+    """K12 at the join path's shapes: lineitem (l_orderkey, revenue) as
+    side A and orders (o_orderkey, o_custkey) as side B, each shard an
+    eighth of the orders and their lines, key-sorted (as the exchange and
+    K5 leave them); then one hot key of SKEW_ROWS rows on each side in
+    one shard of eight (SKEW_ROWS^2 pairs)."""
+    from dpark_tpu_torch.backend.cuda.layout import round_capacity_fine
+    lk, rev, ok, ck, _ = data
+    ob = [len(ok) * s // N_SHARDS for s in range(N_SHARDS + 1)]
+    lb = list(np.searchsorted(lk, ok[ob[:-1]])) + [len(lk)]
+    cap_a = round_capacity_fine(int(np.diff(lb).max()))
+    cap_b = round_capacity_fine(int(np.diff(ob).max()))
+    A, AV, a_n = _join_side(dev, lk, rev, lb, cap_a)
+    B, BV, b_n = _join_side(dev, ok, ck, ob, cap_b)
+    recs = join_case(K, A, AV, a_n, B, BV, b_n, "SF %d" % TPCH_SF)
+    del A, AV, a_n, B, BV, b_n
+    torch.cuda.empty_cache()
+    hot = np.full(SKEW_ROWS, 7, np.int64)
+    vals = np.arange(SKEW_ROWS, dtype=np.int64)
+    bounds = [0] + [SKEW_ROWS] * N_SHARDS
+    sides = [_join_side(dev, hot, vals, bounds, SKEW_ROWS) for _ in "ab"]
+    skew = join_case(K, *sides[0], *sides[1], "skew", library=False)
+    if skew["join_ranges"]["notes"]["pairs"] != SKEW_ROWS ** 2:
+        fail("skew: %d pairs" % skew["join_ranges"]["notes"]["pairs"])
+    del sides
+    torch.cuda.empty_cache()
+    return recs
+
+
+def join_path(data):
+    """li.join(od, 8) on gpu:8 over the TPC-H tables: its count must be
+    the lineitem rows; the revenue per customer (join -> map ->
+    reduceByKey: Q10's shape, its predicates cut) must equal numpy's
+    exactly; every stage on the tensor path.  Then a cogroup count over
+    the first COGROUP_ROWS lines and their orders: the host merge, seeded
+    from rows exchanged and sorted on the device (gather_rows)."""
+    from dpark_tpu_torch import Columns, DparkContext
+    lk, rev, ok, ck, lc = data
+    ctx = DparkContext("gpu:8")
+    li = ctx.parallelize(Columns(lk, rev), 8)
+    od = ctx.parallelize(Columns(ok, ck), 8)
+    got = act("gpu:8 join count", li.join(od, 8).count)
+    check_stages(ctx, "join count")
+    if got != len(lk):
+        fail("join count %d, lineitem rows %d" % (got, len(lk)))
+    want = np.bincount(lc, weights=rev)
+    if want.max() >= 2.0 ** 53:
+        fail("revenue sums reach 2**53: the float64 reference is inexact")
+    got = act("gpu:8 join revenue per customer collect",
+              li.join(od, 8).map(lambda kv: (kv[1][1], kv[1][0]))
+              .reduceByKey(operator.add, 8).collect)
+    check_stages(ctx, "join revenue")
+    kinds = [s["kind"] for s in ctx.scheduler.history[-1]["stage_info"]]
+    if len(kinds) != 4:
+        fail("join revenue ran %d stages: %s" % (len(kinds), kinds))
+    gk = np.fromiter((k for k, _ in got), np.int64, len(got))
+    gv = np.fromiter((v for _, v in got), np.int64, len(got))
+    present = np.nonzero(np.bincount(lc))[0]
+    if not (np.array_equal(np.sort(gk), present)
+            and np.array_equal(gv, want[gk].astype(np.int64))):
+        fail("revenue per customer differs from numpy")
+    print("join: %d lines, %d orders, %d customers with orders" % (
+        len(lk), len(ok), len(present)), flush=True)
+    m = COGROUP_ROWS
+    mo = int(np.searchsorted(ok, lk[m - 1], side="right")) + m // 8
+    cg = ctx.parallelize(Columns(lk[:m], rev[:m]), 8).cogroup(
+        ctx.parallelize(Columns(ok[:mo], ck[:mo]), 8), numSplits=8)
+    got = act("gpu:8 cogroup count", cg.count)
+    st = ctx.scheduler.history[-1]["stage_info"]
+    if got != len(np.union1d(lk[:m], ok[:mo])) or \
+            st[-1].get("device_precompute") != "cogroup" or \
+            any(s["kind"] != "array" for s in st[:-1]):
+        fail("cogroup count %d (numpy %d): %s" % (
+            got, len(np.union1d(lk[:m], ok[:mo])), st))
+    ctx.stop()
+
+
 def profile_window(label, window, top=14):
     """Where the time of one window of device work goes, under
     torch.profiler: the wall time, the summed device time and the ops
@@ -1340,18 +1678,20 @@ def profile_window(label, window, top=14):
         window()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, memcpys): a host op's device
-        # time would count its kernels twice
+    # device-side events only (kernels, memcpys): a host op's device time
+    # would count its kernels twice.  Summed from the event list, which
+    # holds events that key_averages() of a process's later profiles
+    # drops; even the list can miss a later window's first device events
+    # (a join count's first ingest), so such a window's idle share is an
+    # upper bound
+    per_name = {}
+    for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us:
-            rows.append((dev_us, ev.key, ev.count))
-    rows.sort(reverse=True)
+        us, n = per_name.get(ev.name, (0.0, 0))
+        per_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    rows = sorted(((us, name, n) for name, (us, n) in per_name.items()
+                   if us), reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
     print("profile %s: wall_ms=%.1f device_busy_ms=%.1f "
           "idle_share=%.3f" % (label, wall * 1e3, busy,
@@ -1377,6 +1717,7 @@ def main():
         sys.exit(2)
     from dpark_tpu_torch import Columns
     from dpark_tpu_torch.backend.cuda import kernels as K
+    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1389,6 +1730,7 @@ def main():
     phases = kernel_phases(K, dev)
     phases.update(sort_kernel_phases(K, dev))
     phases.update(seg_kernel_phases(K, dev))
+    plain_phases(dev)
 
     launches = {}
 
@@ -1410,7 +1752,11 @@ def main():
                      % (k, launches[path][k], path, least))
 
     keys, vals = bench_data()
-    drive("reduceByKey gpu:8", main_path, "gpu:8", keys, vals)
+    calls = {}
+    with counting(TorchExecutor, "_monoid_reduce", calls):
+        drive("reduceByKey gpu:8", main_path, "gpu:8", keys, vals)
+    print("calls reduceByKey gpu:8: _monoid_reduce=%d"
+          % calls.get("_monoid_reduce", 0), flush=True)
     drive("reduceByKey gpu", main_path, "gpu", keys, vals)
     drive("partition/group/distinct gpu:8", group_paths, keys, vals)
     profile_first_action(
@@ -1419,6 +1765,7 @@ def main():
     del keys, vals
     keys, vals = bench_data()
     grouped_paths(drive, keys, vals)
+    drive("tuple reduceByKey gpu:8", tuple_reduce_path, keys, vals)
     profile_first_action(
         "gpu:8 groupByKey.mapValues(sumsq) collect", lambda ctx:
         ctx.parallelize(Columns(keys, vals), 8).groupByKey(8)
@@ -1432,6 +1779,19 @@ def main():
             Columns(skeys, svals), 8).sortByKey(numSplits=8).count)
     del skeys, svals
     topk_phase(dev)
+
+    t0 = time.perf_counter()
+    data = tpch_data()
+    print("tpch: SF %d, %d orders, %d lines, generated in %.1f s" % (
+        TPCH_SF, len(data[2]), len(data[0]), time.perf_counter() - t0),
+        flush=True)
+    phases.update(join_kernel_phase(K, dev, data))
+    drive("join gpu:8", join_path, data)
+    profile_first_action(
+        "gpu:8 join count", lambda ctx: ctx.parallelize(
+            Columns(data[0], data[1]), 8).join(ctx.parallelize(
+                Columns(data[2], data[3]), 8), 8).count)
+    del data
 
     t0 = time.perf_counter()
     graph = kronecker_graph(GRAPH_SCALE, EDGE_FACTOR)

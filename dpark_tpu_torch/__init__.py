@@ -8,6 +8,7 @@
     ids, ranks, _ = run_pregel(ctx, ids, ranks, (src, dst), compute, send)
     final = Bagel.run(ctx, verts, msgs, compute,       # (id, Vertex) RDD
                       combiner=BasicCombiner(operator.add))
+    li.join(od, 8).count()               # K12 expands the pairs
 
 The package imports torch, never jax, and nothing of dpark_tpu.
 """

@@ -3,17 +3,29 @@ tensor program over N logical shards on one CUDA device (port of
 dpark_tpu/backend/tpu/__init__.py; TPUScheduler becomes GPUScheduler).
 
 A stage the tensor path cannot admit runs the host object path inline,
-and its record carries the reason (`fallback_reason`).  A CUDA error, an
-out-of-memory or a kernel that fails to build or launch propagates: there
-is no runtime degradation ladder in this slice.
+and its record carries the reason (`fallback_reason`).  Before it runs,
+a join or cogroup whose inputs are device-resident no-combine shuffles
+is computed on the device and seeds the partition cache
+(`device_precompute` in the record), so only the group merge runs in
+Python.  A CUDA error, an out-of-memory or a kernel that fails to build
+or launch propagates, in that precompute too (the reference logs and
+skips a failed precompute): there is no runtime degradation ladder.
 """
 
 import time
 
 from dpark_tpu_torch.backend.cuda import layout
-from dpark_tpu_torch.rdd import _count_iter, _EMPTY, _PartReduce, _TopN
+from dpark_tpu_torch.dependency import ShuffleDependency
+from dpark_tpu_torch.rdd import (CoGroupedRDD, _count_iter, _EMPTY,
+                                 _PartReduce, _TopN)
 from dpark_tpu_torch.schedule import DAGScheduler, run_task_inline
 from dpark_tpu_torch.task import ResultTask
+
+
+def _cached(rdd):
+    """Whether every partition of the RDD is in the partition cache."""
+    return rdd.should_cache and rdd.ctx.cache.holds(rdd.id,
+                                                    len(rdd.splits))
 
 
 class GPUScheduler(DAGScheduler):
@@ -55,9 +67,102 @@ class GPUScheduler(DAGScheduler):
                 # raised while ingesting, before any device work
                 reason = str(e)
         self.note_stage(stage.id, fallback_reason=reason)
-        for task in tasks:
-            status, payload = run_task_inline(task)
-            report(task, status, payload)
+        seeded = self._precompute_join(stage)
+        if seeded is None:
+            seeded = self._precompute_cogroup(stage)
+        try:
+            for task in tasks:
+                status, payload = run_task_inline(task)
+                report(task, status, payload)
+        finally:
+            if seeded is not None:
+                # free the seeded partitions unless the user cached the
+                # RDD: a later job recomputes them
+                rdd, nparts, was_cached = seeded
+                if not was_cached:
+                    rdd.ctx.cache.drop(rdd.id, nparts)
+                    rdd.should_cache = False
+
+    # ------------------------------------------------------------------
+    # device precompute of a host stage's join or cogroup
+    # ------------------------------------------------------------------
+    def _resident_nocombine_deps(self, cg):
+        """Every input of a CoGroupedRDD as a device-resident no-combine
+        shuffle dependency (a shuffled cogroup input is always
+        no-combine), or None (a side read narrowly, or an output on the
+        host)."""
+        deps = []
+        for kind, obj in cg._dep_kinds:
+            if (kind != "shuffle"
+                    or obj.shuffle_id not in self.executor.shuffle_store):
+                return None
+            deps.append(obj)
+        return deps
+
+    def _seed(self, stage, rdd, parts, what):
+        """Put each partition's rows in the cache and mark the RDD cached
+        for this stage's tasks; returns (rdd, partitions, was cached)."""
+        for p, rows in enumerate(parts):
+            rdd.ctx.cache.put((rdd.id, p), rows)
+        was_cached = rdd.should_cache
+        rdd.should_cache = True
+        self.note_stage(stage.id, device_precompute=what)
+        return rdd, len(parts), was_cached
+
+    def _precompute_join(self, stage):
+        """When the stage's top RDD is a.join(b) that the device admits
+        as a join source (fuse._analyze_join_source) but the stage runs
+        on the host (a partial job, an op after the join the device
+        refuses), expand the pairs on the device and seed the join's
+        partitions."""
+        from dpark_tpu_torch.backend.cuda import fuse
+        top = stage.rdd
+        if not fuse.is_join(top) or _cached(top):
+            return None
+        joined, _ = fuse._analyze_join_source(
+            top, self.ndev, self.executor.shuffle_store)
+        if joined is None:
+            return None
+        rows = self.executor.run_device_join(*joined[2])
+        return self._seed(stage, top, rows[:len(top.splits)], "join")
+
+    def _precompute_cogroup(self, stage):
+        """When the stage reads a CoGroupedRDD (through narrow links)
+        whose inputs are all device-resident no-combine shuffles: exchange
+        and key-sort each input on the device (gather_rows), merge the
+        sorted rows of each partition on the host, and seed the
+        cogroup's partitions (the export bridge is never read)."""
+        seen = set()
+        cg = None
+        frontier = [stage.rdd]
+        while frontier:
+            r = frontier.pop()
+            if r.id in seen or _cached(r):
+                continue
+            seen.add(r.id)
+            if isinstance(r, CoGroupedRDD):
+                cg = r
+                break
+            for d in r.dependencies:
+                if not isinstance(d, ShuffleDependency):
+                    frontier.append(d.rdd)
+        if cg is None:
+            return None
+        deps = self._resident_nocombine_deps(cg)
+        if deps is None:
+            return None
+        per_source = [self.executor.gather_rows(dep) for dep in deps]
+        parts = []
+        for p in range(cg.partitioner.num_partitions):
+            slots = {}
+            for si, rows in enumerate(per_source):
+                for k, v in rows[p]:
+                    slot = slots.get(k)
+                    if slot is None:
+                        slot = slots[k] = tuple([] for _ in deps)
+                    slot[si].append(v)
+            parts.append(list(slots.items()))
+        return self._seed(stage, cg, parts, "cogroup")
 
     def _run_array_stage(self, stage, tasks, plan, report):
         from dpark_tpu_torch.backend.cuda import fuse

@@ -15,6 +15,7 @@ rows (``n`` an ``(N,)`` int32 tensor) instead of a validity mask:
   segment table of sorted rows   K7 segment_table
   members of each size class     K2 stable_partition (by K7's class)
   padded groups of a size class  K8 bucket_gather (and bucket_scatter)
+  join match ranges, expansion   K12 join_ranges, join_expand
 
 The traced segmented scan of an unclassified user merge
 (segmented_combine) stays PyTorch in this slice.
@@ -48,12 +49,13 @@ def hash_dst_cols(key_cols, n_dst, n, r=None, want_hist=False,
                                  want_hist=want_hist, want_hash=want_hash)
 
 
-def lex_searchsorted(sorted_cols, query_cols):
-    """Multi-column searchsorted (side "left"): for each query row (one
-    value per (N, cap) column), the insertion index into the rows of
-    `sorted_cols` ((m,) columns, sorted lexicographically ascending), by
-    the reference's vectorised binary search: bit_length(m) fixed steps
-    of a row-wise lexicographic compare.  Returns (N, cap) int64."""
+def lex_searchsorted(sorted_cols, query_cols, side="left"):
+    """Multi-column searchsorted: for each query row (one value per (N,
+    cap) column), the insertion index into the rows of `sorted_cols`
+    ((m,) columns, sorted lexicographically ascending) -- before equal
+    rows with side "left", after them with "right" -- by the reference's
+    vectorised binary search: bit_length(m) fixed steps of a row-wise
+    lexicographic compare.  Returns (N, cap) int64."""
     m = int(sorted_cols[0].shape[0])
     q0 = query_cols[0]
     lo = torch.zeros(q0.shape, dtype=torch.int64, device=q0.device)
@@ -70,6 +72,8 @@ def lex_searchsorted(sorted_cols, query_cols):
             c_lt, c_eq = a < q, a == q
             lt = c_lt if lt is None else lt | (eq & c_lt)
             eq = c_eq if eq is None else eq & c_eq
+        if side == "right":
+            lt = lt | eq
         lo = torch.where(active & lt, mid + 1, lo)
         hi = torch.where(active & ~lt, mid, hi)
     return lo
@@ -324,3 +328,24 @@ def scatter_bucket_groups(outs, results, members, offsets, counts, b):
     return kernels.bucket_scatter(outs, [r.contiguous() for r in results],
                                   members, offsets[:, b].contiguous(),
                                   counts[:, b].contiguous())
+
+
+# ----------------------------------------------------------------------
+# the device join: match ranges of two exchanged, key-sorted sides and
+# the expansion of the key-matched pairs (K12)
+# ----------------------------------------------------------------------
+def join_key_ranges(a_keys, a_n, b_keys, b_n):
+    """K12's ranges over the nk key columns of both sides: (lo, per,
+    offs, totals) -- see kernels.join_ranges."""
+    return kernels.join_ranges([k.contiguous() for k in a_keys], a_n,
+                               [k.contiguous() for k in b_keys], b_n)
+
+
+def join_expand(a_leaves, b_vals, ranges, a_n, cap_out):
+    """K12's expansion: (N, cap_out) leaves of the joined rows, A's
+    leaves (keys first) then B's values; padding past each shard's total
+    holds the key sentinel in key column 0."""
+    lo, per, offs, totals = ranges
+    return kernels.join_expand([x.contiguous() for x in a_leaves],
+                               [x.contiguous() for x in b_vals], lo, per,
+                               offs, totals, a_n, cap_out)

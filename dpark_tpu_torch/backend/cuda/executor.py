@@ -11,7 +11,9 @@ its reduce side sorts (K5) and merges (K3); a no-combine write
 (groupByKey, partitionBy, sortByKey's range shuffle) is K1 or K6
 destination and K2 partition, and its reduce side only sorts by key (K5).
 A groupByKey().mapValues(f) reduce side then runs SegAggOp (K3) or, for
-SegMapOp, K7's segment table first (_run_seg_map).
+SegMapOp, K7's segment table first (_run_seg_map).  An a.join(b) source
+exchanges and sorts both no-combine sides, then K12 finds each A row's
+range of equal B keys and expands the pairs (device_join_batch).
 
 PyTorch runs eagerly: the reference's compiled programs (narrow,
 exchange, reduce) are plain functions here, and there is no program
@@ -67,6 +69,8 @@ class TorchExecutor:
         ("result", [rows per shard])."""
         if plan.source[0] == "ingest":
             batch = self._ingest(plan)
+        elif plan.source[0] == "join":
+            batch = self.device_join_batch(*plan.source[1])
         elif plan.ops and isinstance(plan.ops[0], fuse.SegMapOp):
             # segmented apply: sort the rows, read the size-class
             # histogram, set the op's bucket layout
@@ -110,6 +114,49 @@ class TorchExecutor:
                                        store["offsets"])
         packed = collectives._lex_sort(recv, nk)
         return layout.Batch(treedef, list(packed), n)
+
+    # ------------------------------------------------------------------
+    # cogroup and join over no-combine shuffles kept on the device
+    # ------------------------------------------------------------------
+    def gather_rows(self, dep):
+        """One no-combine shuffle's rows, exchanged and key-sorted on the
+        device: per-partition (k, v) row lists on the host (a cogroup's
+        host merge consumes them)."""
+        store = self.shuffle_store[dep.shuffle_id]
+        batch = self._exchange_sorted(store, store["key_cols"],
+                                      store["out_treedef"])
+        return layout.egest(batch)
+
+    def run_device_join(self, dep_a, dep_b):
+        """a.join(b) over two device-resident no-combine shuffles:
+        per-partition (k, (va, vb)) row lists on the host."""
+        return layout.egest(self.device_join_batch(dep_a, dep_b))
+
+    def device_join_batch(self, dep_a, dep_b):
+        """Inner join of two device-resident no-combine shuffles as a
+        Batch of (k, (va, vb)) rows (the "join" source of a stage: keys
+        stay on the device for the narrow ops and any shuffle write).
+        Both sides: K4 exchange and K5 key sort; then K12's ranges and
+        per-shard totals, one host read of the largest total to size the
+        output (layout.round_capacity), and K12's expansion.  Rows come
+        in A's key order, equal keys in A's then B's arrival order."""
+        store_a = self.shuffle_store[dep_a.shuffle_id]
+        store_b = self.shuffle_store[dep_b.shuffle_id]
+        nk = store_a["key_cols"]
+        a = self._exchange_sorted(store_a, nk, store_a["out_treedef"])
+        b = self._exchange_sorted(store_b, nk, store_b["out_treedef"])
+        ranges = collectives.join_key_ranges(a.cols[:nk], a.counts,
+                                             b.cols[:nk], b.counts)
+        totals = ranges[3]
+        cap_out = layout.round_capacity(int(totals.max().item()) or 1)
+        if cap_out >= 2 ** 31:
+            raise ValueError("a join shard of %d rows exceeds the int32 "
+                             "row counts" % int(totals.max().item()))
+        leaves = collectives.join_expand(a.cols, b.cols[nk:], ranges,
+                                         a.counts, cap_out)
+        return layout.Batch(fuse.joined_treedef(store_a["out_treedef"],
+                                                store_b["out_treedef"]),
+                            leaves, totals.to(torch.int32))
 
     # ------------------------------------------------------------------
     # segmented apply: groupByKey().mapValues(traceable f) as a vmap over

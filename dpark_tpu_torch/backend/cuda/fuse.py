@@ -9,6 +9,11 @@ strings, data-dependent control flow, .item(), numpy or jnp calls on
 tensors — sends the stage to the host object path with the reason
 recorded.  analyze_stage never raises for user code.
 
+An a.join(b) over two device-resident no-combine shuffles is a "join"
+source (_analyze_join_source): K12 expands the matched pairs on the
+device and the rest of the chain runs on them.  A join the device does
+not admit runs the host path with the reason.
+
 A groupByKey consumed by mapValues(f) stays on the device two ways, as
 in the reference: a provable aggregate (sum/len/min/max/mean) as
 SegAggOp (K3 over the key-sorted rows), any traceable padding-invariant
@@ -23,12 +28,13 @@ import torch
 from torch.func import vmap
 
 from dpark_tpu_torch import conf
-from dpark_tpu_torch.backend.cuda import layout
+from dpark_tpu_torch.backend.cuda import kernels, layout
 from dpark_tpu_torch.dependency import HashPartitioner, RangePartitioner
 from dpark_tpu_torch.rdd import (
-    FilteredRDD, FlatMappedValuesRDD, KeyedRDD, MappedRDD, MappedValuesRDD,
-    MapPartitionsRDD, ParallelCollection, ShuffledRDD, _ColumnarSlice,
-    _SortPartFn, _append, _extend, _identity, _mk_list)
+    CoGroupedRDD, FilteredRDD, FlatMappedValuesRDD, KeyedRDD, MappedRDD,
+    MappedValuesRDD, MapPartitionsRDD, ParallelCollection, ShuffledRDD,
+    UnionRDD, _ColumnarSlice, _SortPartFn, _append, _extend, _identity,
+    _join_values, _mk_list)
 from dpark_tpu_torch.utils import monoid as _monoid
 
 _monoid.register_direct({torch.add: "add", torch.mul: "mul",
@@ -51,6 +57,19 @@ WAVE_REASON = ("columnar input above the wave threshold (%d rows per "
                "shard): out-of-core wave stream not yet ported")
 WIDE_REASON = ("more logical partitions (%d) than shards (%d): the "
                "spilled-run stream is not yet ported")
+CACHE_REASON = ("cached %s: the device result cache is not yet ported; "
+                "its partitions cache on the host")
+UNION_REASON = "union source: the device union is not yet ported"
+# why a.join(b) is not a device join source
+JOIN_NARROW_REASON = ("join side %d is already partitioned like the join "
+                      "(e.g. a reduceByKey output) and read narrowly: the "
+                      "host merges it")
+JOIN_HOST_REASON = "join side %d's shuffle output lives on the host"
+JOIN_WIDE_REASON = "join over %d partitions on %d shards"
+JOIN_RECORD_REASON = ("join side %d's records are not (k, v) pairs with a "
+                      "numeric scalar or flat-tuple key")
+JOIN_KEY_REASON = "join sides' key widths or dtypes differ (%s vs %s)"
+JOIN_LEAVES_REASON = "joined records of %d leaves (the kernel takes %d)"
 
 
 def classify_merge(merge):
@@ -680,7 +699,8 @@ class StagePlan:
 
     def __init__(self, source, ops, epilogue, in_treedef, in_specs,
                  out_treedef, out_specs, stage):
-        self.source = source        # ("ingest", pc) | ("hbm", dep)
+        self.source = source        # ("ingest", pc) | ("hbm", dep) |
+        #                             ("join", (dep_a, dep_b))
         self.ops = ops
         self.epilogue = epilogue    # None | ("shuffle_write", dep)
         self.in_treedef = in_treedef
@@ -715,15 +735,26 @@ def _keyby_as_record_fn(f):
     return fn
 
 
+def is_join(rdd):
+    """a.join(b): the join's flatMapValue over a two-way cogroup."""
+    return (isinstance(rdd, FlatMappedValuesRDD) and rdd.f is _join_values
+            and isinstance(rdd.prev, CoGroupedRDD) and len(rdd.prev.rdds) == 2)
+
+
 def extract_chain(top):
     """Walk narrow one-parent links from the stage's top RDD to its
-    source.  Returns (source_rdd, ops root->top, passthrough) or None;
+    source.  Returns (source_rdd, ops root->top, passthrough); the
+    source is where the walk stopped: an input, a shuffle, an a.join(b),
+    a cached RDD, or an RDD with no op form (analyze_stage decides).
     passthrough: partitionBy's flatMapValue(identity) over a no-combine
     shuffle, whose rows then pass through flat."""
     ops = []
     cur = top
     passthrough = False
     while True:
+        if cur.should_cache or is_join(cur):
+            ops.reverse()
+            return cur, ops, passthrough
         if (isinstance(cur, FlatMappedValuesRDD) and cur.f is _identity
                 and isinstance(cur.prev, ShuffledRDD)
                 and is_list_agg(cur.prev.aggregator)):
@@ -741,11 +772,9 @@ def extract_chain(top):
             ops.append(MapOp(cur.f))
         elif isinstance(cur, FilteredRDD):
             ops.append(FilterOp(cur.f))
-        elif isinstance(cur, (ParallelCollection, ShuffledRDD)):
+        else:
             ops.reverse()
             return cur, ops, passthrough
-        else:
-            return None
         cur = cur.prev
 
 
@@ -757,38 +786,91 @@ def _sample_record(pc):
 
 
 def _columnar_row_bytes(slices):
+    """Bytes of one record across a slice's columns, a column of shape
+    (n, w...) counting its itemsize times its trailing shape."""
     for s in slices:
         cols = getattr(s, "columns", None)
         if cols is not None and len(s):
-            return sum(np.asarray(c).dtype.itemsize for c in cols)
+            return sum(np.asarray(c).dtype.itemsize
+                       * int(np.prod(np.asarray(c).shape[1:]))
+                       for c in cols)
     return 16
 
 
-def _wave_rows(pc, device):
-    """The wave threshold a columnar input exceeds, or None."""
+def _wave_rows(pc, device, ndev, reslice):
+    """The wave threshold (rows per shard) a columnar input exceeds, or
+    None.  The ndev shards share the card, so each gets 1/ndev of its
+    budget; rows are counted as the shards hold them, after
+    executor._reslice_parts when the stage re-slices."""
     slices = pc._slices
     if not all(isinstance(s, _ColumnarSlice) for s in slices):
         return None
-    limit = conf.stream_chunk_rows(_columnar_row_bytes(slices), device)
-    if max((len(s) for s in slices), default=0) > limit:
-        return limit
-    return None
+    limit = conf.stream_chunk_rows(_columnar_row_bytes(slices), device,
+                                   ndev)
+    if reslice:
+        rows = -(-sum(len(s) for s in slices) // ndev)
+    else:
+        rows = max((len(s) for s in slices), default=0)
+    return limit if rows > limit else None
+
+
+def joined_treedef(ta, tb):
+    """The (k, (va, vb)) treedef of a join of (k, va) and (k, vb)
+    records: A's key leaves, then A's value leaves, then B's."""
+    sa = layout.tree_unflatten(ta, list(range(layout.num_leaves(ta))))
+    sb = layout.tree_unflatten(tb, list(range(layout.num_leaves(tb))))
+    return layout.tree_flatten((sa[0], (sa[1], sb[1])))[1]
+
+
+def _analyze_join_source(join_rdd, ndev, store):
+    """((treedef, specs, (dep_a, dep_b)), None) when both inputs of the
+    a.join(b) cogroup are device-resident no-combine shuffles (a shuffled
+    cogroup input always is one) of (k, v) records with keys of one width
+    and dtypes, over at most ndev partitions; else (None, reason)."""
+    cg = join_rdd.prev
+    deps = []
+    for si, (kind, obj) in enumerate(cg._dep_kinds):
+        if kind != "shuffle":
+            return None, JOIN_NARROW_REASON % si
+        deps.append(obj)
+    r = cg.partitioner.num_partitions
+    if r > ndev:
+        return None, JOIN_WIDE_REASON % (r, ndev)
+    metas, sigs = [], []
+    for si, dep in enumerate(deps):
+        if dep.shuffle_id not in store:
+            return None, JOIN_HOST_REASON % si
+        meta = store[dep.shuffle_id]
+        treedef, specs = meta["out_treedef"], meta["out_specs"]
+        nk = layout.key_width(treedef, specs, kinds="if")
+        if nk is None or len(treedef) != 2 or len(specs) < nk + 1:
+            return None, JOIN_RECORD_REASON % si
+        metas.append(meta)
+        sigs.append((nk, tuple(str(np.dtype(dt)) for dt, _ in specs[:nk])))
+    if sigs[0] != sigs[1]:
+        return None, JOIN_KEY_REASON % (sigs[0], sigs[1])
+    nk = sigs[0][0]
+    specs = (list(metas[0]["out_specs"])
+             + list(metas[1]["out_specs"][nk:]))
+    if len(specs) > kernels.MAX_LEAVES:
+        return None, JOIN_LEAVES_REASON % (len(specs), kernels.MAX_LEAVES)
+    treedef = joined_treedef(metas[0]["out_treedef"],
+                             metas[1]["out_treedef"])
+    return (treedef, specs, (deps[0], deps[1])), None
+
 
 
 def analyze_stage(stage, ndev, executor):
     """(StagePlan, None) when `stage` can run on the tensor path, else
     (None, reason)."""
-    top = stage.rdd
-    extracted = extract_chain(top)
-    if extracted is None:
-        return None, ("%s has no tensor form yet; object path"
-                      % type(top).__name__)
-    source_rdd, ops, passthrough = extracted
+    source_rdd, ops, passthrough = extract_chain(stage.rdd)
     store = executor.shuffle_store
     src_nk = 1
     src_merge = None
     group_output = False
     reslice = False
+    if source_rdd.should_cache:
+        return None, CACHE_REASON % type(source_rdd).__name__
     if isinstance(source_rdd, ParallelCollection):
         if not stage.is_shuffle_map and not ops:
             return None, "plain read of the input: no device work"
@@ -796,7 +878,7 @@ def analyze_stage(stage, ndev, executor):
         if reslice and not stage.is_shuffle_map:
             return None, ("result stage over %d input slices on %d "
                           "shards" % (len(source_rdd._slices), ndev))
-        wave = _wave_rows(source_rdd, executor.device)
+        wave = _wave_rows(source_rdd, executor.device, ndev, reslice)
         if wave is not None:
             return None, WAVE_REASON % wave
         sample = _sample_record(source_rdd)
@@ -807,7 +889,18 @@ def analyze_stage(stage, ndev, executor):
         except TypeError as e:
             return None, "record has no tensor form (%s)" % e
         source = ("ingest", source_rdd)
-    else:                                   # ShuffledRDD
+    elif is_join(source_rdd):
+        joined, reason = _analyze_join_source(source_rdd, ndev, store)
+        if joined is None:
+            return None, reason
+        treedef, specs, deps = joined
+        source = ("join", deps)
+    elif isinstance(source_rdd, UnionRDD):
+        return None, UNION_REASON
+    elif not isinstance(source_rdd, ShuffledRDD):
+        return None, ("%s has no tensor form yet; object path"
+                      % type(source_rdd).__name__)
+    else:
         dep = source_rdd.dep
         if dep.shuffle_id not in store:
             return None, "parent shuffle output lives on the host"

@@ -14,6 +14,7 @@ Kernels (sources under csrc/, one shared library each):
   K9 edge_gather            csrc/edge_gather.cu
   K10 pregel_deliver        csrc/pregel_deliver.cu
   K11 obj_emit_pack         csrc/obj_emit_pack.cu
+  K12 join_ranges           csrc/join_expand.cu (with join_expand)
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -52,10 +53,13 @@ SOURCES = {
     "edge_gather": "edge_gather.cu",
     "pregel_deliver": "pregel_deliver.cu",
     "obj_emit_pack": "obj_emit_pack.cu",
+    "join_expand": "join_expand.cu",
 }
-# launch counters: one per kernel (K8's library holds two)
-LAUNCHES = {name: 0 for name in SOURCES if name != "bucket_groups"}
-LAUNCHES.update(bucket_gather=0, bucket_scatter=0)
+# launch counters: one per entry point (K8's and K12's libraries hold two)
+LAUNCHES = {name: 0 for name in SOURCES
+            if name not in ("bucket_groups", "join_expand")}
+LAUNCHES.update(bucket_gather=0, bucket_scatter=0, join_ranges=0,
+                join_expand=0)
 SIZE_CLASSES = 32
 KEY_SENTINEL = 2 ** 63 - 1
 OPS = {"add": 0, "min": 1, "max": 2, "mul": 3, "last": 4}
@@ -185,6 +189,16 @@ def _bind(name, lib):
         scatter.argtypes = [_P, _I, _I, _I, _I, _L, _P, _P, _L, _P, _P]
         scatter.restype = ctypes.c_int
         return count, scatter
+    elif name == "join_expand":
+        ranges = lib.dpk_join_ranges
+        ranges.argtypes = [_P, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                           _P]
+        ranges.restype = ctypes.c_int
+        expand = lib.dpk_join_expand
+        expand.argtypes = [_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _P,
+                           ctypes.c_uint64, _I, _P]
+        expand.restype = ctypes.c_int
+        return ranges, expand
     else:
         fn = lib.dpk_range_dst_hist
         fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _L, _P, _P,
@@ -1227,3 +1241,172 @@ def obj_emit_pack(blocks):
                     dst_out.data_ptr(), _stream())
     _check("obj_emit_pack", rc)
     return dst_out, leaves, counts
+
+
+# ---------------------------------------------------------------------
+# K12 join_ranges / join_expand
+# ---------------------------------------------------------------------
+_JOIN_KEY_KINDS = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
+JOIN_MAX_KEYS = 4
+
+
+def _order_key(col):
+    """A signed int64 column ordered as K5 orders `col` (its radix key
+    image with the top bit flipped back): ints by value, float64 with
+    -0.0 equal to +0.0 and every NaN one value past +inf."""
+    return radix_key_image(col)[0] ^ _I64_MIN
+
+
+def join_ranges_plain(a_keys, a_n, b_keys, b_n):
+    from dpark_tpu_torch.backend.cuda.collectives import lex_searchsorted
+    N, cap_a = a_keys[0].shape
+    dev = a_keys[0].device
+    qa = [_order_key(k) for k in a_keys]
+    qb = [_order_key(k) for k in b_keys]
+    lo = torch.zeros((N, cap_a), dtype=torch.int64, device=dev)
+    hi = torch.zeros_like(lo)
+    for s, nb in enumerate(b_n.tolist()):
+        sorted_cols = [c[s, :nb] for c in qb]
+        query = [c[s] for c in qa]
+        lo[s] = lex_searchsorted(sorted_cols, query, "left")
+        hi[s] = lex_searchsorted(sorted_cols, query, "right")
+    valid = torch.arange(cap_a, device=dev)[None, :] < a_n[:, None].long()
+    lo = torch.where(valid, lo, 0)
+    per = torch.where(valid, hi - lo, 0)
+    offs = torch.cumsum(per, 1) - per
+    return lo, per, offs, per.sum(1)
+
+
+def _check_join_keys(a_keys, a_n, b_keys, b_n):
+    nk = len(a_keys)
+    _need(1 <= nk <= JOIN_MAX_KEYS and len(b_keys) == nk,
+          "1 to %d key columns on each side, the same count"
+          % JOIN_MAX_KEYS)
+    N, cap_a = a_keys[0].shape[:2]
+    _need(b_keys[0].dim() == 2 and b_keys[0].shape[0] == N,
+          "both sides need the same shard count")
+    cap_b = b_keys[0].shape[1]
+    _check_cols(a_keys, N, cap_a, "side A's key columns")
+    _check_cols(b_keys, N, cap_b, "side B's key columns")
+    _need(all(a.dim() == 2 and a.dtype in _JOIN_KEY_KINDS
+              and a.dtype == b.dtype for a, b in zip(a_keys, b_keys)),
+          "key columns must be (N, cap) int32/int64/float64, the same "
+          "dtype on both sides")
+    _need(a_n.dtype == torch.int32 and a_n.shape == (N,)
+          and b_n.dtype == torch.int32 and b_n.shape == (N,),
+          "a_n and b_n must be (N,) int32")
+    return N, cap_a, cap_b
+
+
+def join_ranges(a_keys, a_n, b_keys, b_n):
+    """Each valid A row's range of equal keys among B's valid rows.  Both
+    sides are key-sorted per shard in K5's order: a_keys / b_keys are the
+    nk <= 4 key columns ((N, cap_a) / (N, cap_b), one dtype per column on
+    both sides), a_n / b_n ((N,) int32) the valid rows.  Compared
+    lexicographically in K5's order (-0.0 equals +0.0).  Returns (lo,
+    per, offs (N, cap_a) int64: the first equal B row, the count of equal
+    B rows, 0 past a_n[s], and per's exclusive prefix sum; totals (N,)
+    int64: per's row sums)."""
+    a_keys, b_keys = list(a_keys), list(b_keys)
+    N, cap_a, cap_b = _check_join_keys(a_keys, a_n, b_keys, b_n)
+    if not _on_cuda(a_keys + b_keys + [a_n, b_n]):
+        return join_ranges_plain(a_keys, a_n, b_keys, b_n)
+    ranges_fn, _ = _kernel("join_expand")
+    dev = a_keys[0].device
+    nk = len(a_keys)
+    pad = [0] * (JOIN_MAX_KEYS - nk)
+    desc = torch.tensor(
+        [k.data_ptr() for k in a_keys] + pad
+        + [k.data_ptr() for k in b_keys] + pad
+        + [_JOIN_KEY_KINDS[k.dtype] for k in a_keys] + pad,
+        dtype=torch.int64).to(dev)
+    lo = torch.empty((N, cap_a), dtype=torch.int64, device=dev)
+    per = torch.empty_like(lo)
+    offs = torch.empty_like(lo)
+    part = torch.empty((N, max(1, -(-cap_a // 1024))), dtype=torch.int64,
+                       device=dev)
+    totals = torch.empty((N,), dtype=torch.int64, device=dev)
+    rc = ranges_fn(desc.data_ptr(), nk, N, cap_a, cap_b, a_n.data_ptr(),
+                   b_n.data_ptr(), lo.data_ptr(), per.data_ptr(),
+                   offs.data_ptr(), part.data_ptr(), totals.data_ptr(),
+                   _stream())
+    _check("join_ranges", rc)
+    return lo, per, offs, totals
+
+
+def _join_sentinel(dtype):
+    return float("inf") if dtype.is_floating_point else \
+        torch.iinfo(dtype).max
+
+
+def join_expand_plain(a_leaves, b_vals, lo, per, offs, totals, a_n,
+                      cap_out):
+    N, cap_a = a_leaves[0].shape[:2]
+    cap_b = b_vals[0].shape[1]
+    dev = a_leaves[0].device
+    t = torch.arange(cap_out, device=dev).expand(N, cap_out).contiguous()
+    i = torch.searchsorted((offs + per).contiguous(), t, right=True)
+    i = i.clamp_(max=cap_a - 1)
+    j = t - torch.gather(offs, 1, i)
+    bi = (torch.gather(lo, 1, i) + j).clamp_(0, cap_b - 1)
+    pad = t >= totals[:, None]
+    out = [shard_rows(x, i) for x in a_leaves] + \
+        [shard_rows(x, bi) for x in b_vals]
+    res = []
+    for k, x in enumerate(out):
+        fill = _join_sentinel(x.dtype) if k == 0 else 0
+        p = pad.view(pad.shape + (1,) * (x.dim() - 2))
+        res.append(torch.where(p, torch.full((), fill, dtype=x.dtype,
+                                             device=dev), x).contiguous())
+    return res
+
+
+def join_expand(a_leaves, b_vals, lo, per, offs, totals, a_n, cap_out):
+    """The joined rows of each shard, from join_ranges' (lo, per, offs,
+    totals): output slot t < totals[s] of shard s takes every A leaf
+    (a_leaves: key columns first, then A's values, (N, cap_a, ...)) at
+    the A row i whose [offs[i], offs[i] + per[i]) holds t, and B's value
+    leaves (b_vals, (N, cap_b, ...)) at row lo[i] + t - offs[i].  Slots
+    past totals[s] hold the key sentinel in the first leaf (key column 0)
+    and zeros in every other leaf.  Returns the (N, cap_out, ...) leaves,
+    A's then B's values."""
+    a_leaves, b_vals = list(a_leaves), list(b_vals)
+    N, cap_a = a_leaves[0].shape[:2]
+    _need(len(b_vals) >= 1 and len(a_leaves) + len(b_vals) <= MAX_LEAVES,
+          "at least one B value leaf and at most %d leaves in all"
+          % MAX_LEAVES)
+    cap_b = b_vals[0].shape[1]
+    _check_cols(a_leaves, N, cap_a, "side A's leaves")
+    _check_cols(b_vals, N, cap_b, "side B's value leaves")
+    _need(a_leaves[0].dim() == 2
+          and a_leaves[0].dtype in _JOIN_KEY_KINDS,
+          "the first A leaf is key column 0: (N, cap_a) int32/int64/"
+          "float64")
+    for x in (lo, per, offs):
+        _need(x.dtype == torch.int64 and x.shape == (N, cap_a)
+              and x.is_contiguous(), "lo, per and offs must be (N, cap_a) "
+              "contiguous int64")
+    _need(totals.dtype == torch.int64 and totals.shape == (N,)
+          and a_n.dtype == torch.int32 and a_n.shape == (N,),
+          "totals must be (N,) int64, a_n (N,) int32")
+    _need(cap_out >= 1, "cap_out must be positive")
+    if not _on_cuda(a_leaves + b_vals + [lo, per, offs, totals, a_n]):
+        return join_expand_plain(a_leaves, b_vals, lo, per, offs, totals,
+                                 a_n, cap_out)
+    _, expand_fn = _kernel("join_expand")
+    dev = a_leaves[0].device
+    src = a_leaves + b_vals
+    out = [torch.empty((N, cap_out) + tuple(x.shape[2:]), dtype=x.dtype,
+                       device=dev) for x in src]
+    desc = torch.tensor([x.data_ptr() for x in src]
+                        + [x.data_ptr() for x in out]
+                        + [_row_bytes(x) for x in src],
+                        dtype=torch.int64).to(dev)
+    bits, width = _elem_bits(_join_sentinel(a_leaves[0].dtype),
+                             a_leaves[0].dtype)
+    rc = expand_fn(desc.data_ptr(), len(a_leaves), len(src), N, cap_a,
+                   cap_b, cap_out, a_n.data_ptr(), lo.data_ptr(),
+                   offs.data_ptr(), totals.data_ptr(), bits, width,
+                   _stream())
+    _check("join_expand", rc)
+    return out

@@ -9,9 +9,11 @@ compute vmapped per out-degree class, K11 packs the emitted messages,
 K1-K5 combine and exchange them, K10 delivers them); anything the device
 path does not admit runs the driver-resident host loop (`_run_fast`)
 from superstep 0, and ctx.scheduler._pregel_fallback_reason says why.
-The reference's third path, the RDD-algebra superstep loop, is not
-ported (it needs groupWith / cogroup, ROADMAP A11): where the reference
-would run it, Bagel.run raises NotImplementedError.
+Where neither driver-resident path can run the program (a graph over
+FAST_MAX_VERTICES, a compute that rebinds vertex ids,
+DPARK_BAGEL_FAST=0), the RDD-algebra superstep loop runs: combineByKey
+of the messages, groupWith of the vertices, the compute as a cached
+flatMapValue, a fold of the halting counters.
 
 run_pregel: columnar vertex state, edge-centric vectorized compute/send,
 monoid message combine.  On the gpu master each superstep runs over the
@@ -124,10 +126,6 @@ DEVICE_OBJECT_RUN = os.environ.get("DPARK_BAGEL_DEVICE", "1") != "0"
 MAX_DEGREE_CLASSES = int(os.environ.get("DPARK_BAGEL_MAX_CLASSES", "24"))
 MAX_DEGREE = int(os.environ.get("DPARK_BAGEL_MAX_DEGREE", "1024"))
 DEGREE_BUCKETS = os.environ.get("DPARK_BAGEL_BUCKETS", "1") != "0"
-
-RDD_LOOP_MISSING = ("the RDD-algebra Bagel superstep loop is not ported "
-                    "(it needs groupWith / cogroup, ROADMAP A11)")
-
 
 class _ObjectPathNeeded(Exception):
     """Raised inside the driver-resident object run when the program does
@@ -330,9 +328,10 @@ class Bagel:
         driver-resident host loop (_run_fast) runs from superstep 0, so
         compute must tolerate re-execution.  Where the reference falls
         back to its RDD-algebra loop (a graph over FAST_MAX_VERTICES, a
-        compute that rebinds vertex ids, DPARK_BAGEL_FAST=0) the port
-        raises NotImplementedError (ROADMAP A11).  checkpoint_interval
-        belongs to that loop and is ignored.
+        compute that rebinds vertex ids, DPARK_BAGEL_FAST=0) the port runs
+        that loop (_run_rdd), from superstep 0.  checkpoint_interval
+        belongs to that loop; the port has no checkpoint directory, so
+        it is ignored.
         """
         combiner = combiner or Combiner()
         numSplits = numSplits or len(verts.splits)
@@ -366,9 +365,47 @@ class Bagel:
                                      aggregator, max_superstep, numSplits)
             except (_ObjectPathNeeded, MemoryError) as e:
                 need = e
-        raise NotImplementedError(
-            "%s; the driver-resident paths cannot run this program (%s)"
-            % (RDD_LOOP_MISSING, need or "DPARK_BAGEL_FAST=0")) from need
+        logger.warning("object Bagel driver-resident paths cannot run "
+                       "this program (%s); running the RDD path",
+                       need or "DPARK_BAGEL_FAST=0")
+        return cls._run_rdd(verts, msgs, compute, combiner, aggregator,
+                            max_superstep, numSplits)
+
+    @classmethod
+    def _run_rdd(cls, verts, msgs, compute, combiner, aggregator,
+                 max_superstep, numSplits):
+        """The reference's RDD-algebra supersteps: the aggregate of the
+        vertices, the messages combined per target (combineByKey), the
+        vertices grouped with their mail (groupWith), the compute as a
+        cached flatMapValue, then a fold of (active vertices, messages)
+        decides whether to halt."""
+        superstep = 0
+        while superstep < max_superstep:
+            aggregated = None
+            if aggregator is not None:
+                parts = [p for p in verts.ctx.runJob(
+                    verts.map(_AggCreate(aggregator)),
+                    _PartReduceBy(aggregator.mergeAggregators))
+                    if p is not _NO_VALUE]
+                if parts:
+                    aggregated = parts[0]
+                    for p in parts[1:]:
+                        aggregated = aggregator.mergeAggregators(
+                            aggregated, p)
+            combined = msgs.combineByKey(
+                combiner.createCombiner, combiner.mergeValue,
+                combiner.mergeCombiners, numSplits)
+            grouped = verts.groupWith(combined, numSplits=numSplits)
+            processed = grouped.flatMapValue(
+                _ComputeFn(compute, aggregated, superstep)).cache()
+            num_active, num_msgs = processed.map(_stats).fold(
+                (0, 0), _merge_stats)
+            verts = processed.mapValue(_fst_of_pair)
+            msgs = processed.flatMap(_OutMessages())
+            superstep += 1
+            if num_msgs == 0 and num_active == 0:
+                break
+        return verts
 
     @classmethod
     def _run_columnar(cls, ctx, collected, compute, combiner,
@@ -499,6 +536,68 @@ class Bagel:
             if not pending and num_active == 0:
                 break
         return ctx.parallelize(list(graph.items()), numSplits)
+
+
+_NO_VALUE = "__bagel_no_value__"
+
+
+class _PartReduceBy:
+    def __init__(self, merge):
+        self.merge = merge
+
+    def __call__(self, it):
+        out = _NO_VALUE
+        for x in it:
+            out = x if out is _NO_VALUE else self.merge(out, x)
+        return out
+
+
+class _AggCreate:
+    def __init__(self, aggregator):
+        self.aggregator = aggregator
+
+    def __call__(self, kv):
+        return self.aggregator.createAggregator(kv[1])
+
+
+class _ComputeFn:
+    """grouped value = ([vertex...], [combined mail...]); an id with no
+    vertex (mail to an unknown id) is dropped, an inactive vertex with no
+    mail passes through untouched."""
+
+    def __init__(self, compute, aggregated, superstep):
+        self.compute = compute
+        self.aggregated = aggregated
+        self.superstep = superstep
+
+    def __call__(self, groups):
+        vs, cs = groups
+        if not vs:
+            return []
+        vert = vs[0]
+        mail = cs[0] if cs else None
+        if mail is None and not vert.active:
+            return [(vert, [])]
+        return [self.compute(vert, mail, self.aggregated, self.superstep)]
+
+
+class _OutMessages:
+    def __call__(self, kv):
+        _, (vert, out_msgs) = kv
+        return [(m.target_id, m.value) for m in out_msgs]
+
+
+def _stats(kv):
+    vert, out_msgs = kv[1]
+    return (1 if vert.active else 0, len(out_msgs))
+
+
+def _merge_stats(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+def _fst_of_pair(pair):
+    return pair[0]
 
 
 def as_leaves(x):

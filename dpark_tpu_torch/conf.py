@@ -1,5 +1,5 @@
-"""Knobs of the PyTorch port (the subset of dpark_tpu/conf.py this
-slice reads)."""
+"""Knobs of the PyTorch port (the subset of dpark_tpu/conf.py the port
+reads)."""
 
 import os
 
@@ -24,10 +24,11 @@ def device_bytes_limit(device):
     return int(torch.cuda.mem_get_info(dev)[1])
 
 
-def stream_chunk_rows(row_bytes=16, device="cpu"):
+def stream_chunk_rows(row_bytes=16, device="cpu", nshards=1):
     """Wave threshold in rows per shard: a pinned STREAM_CHUNK_ROWS wins;
-    "auto" allows a raw wave of device memory / 16 (the map side holds
-    about six copies of its input: ingest, sort passes, partitioned,
+    "auto" allows each of the `nshards` shards, which share one card, a
+    raw wave of 1/nshards of its memory / 16 (the map side holds about
+    six copies of its input: ingest, sort passes, partitioned,
     combined), and the fixed fallback where the device reports none."""
     if STREAM_CHUNK_ROWS != "auto":
         return STREAM_CHUNK_ROWS
@@ -35,7 +36,7 @@ def stream_chunk_rows(row_bytes=16, device="cpu"):
     if not limit:
         return _STREAM_CHUNK_ROWS_FALLBACK
     return max(_STREAM_CHUNK_ROWS_FALLBACK,
-               limit // (16 * max(1, row_bytes)))
+               limit // max(1, nshards) // (16 * max(1, row_bytes)))
 
 
 # graph-build-time rewrite of groupByKey().mapValue(provable aggregate)

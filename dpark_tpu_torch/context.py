@@ -14,6 +14,7 @@ kernels' plain PyTorch versions (what the tests do).
 import itertools
 
 from dpark_tpu_torch import rdd as _rdd
+from dpark_tpu_torch.cache import Cache
 from dpark_tpu_torch.shuffle import BucketStore
 
 
@@ -26,6 +27,7 @@ class DparkContext:
         self.scheduler = None
         self.started = False
         self.bucket_store = BucketStore()
+        self.cache = Cache()         # RDD.cache() partitions
         kind, _, arg = master.partition(":")
         if kind == "local":
             if device is not None:
@@ -68,6 +70,7 @@ class DparkContext:
             return
         self.started = False
         self.scheduler.stop()
+        self.cache.clear()
 
     def __enter__(self):
         self.start()
@@ -86,6 +89,9 @@ class DparkContext:
 
     def parallelize(self, seq, numSlices=None):
         return _rdd.ParallelCollection(self, seq, numSlices)
+
+    def union(self, rdds):
+        return _rdd.UnionRDD(self, list(rdds))
 
     def runJob(self, rdd, func, partitions=None):
         self.start()

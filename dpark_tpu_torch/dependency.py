@@ -1,6 +1,7 @@
 """Dependencies, the hash and range partitioners and the combineByKey
-aggregator (the subset of dpark_tpu/dependency.py this slice runs).  The
-DAG scheduler cuts stages on ShuffleDependency edges."""
+aggregator (the subset of dpark_tpu/dependency.py the port runs).  The
+DAG scheduler cuts stages on ShuffleDependency edges; a narrow edge
+(one-to-one, or the range of a union) stays inside a stage."""
 
 import bisect
 import itertools
@@ -13,8 +14,34 @@ class Dependency:
         self.rdd = rdd
 
 
-class OneToOneDependency(Dependency):
-    pass
+class NarrowDependency(Dependency):
+    """Child partition depends on a statically known set of parent
+    partitions."""
+
+    def get_parents(self, partition_id):
+        raise NotImplementedError
+
+
+class OneToOneDependency(NarrowDependency):
+    def get_parents(self, pid):
+        return [pid]
+
+
+class RangeDependency(NarrowDependency):
+    """UnionRDD's edge: child partitions [out_start, out_start + length)
+    map one to one onto parent partitions [in_start, in_start +
+    length)."""
+
+    def __init__(self, rdd, in_start, out_start, length):
+        super().__init__(rdd)
+        self.in_start = in_start
+        self.out_start = out_start
+        self.length = length
+
+    def get_parents(self, pid):
+        if self.out_start <= pid < self.out_start + self.length:
+            return [pid - self.out_start + self.in_start]
+        return []
 
 
 _next_shuffle_id = itertools.count(1)

@@ -1,5 +1,5 @@
 """RDD graph: lazy, partitioned datasets (the subset of dpark_tpu/rdd.py
-this slice runs).
+the port runs).
 
 Every compute() is a Python generator: the object path that the local
 master runs, and the golden model of the device path.  The gpu master
@@ -9,10 +9,12 @@ tensors; compute() stays the semantic definition.
 
 import heapq
 import itertools
+import pickle
 
+from dpark_tpu_torch import cache as _cache
 from dpark_tpu_torch.dependency import (
-    Aggregator, HashPartitioner, OneToOneDependency, RangePartitioner,
-    ShuffleDependency)
+    Aggregator, HashPartitioner, OneToOneDependency, RangeDependency,
+    RangePartitioner, ShuffleDependency)
 
 
 class Split:
@@ -95,6 +97,28 @@ def _extend(l1, l2):
     return l1
 
 
+# the join family's value expansions over a cogroup's (a list, b list);
+# the gpu master recognises a.join(b) by `f is _join_values`
+def _join_values(groups):
+    a, b = groups
+    return [(x, y) for x in a for y in b]
+
+
+def _left_join_values(groups):
+    a, b = groups
+    return [(x, y) for x in a for y in (b or [None])]
+
+
+def _right_join_values(groups):
+    a, b = groups
+    return [(x, y) for x in (a or [None]) for y in b]
+
+
+def _outer_join_values(groups):
+    a, b = groups
+    return [(x, y) for x in (a or [None]) for y in (b or [None])]
+
+
 class _Empty:
     def __repr__(self):
         return "_EMPTY"
@@ -110,6 +134,7 @@ class RDD:
         self._splits = None
         self.dependencies = []
         self.partitioner = None
+        self.should_cache = False
 
     @property
     def splits(self):
@@ -124,6 +149,8 @@ class RDD:
         raise NotImplementedError
 
     def iterator(self, split):
+        if self.should_cache:
+            return _cache.get_or_compute(self, split)
         return self.compute(split)
 
     def __len__(self):
@@ -135,6 +162,9 @@ class RDD:
     # -- narrow transformations -------------------------------------------
     def map(self, f):
         return MappedRDD(self, f)
+
+    def flatMap(self, f):
+        return FlatMappedRDD(self, f)
 
     def filter(self, f):
         return FilteredRDD(self, f)
@@ -213,8 +243,29 @@ class RDD:
                 n).mapValue(_mean_final)
         return None
 
+    def flatMapValue(self, f):
+        return FlatMappedValuesRDD(self, f)
+
+    flatMapValues = flatMapValue
+
     def keyBy(self, f):
         return KeyedRDD(self, f)
+
+    def union(self, *others):
+        """Concatenate partitions.  Unions flatten on both sides (a + b +
+        c is one UnionRDD), except through a cached union, whose own
+        partitions must be read."""
+        def flat(r):
+            if isinstance(r, UnionRDD) and not r.should_cache:
+                return list(r.rdds)
+            return [r]
+        rdds = flat(self)
+        for o in others:
+            rdds.extend(flat(o))
+        return UnionRDD(self.ctx, rdds)
+
+    def __add__(self, other):
+        return self.union(other)
 
     # -- wide transformations ---------------------------------------------
     def combineByKey(self, createCombiner, mergeValue, mergeCombiners,
@@ -267,6 +318,50 @@ class RDD:
         part = RangePartitioner(bounds, ascending=ascending)
         return self.partitionBy(part).mapPartitions(_SortPartFn(ascending))
 
+    def cogroup(self, *others, **kw):
+        """key -> (values of self, values of each other RDD).  The
+        partitioner is the first input's with at least numSplits
+        partitions (that input is read narrowly), else a hash
+        partitioner of numSplits."""
+        numSplits = kw.get("numSplits") or self.ctx.default_parallelism
+        rdds = [self] + list(others)
+        for p in [r.partitioner for r in rdds]:
+            if p is not None and p.num_partitions >= numSplits:
+                partitioner = p
+                break
+        else:
+            partitioner = HashPartitioner(numSplits)
+        return CoGroupedRDD(rdds, partitioner)
+
+    groupWith = cogroup
+
+    def join(self, other, numSplits=None):
+        return self.cogroup(other, numSplits=numSplits).flatMapValue(
+            _join_values)
+
+    def leftOuterJoin(self, other, numSplits=None):
+        return self.cogroup(other, numSplits=numSplits).flatMapValue(
+            _left_join_values)
+
+    def rightOuterJoin(self, other, numSplits=None):
+        return self.cogroup(other, numSplits=numSplits).flatMapValue(
+            _right_join_values)
+
+    def outerJoin(self, other, numSplits=None):
+        return self.cogroup(other, numSplits=numSplits).flatMapValue(
+            _outer_join_values)
+
+    # -- caching -----------------------------------------------------------
+    def cache(self):
+        self.should_cache = True
+        return self
+
+    def unpersist(self):
+        self.should_cache = False
+        if self._splits is not None:
+            self.ctx.cache.drop(self.id, len(self._splits))
+        return self
+
     def sort(self, key=None, reverse=False, numSplits=None):
         """Sort records by key(record) (the record itself when None)."""
         keyed = self.keyBy(key) if key else self.map(_pair_self)
@@ -288,6 +383,12 @@ class RDD:
             raise ValueError("reduce of empty RDD")
         out = parts[0]
         for p in parts[1:]:
+            out = f(out, p)
+        return out
+
+    def fold(self, zero, f):
+        out = zero
+        for p in self.ctx.runJob(self, _PartFold(zero, f)):
             out = f(out, p)
         return out
 
@@ -339,6 +440,19 @@ class _PartReduce:
         out = _EMPTY
         for x in it:
             out = x if out is _EMPTY else self.f(out, x)
+        return out
+
+
+class _PartFold:
+    def __init__(self, zero, f):
+        self.zero = zero
+        self.f = f
+
+    def __call__(self, it):
+        # each partition folds into its own copy of zero: f may mutate
+        out = pickle.loads(pickle.dumps(self.zero, -1))
+        for x in it:
+            out = self.f(out, x)
         return out
 
 
@@ -400,6 +514,16 @@ class MappedRDD(DerivedRDD):
 
     def compute(self, split):
         return map(self.f, self.prev.iterator(split))
+
+
+class FlatMappedRDD(DerivedRDD):
+    def __init__(self, prev, f):
+        super().__init__(prev)
+        self.f = f
+
+    def compute(self, split):
+        for x in self.prev.iterator(split):
+            yield from self.f(x)
 
 
 class FilteredRDD(DerivedRDD):
@@ -484,6 +608,90 @@ class ShuffledRDD(RDD):
             else:
                 combined[k] = c
         return iter(combined.items())
+
+
+class CoGroupSplit(Split):
+    def __init__(self, index, narrow_splits):
+        super().__init__(index)
+        # (source index, parent split) of each co-partitioned source;
+        # shuffled sources are read by dependency order
+        self.narrow_splits = narrow_splits
+
+
+class CoGroupedRDD(RDD):
+    """key -> tuple of value lists, one per parent (backs cogroup,
+    groupWith and the join family).  A parent already partitioned like
+    the result is read narrowly; every other parent is shuffled with
+    the list aggregator (a no-combine shuffle)."""
+
+    def __init__(self, rdds, partitioner):
+        super().__init__(rdds[0].ctx)
+        self.rdds = rdds
+        self.partitioner = partitioner
+        self._dep_kinds = []        # ("narrow", rdd) | ("shuffle", dep)
+        agg = Aggregator(_mk_list, _append, _extend)
+        for r in rdds:
+            if r.partitioner == partitioner:
+                self.dependencies.append(OneToOneDependency(r))
+                self._dep_kinds.append(("narrow", r))
+            else:
+                dep = ShuffleDependency(r, agg, partitioner)
+                self.dependencies.append(dep)
+                self._dep_kinds.append(("shuffle", dep))
+
+    def _make_splits(self):
+        out = []
+        for i in range(self.partitioner.num_partitions):
+            narrow = [(si, obj.splits[i])
+                      for si, (kind, obj) in enumerate(self._dep_kinds)
+                      if kind == "narrow"]
+            out.append(CoGroupSplit(i, narrow))
+        return out
+
+    def compute(self, split):
+        from dpark_tpu_torch.shuffle import CoGroupMerger
+        merger = CoGroupMerger(len(self.rdds))
+        narrow = dict(split.narrow_splits)
+        for si, (kind, obj) in enumerate(self._dep_kinds):
+            if kind == "narrow":
+                merger.append(si, self.rdds[si].iterator(narrow[si]))
+            else:
+                merger.extend(si, self.ctx.bucket_store.fetch(
+                    obj.shuffle_id, split.index))
+        return iter(merger)
+
+
+# ----------------------------------------------------------------------
+# union
+# ----------------------------------------------------------------------
+class UnionSplit(Split):
+    def __init__(self, index, rdd_index, parent_split):
+        super().__init__(index)
+        self.rdd_index = rdd_index
+        self.parent_split = parent_split
+
+
+class UnionRDD(RDD):
+    """The partitions of every parent, in order."""
+
+    def __init__(self, ctx, rdds):
+        super().__init__(ctx)
+        self.rdds = rdds
+        pos = 0
+        for r in rdds:
+            self.dependencies.append(
+                RangeDependency(r, 0, pos, len(r.splits)))
+            pos += len(r.splits)
+
+    def _make_splits(self):
+        out = []
+        for ri, r in enumerate(self.rdds):
+            for sp in r.splits:
+                out.append(UnionSplit(len(out), ri, sp))
+        return out
+
+    def compute(self, split):
+        return self.rdds[split.rdd_index].iterator(split.parent_split)
 
 
 # ----------------------------------------------------------------------

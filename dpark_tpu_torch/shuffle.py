@@ -1,5 +1,5 @@
-"""In-process shuffle bucket store of the host object path (the subset
-of dpark_tpu/shuffle.py this slice needs).
+"""In-process shuffle bucket store of the host object path, and the
+cogroup merger (the subset of dpark_tpu/shuffle.py the port needs).
 
 A host map task writes its buckets here ("mem://<sid>"), pickled, so
 every fetch gets fresh combiners: a reduce merge that mutates one (list
@@ -47,3 +47,32 @@ class BucketStore:
         self._map_outputs.pop(sid, None)
         for key in [k for k in self._buckets if k[0] == sid]:
             del self._buckets[key]
+
+
+class CoGroupMerger:
+    """Merge n sources into key -> tuple of n value lists (backs
+    CoGroupedRDD)."""
+
+    def __init__(self, n_sources):
+        self.n = n_sources
+        self.combined = {}
+
+    def _slot(self, key):
+        slot = self.combined.get(key)
+        if slot is None:
+            slot = tuple([] for _ in range(self.n))
+            self.combined[key] = slot
+        return slot
+
+    def append(self, src_index, items):
+        """items of (k, v) from a narrow (co-partitioned) source."""
+        for k, v in items:
+            self._slot(k)[src_index].append(v)
+
+    def extend(self, src_index, items):
+        """items of (k, list of v) from a shuffled source."""
+        for k, vs in items:
+            self._slot(k)[src_index].extend(vs)
+
+    def __iter__(self):
+        return iter(self.combined.items())

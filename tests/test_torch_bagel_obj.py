@@ -878,20 +878,29 @@ def test_initial_messages():
 
 
 def test_rdd_loop_cases_raise_not_implemented():
-    """Where the reference runs its RDD-algebra loop -- a graph over
-    FAST_MAX_VERTICES, a compute that rebinds vertex ids -- the port
-    raises NotImplementedError naming ROADMAP A11."""
+    """Where the reference runs its RDD-algebra loop -- a compute that
+    rebinds vertex ids, a graph over FAST_MAX_VERTICES -- the port runs
+    that loop too (it raised NotImplementedError before the loop was
+    ported; the name is kept), with the reference's results on every
+    master."""
     def rebind(B):
         def compute(vert, mail, agg, superstep):
             return (B.Vertex(vert.id + 100, vert.value + 1, [], False), [])
         return compute, _basic(B, lambda: [(i, B.Vertex(i, float(i), []))
                                            for i in range(3)], parts=2)
+    want_rebind, _ = run_ref(rebind)
+    assert want_rebind == {i: (i + 1.0, False) for i in range(3)}
+    with mock.patch.object(REF, "FAST_MAX_VERTICES", 2):
+        want_hub, _ = run_ref(prog_constant_hub)
+    assert want_hub[0][0] == 80
     for m in MASTERS:
-        with pytest.raises(NotImplementedError, match="A11"):
-            run_port(m, rebind)
+        got, used, _, _ = run_port(m, rebind)
+        same_final(got, want_rebind)
+        assert used is (False if m != "local" else None)
         with mock.patch.object(PORT, "FAST_MAX_VERTICES", 2):
-            with pytest.raises(NotImplementedError, match="A11"):
-                run_port(m, prog_constant_hub)
+            got, used, _, _ = run_port(m, prog_constant_hub)
+        same_final(got, want_hub)
+        assert used is (False if m != "local" else None)
 
 
 def test_local_master_schedules_no_superstep_jobs():
