@@ -3,14 +3,16 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the twelve CUDA kernel
-   libraries from csrc/ (one nvcc each, all started together) and prints
-   the build time;
-2. holds each kernel (K1-K12) against its plain PyTorch version on the
+1. prints the card's name and power limit, builds the thirteen CUDA
+   kernel libraries from csrc/ (one nvcc each, all started together) and
+   prints the build time;
+2. holds each kernel (K1-K13) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows; K12 at
    the join path's), and times kernel, plain version, bound and library
    call; times the plain segmented scan (B8) and the per-shard monoid
-   reduction (B9) at the main shape;
+   reduction (B9) at the main shape, and holds the spilled-run combine
+   (B12: K13 + K5 + K2 + K3) and the reduce-side merge (B6: K5 + K3)
+   against the same compositions of the plain versions;
 3. drives the reduceByKey path through the public API: bench.py's data
    (64Mi int64 pairs over 65,536 keys) -> reduceByKey -> count / collect
    / top / reduce, a map+filter chain before the shuffle, on gpu:8 and
@@ -50,17 +52,32 @@ NVIDIA GPU.
    2^20-row part of the tables (the host merge of rows exchanged and
    sorted on the device), after holding K12 against its plain version at
    the path's shapes and on one hot key (4,096 x 4,096 pairs);
-9. every stage of every checked job must take the tensor path, and every
+9. drives the out-of-core wave stream on gpu:8: reduceByKey(add, 8) over
+   2^30 of bench.py's pairs (16 GiB of columns; halved, and the cut
+   printed, when the host's available memory is under three times that)
+   at the auto wave threshold -> count / collect, exactly numpy's (a
+   pre_reduced store); reduceByKey(add, 64) and a tuple merge at 64
+   partitions over the 64Mi pairs in waves of 2^21 rows a shard (K1's
+   rid, B12, K4, K5 + K3, spilled runs, the host fold); sortByKey(
+   numSplits=32) -> collect and groupByKey(8) -> count over 2^23 random
+   int64 keys in waves of 2^18 rows (K6's rid, K13, K2, K4, K5, runs,
+   premerge, export); then the out-of-memory ladder on the emulated
+   ceiling at a small size;
+10. every stage of every checked job must take the tensor path (a reduce
+   stage over spilled runs reads them on the host by design, and no
+   streamed path's stage may record a fallback or degrade reason), and every
    kernel of a path must launch during that path's run (counts reset
    just before it, read just after), as often as PATH_MIN_LAUNCHES (or
    the path itself: one K9 launch a superstep, one K10 launch a
    superstep with mail, or a class with mail) asks where a path must
    launch a kernel more than once;
-10. profiles the first action of each gpu:8 path and one PageRank
+11. profiles the first action of each gpu:8 path and one PageRank
    superstep of each Pregel, times the top path's K5 + K2 composition,
    prints one JSON line describing every kernel, then the result line.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
+`python3 chip_smoke.py --stream-only` builds the kernels and runs only
+the wave stream's phases and paths (9), printing no result line.
 """
 
 import contextlib
@@ -115,6 +132,8 @@ SOURCES = {
                     "dpark_tpu/backend/tpu/executor.py:3137"),
     "join_expand": ("dpark_tpu_torch/backend/cuda/csrc/join_expand.cu",
                     "dpark_tpu/backend/tpu/executor.py:3176"),
+    "rid_fold": ("dpark_tpu_torch/backend/cuda/csrc/rid_fold.cu",
+                 "dpark_tpu/backend/tpu/collectives.py:436"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
@@ -162,6 +181,20 @@ PATH_KERNELS = {
     "join gpu:8": ["hash_dst_hist", "stable_partition", "shard_exchange",
                    "radix_sort", "join_ranges", "join_expand",
                    "reduce_by_key_compact"],
+    # each wave: K1, K5, K2, K3 combine, K4, then K5 + K3 into the state
+    "reduceByKey waves gpu:8": ["hash_dst_hist", "stable_partition",
+                                "reduce_by_key_compact", "shard_exchange",
+                                "radix_sort"],
+    # each wave: K1's rid over r, B12 (K13, K5, K2, K3), K4, K5 + K3
+    "reduceByKey spilled gpu:8": ["hash_dst_hist", "rid_fold",
+                                  "stable_partition", "radix_sort",
+                                  "reduce_by_key_compact",
+                                  "shard_exchange"],
+    # sortByKey: K6's rid over r, K13, K2, K4, K5 by (rid, key);
+    # groupByKey(8): K1, K2, K4, K5
+    "sort spilled gpu:8": ["range_dst_hist", "hash_dst_hist", "rid_fold",
+                           "stable_partition", "shard_exchange",
+                           "radix_sort"],
 }
 SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
               "mean": lambda vs: sum(vs) / len(vs)}
@@ -185,7 +218,8 @@ LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "bucket_scatter": "groupByKey gpu:8 segmap",
              "edge_gather": "pregel gpu:8", "pregel_deliver": "pregel gpu:8",
              "obj_emit_pack": "bagel gpu:8",
-             "join_ranges": "join gpu:8", "join_expand": "join gpu:8"}
+             "join_ranges": "join gpu:8", "join_expand": "join gpu:8",
+             "rid_fold": "reduceByKey spilled gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 # Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
@@ -205,6 +239,14 @@ URAND_EDGE_FACTOR = 16             # 16,777,216 edges
 TPCH_SF = 10
 COGROUP_ROWS = 1 << 20             # lineitem rows of the cogroup count
 SKEW_ROWS = 4096                   # one key's rows on each join side
+# the wave stream: bench.py's pairs at 2^30 (16 GiB of columns, several
+# waves at the auto threshold); the spilled paths at pinned wave sizes
+WAVE_PAIRS = 1 << 30
+SPILL_PARTS = 64                   # reduceByKey's logical partitions
+SPILL_CHUNK = 1 << 21              # rows a shard a wave: 4 waves
+SORT_SPILL_PAIRS = 1 << 23
+SORT_SPILL_PARTS = 32
+SORT_SPILL_CHUNK = 1 << 18         # 4 waves
 
 
 def fail(msg):
@@ -651,7 +693,8 @@ def seg_kernel_phases(K, dev):
 
 def check_stages(ctx, what):
     for st in ctx.scheduler.history[-1]["stage_info"]:
-        if not st["kind"].startswith("array") or "fallback_reason" in st:
+        if (not st["kind"].startswith("array") or "fallback_reason" in st
+                or "degrade_reason" in st):
             fail("%s: stage left the tensor path: %s" % (what, st))
 
 
@@ -1666,6 +1709,376 @@ def join_path(data):
     ctx.stop()
 
 
+# ----------------------------------------------------------------------
+# the out-of-core wave stream (A12) and the spilled-run combine (B12)
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_kernels(K, names):
+    """The wrappers `names` replaced by their plain versions while the
+    block runs (a composition of kernels held against the same
+    composition of plain versions, on the card)."""
+    saved = {n: getattr(K, n) for n in names}
+    for n in names:
+        setattr(K, n, getattr(K, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(K, n, fn)
+
+
+def spill_kernel_phases(K, dev):
+    """K13 and B12 (K13 + K5 + K2 + K3) at the spilled path's shapes: 8 x
+    8,388,608 bench rows, the rid over r = SPILL_PARTS by K1's hash."""
+    from dpark_tpu_torch.backend.cuda import collectives
+    keys, vals = (torch.from_numpy(c.reshape(N_SHARDS, CAP)).to(dev)
+                  for c in bench_data())
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    rid = K.hash_dst_hist([keys], n, SPILL_PARTS, SPILL_PARTS,
+                          want_hist=False)[0]
+    a = K.rid_fold(rid, n, N_SHARDS)
+    b = K.rid_fold_plain(rid, n, N_SHARDS)
+    err = max_err([("K13 dev", a[0], b[0]), ("K13 rid64", a[1], b[1]),
+                   ("K13 hist", a[2], b[2])])
+    valid = torch.arange(CAP, device=dev)[None, :] < n[:, None]
+    off = torch.arange(N_SHARDS, device=dev)[:, None] * (N_SHARDS + 1)
+
+    def library():
+        d = torch.where(valid, torch.remainder(rid, N_SHARDS), N_SHARDS)
+        r64 = torch.where(valid, rid.long(), INT64_MAX)
+        h = torch.bincount((d + off).view(-1),
+                           minlength=N_SHARDS * (N_SHARDS + 1))
+        return d, r64, h
+    out = {"rid_fold": {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.rid_fold(rid, n, N_SHARDS)),
+        "plain_ms": timed(lambda: K.rid_fold_plain(rid, n, N_SHARDS),
+                          reps=3),
+        # rid read once; dev, rid64 and the histogram written once
+        "bound_ms": bound_ms(nbytes(rid, n) + nbytes(*a)),
+        "library_ms": timed(library, reps=3),
+        "notes": {"r": SPILL_PARTS}}}
+    print_phase("rid_fold", out["rid_fold"])
+    del a, b
+
+    def b12():
+        return collectives.bucketize_combine_rid(rid, [keys], [vals], n,
+                                                 N_SHARDS, None,
+                                                 monoid="add")
+    got = b12()
+    with plain_kernels(K, ["rid_fold", "radix_sort", "stable_partition",
+                           "reduce_by_key_compact"]):
+        want = b12()
+    err = max_err([("B12 %d" % i, g, w) for i, (g, w) in
+                   enumerate(zip(got[0], want[0]))]
+                  + [("B12 counts", got[1], want[1]),
+                     ("B12 offsets", got[2], want[2])])
+    kept = int(got[1].sum().item())
+    rec = {
+        # a composition of kernels: held against the same composition of
+        # the plain versions, no single library call
+        "max_abs_err": err, "ms": timed(b12), "plain_ms": None,
+        # rid, key and value read once; the kept (rid, key, value) rows
+        # and the counts and offsets written once
+        "bound_ms": bound_ms(nbytes(rid, keys, vals, n) + kept * 24
+                             + nbytes(got[1], got[2])),
+        "library_ms": None,
+        "notes": {"kept_rows": kept}}
+    print_phase("B12 composed of K13 + K5 + K3", rec)
+    del keys, vals, rid, got, want, valid
+    torch.cuda.empty_cache()
+    return out
+
+
+def merge_phase(K, dev):
+    """B6, the reduce-side merge (collectives.segment_reduce_keys: K5
+    passes by key, then K3) over 8 x 8,388,608 bench rows as an exchange
+    leaves them, against the same composition of the plain versions;
+    the stream's state merge (_merge_into_state) runs it once a wave."""
+    from dpark_tpu_torch.backend.cuda import collectives
+    keys, vals = (torch.from_numpy(c.reshape(N_SHARDS, CAP)).to(dev)
+                  for c in bench_data())
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+
+    def b6():
+        return collectives.segment_reduce_keys([keys], [vals], n, None,
+                                               monoid="add")
+    got = b6()
+    with plain_kernels(K, ["radix_sort", "reduce_by_key_compact"]):
+        want = b6()
+    err = max_err([("B6 keys", got[0][0], want[0][0]),
+                   ("B6 vals", got[1][0], want[1][0]),
+                   ("B6 n", got[2], want[2])])
+    kept = int(got[2].sum().item())
+    rec = {
+        # a composition of kernels: held against the same composition of
+        # the plain versions, no single library call
+        "max_abs_err": err, "ms": timed(b6), "plain_ms": None,
+        # keys and values read once, the kept rows and counts written
+        "bound_ms": bound_ms(nbytes(keys, vals, n) + kept * 16
+                             + nbytes(got[2])),
+        "library_ms": None, "notes": {"kept_rows": kept}}
+    print_phase("B6 composed of K5 + K3", rec)
+    del keys, vals, got, want
+    torch.cuda.empty_cache()
+
+
+def check_streamed(ctx, what, stream):
+    """Every stage of the last job ran without a fallback or degrade
+    reason; a stage streamed into a `stream` store; a host stage only
+    reads spilled runs.  Returns the streamed stage's record."""
+    sts = ctx.scheduler.history[-1]["stage_info"]
+    for st in sts:
+        if "fallback_reason" in st or "degrade_reason" in st:
+            fail("%s: a stage fell back: %s" % (what, st))
+        if not st["kind"].startswith("array") and \
+                st.get("reads") != "host_runs":
+            fail("%s: a host stage that reads no spilled runs: %s"
+                 % (what, st))
+    streamed = [st for st in sts if st.get("stream") == stream]
+    if not streamed:
+        fail("%s: no stage streamed into a %s store: %s"
+             % (what, stream, sts))
+    return streamed[0]
+
+
+def print_stream(label, st):
+    p = st["pipeline"]
+    print("stream %s: waves=%d wave_budget=%d ingest_ms=%.1f "
+          "compute_ms=%.1f exchange_ms=%.1f spill_ms=%.1f wall_ms=%.1f "
+          "device_idle_frac=%.4f spilled_rows=%d spill_bytes=%d "
+          "per_wave=%s" % (
+              label, p["waves"], st["wave_budget"], p["ingest_ms"],
+              p["compute_ms"], p["exchange_ms"], p["spill_ms"],
+              p["wall_ms"], p["device_idle_frac"], p["spilled_rows"],
+              p["spill_bytes"], json.dumps(p["per_wave"])), flush=True)
+
+
+def host_peak_rss_gib():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def wave_pairs():
+    """bench.py's pairs at WAVE_PAIRS rows (16 GiB of columns at 2^30),
+    halved while the host's available memory is under three times the
+    columns; generated a shard slice at a time into the two columns."""
+    pairs = WAVE_PAIRS
+    with open("/proc/meminfo") as f:
+        avail = [int(line.split()[1]) * 1024 for line in f
+                 if line.startswith("MemAvailable:")][0]
+    while pairs * 16 * 3 > avail:
+        pairs //= 2
+        print("cut: wave pairs halved to %d (host memory available %d "
+              "bytes)" % (pairs, avail), flush=True)
+    keys = np.empty(pairs, np.int64)
+    vals = np.empty(pairs, np.int64)
+    step = pairs // N_SHARDS
+    for s in range(N_SHARDS):
+        i = np.arange(s * step, (s + 1) * step, dtype=np.int64)
+        np.multiply(i, 2654435761, out=keys[s * step:(s + 1) * step])
+        keys[s * step:(s + 1) * step] %= KEYS
+        np.bitwise_and(i, 0xFFFF, out=vals[s * step:(s + 1) * step])
+    return keys, vals
+
+
+def bench_sums(keys, vals):
+    """Each key's exact int64 sum, a slice at a time."""
+    sums = np.zeros(KEYS, np.int64)
+    step = 1 << 24
+    for lo in range(0, len(keys), step):
+        sums += np.bincount(keys[lo:lo + step], weights=vals[lo:lo + step],
+                            minlength=KEYS).astype(np.int64)
+    return sums
+
+
+def wave_path(keys, vals):
+    """reduceByKey(add, 8) on gpu:8 over `keys, vals` at the auto wave
+    threshold (a few waves a shard): count and collect, the collect
+    exactly numpy's; the streamed combine leaves a pre_reduced store."""
+    from dpark_tpu_torch import Columns, DparkContext, conf
+    free, total = torch.cuda.mem_get_info()
+    chunk = conf.stream_chunk_rows(16, "cuda", N_SHARDS)
+    rows = len(keys) // N_SHARDS
+    print("waves: %d pairs (%d bytes of columns), %d rows a shard; card "
+          "memory %d bytes (%d free): auto wave threshold %d rows a shard"
+          % (len(keys), 16 * len(keys), rows, total, free, chunk),
+          flush=True)
+    if rows <= chunk:
+        fail("the wave path's input fits one wave (%d <= %d rows a shard)"
+             % (rows, chunk))
+    sums = bench_sums(keys, vals)
+    ctx = DparkContext("gpu:8")
+    r = ctx.parallelize(Columns(keys, vals), N_SHARDS).reduceByKey(
+        operator.add, N_SHARDS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = act("gpu:8 reduceByKey waves count", r.count)
+    first_s = time.perf_counter() - t0
+    st = check_streamed(ctx, "reduceByKey waves", "pre_reduced")
+    if got != KEYS:
+        fail("waves count %d, want %d" % (got, KEYS))
+    if st["pipeline"]["waves"] < 2:
+        fail("the wave path ran %d waves" % st["pipeline"]["waves"])
+    print_stream("gpu:8 reduceByKey waves", st)
+    got = act("gpu:8 reduceByKey waves collect", r.collect)
+    check_stages(ctx, "reduceByKey waves collect")
+    gk = np.fromiter((k for k, _ in got), np.int64, len(got))
+    gv = np.fromiter((v for _, v in got), np.int64, len(got))
+    if len(got) != KEYS or not np.array_equal(sums[gk], gv) \
+            or len(np.unique(gk)) != KEYS:
+        fail("waves collect differs from numpy")
+    print("waves: shuffle_GBps=%.3f peak_device_bytes=%d "
+          "host_peak_rss_gib=%.2f" % (
+              16 * len(keys) / first_s / 1e9,
+              torch.cuda.max_memory_allocated(), host_peak_rss_gib()),
+          flush=True)
+    ctx.stop()
+
+
+def spilled_reduce_path(keys, vals):
+    """reduceByKey(add, SPILL_PARTS) and the tuple merge at SPILL_PARTS
+    partitions on gpu:8, the waves pinned to SPILL_CHUNK rows a shard:
+    K1's rid over r, B12 (K13, K5, K2, K3), K4, K5 + K3 pre-reduce,
+    spilled runs, the host fold; both exactly numpy's."""
+    from dpark_tpu_torch import Columns, DparkContext, conf
+    sums = np.bincount(keys, weights=vals, minlength=KEYS).astype(np.int64)
+    lens = np.bincount(keys, minlength=KEYS)
+    old = conf.STREAM_CHUNK_ROWS
+    conf.STREAM_CHUNK_ROWS = SPILL_CHUNK
+    try:
+        ctx = DparkContext("gpu:8")
+        src = ctx.parallelize(Columns(keys, vals), N_SHARDS)
+        torch.cuda.reset_peak_memory_stats()
+        got = act("gpu:8 reduceByKey(add, %d) spilled collect"
+                  % SPILL_PARTS,
+                  src.reduceByKey(operator.add, SPILL_PARTS).collect)
+        st = check_streamed(ctx, "reduceByKey spilled", "host_runs")
+        print_stream("gpu:8 reduceByKey spilled", st)
+        gk = np.fromiter((k for k, _ in got), np.int64, len(got))
+        gv = np.fromiter((v for _, v in got), np.int64, len(got))
+        if len(got) != KEYS or not np.array_equal(sums[gk], gv) \
+                or len(np.unique(gk)) != KEYS:
+            fail("spilled reduceByKey differs from numpy")
+        got = act("gpu:8 tuple reduceByKey(%d) spilled collect"
+                  % SPILL_PARTS,
+                  src.map(lambda kv: (kv[0], (kv[1], 1)))
+                  .reduceByKey(_pair_sum, SPILL_PARTS).collect)
+        st = check_streamed(ctx, "tuple reduceByKey spilled", "host_runs")
+        print_stream("gpu:8 tuple reduceByKey spilled", st)
+        if len(got) != KEYS or any(
+                (s_, n_) != (int(sums[k_]), int(lens[k_]))
+                for k_, (s_, n_) in got):
+            fail("spilled tuple reduceByKey differs from numpy")
+        print("spilled reduce: peak_device_bytes=%d"
+              % torch.cuda.max_memory_allocated(), flush=True)
+        ctx.stop()
+    finally:
+        conf.STREAM_CHUNK_ROWS = old
+
+
+def sort_spill_data():
+    """SORT_SPILL_PAIRS (random int64 key, row index) pairs by
+    sort_data's rule."""
+    rng = np.random.default_rng(20261025)
+    return (rng.integers(INT64_MIN, INT64_MAX, SORT_SPILL_PAIRS,
+                         dtype=np.int64),
+            np.arange(SORT_SPILL_PAIRS, dtype=np.int64))
+
+
+def spilled_sort_path(keys, vals):
+    """sortByKey(numSplits=SORT_SPILL_PARTS).collect on gpu:8 with the
+    waves pinned to SORT_SPILL_CHUNK rows a shard (K6's rid over r, K13,
+    K2, K4, K5 by (rid, key), runs, premerge, export): numpy's sorted
+    keys, the same rows; then groupByKey(8).count (r = N: spilled runs
+    a shard)."""
+    from dpark_tpu_torch import Columns, DparkContext, conf
+    old = conf.STREAM_CHUNK_ROWS
+    conf.STREAM_CHUNK_ROWS = SORT_SPILL_CHUNK
+    try:
+        ctx = DparkContext("gpu:8")
+        src = ctx.parallelize(Columns(keys, vals), N_SHARDS)
+        torch.cuda.reset_peak_memory_stats()
+        got = act("gpu:8 sortByKey(numSplits=%d) spilled collect"
+                  % SORT_SPILL_PARTS,
+                  src.sortByKey(numSplits=SORT_SPILL_PARTS).collect)
+        st = check_streamed(ctx, "sortByKey spilled", "host_runs")
+        print_stream("gpu:8 sortByKey spilled", st)
+        gk = np.fromiter((kv[0] for kv in got), np.int64, len(got))
+        gv = np.fromiter((kv[1] for kv in got), np.int64, len(got))
+        if not np.array_equal(gk, np.sort(keys)) or \
+                not np.array_equal(np.sort(gv), vals) or \
+                not np.array_equal(keys[gv], gk):
+            fail("spilled sortByKey differs from numpy")
+        del got, gk, gv
+        got = act("gpu:8 groupByKey(8) spilled count",
+                  src.groupByKey(N_SHARDS).count)
+        st = check_streamed(ctx, "groupByKey spilled", "host_runs")
+        print_stream("gpu:8 groupByKey spilled", st)
+        if got != len(np.unique(keys)):
+            fail("spilled groupByKey count %d, numpy %d"
+                 % (got, len(np.unique(keys))))
+        print("spilled sort: peak_device_bytes=%d"
+              % torch.cuda.max_memory_allocated(), flush=True)
+        ctx.stop()
+    finally:
+        conf.STREAM_CHUNK_ROWS = old
+
+
+def oom_ladder_check():
+    """The out-of-memory ladder on the emulated ceiling, at a small size:
+    a wave budget of 2^16 rows a shard over a ceiling of 2^15 + 2^14
+    retries with 2^15, streams, records the halved budget and gives
+    numpy's answer."""
+    from dpark_tpu_torch import Columns, DparkContext, conf
+    i = np.arange(1 << 20, dtype=np.int64)
+    keys, vals = (i * 2654435761) % KEYS, i & 0xFFFF
+    sums = np.bincount(keys, weights=vals, minlength=KEYS).astype(np.int64)
+    old = conf.STREAM_CHUNK_ROWS, conf.EMULATED_WAVE_OOM_ROWS
+    conf.STREAM_CHUNK_ROWS, conf.EMULATED_WAVE_OOM_ROWS = 1 << 16, 3 << 14
+    try:
+        ctx = DparkContext("gpu:8")
+        got = dict(ctx.parallelize(Columns(keys, vals), N_SHARDS)
+                   .reduceByKey(operator.add, N_SHARDS).collect())
+        st = ctx.scheduler.history[-1]["stage_info"][0]
+        ctx.stop()
+    finally:
+        conf.STREAM_CHUNK_ROWS, conf.EMULATED_WAVE_OOM_ROWS = old
+    if got != {int(k): int(sums[k]) for k in range(KEYS)}:
+        fail("the OOM ladder's answer differs from numpy")
+    if not ("retried with halved wave budget (32768 rows/device)"
+            in st.get("degrade_reason", "") and st["kind"] == "array"
+            and st.get("wave_budget") == 1 << 15
+            and st.get("stream") == "pre_reduced"):
+        fail("the OOM ladder's record: %s" % st)
+    print("oom ladder: %s" % st["degrade_reason"], flush=True)
+
+
+def stream_paths(drive):
+    """The wave stream's three paths, each driven with its own launch
+    counts, then the OOM ladder's check."""
+    keys, vals = wave_pairs()
+    drive("reduceByKey waves gpu:8", wave_path, keys, vals)
+    del keys, vals
+    keys, vals = bench_data()
+    drive("reduceByKey spilled gpu:8", spilled_reduce_path, keys, vals)
+    del keys, vals
+    skeys, svals = sort_spill_data()
+    drive("sort spilled gpu:8", spilled_sort_path, skeys, svals)
+    del skeys, svals
+    oom_ladder_check()
+    from dpark_tpu_torch import Columns, conf
+    keys, vals = bench_data()
+    old = conf.STREAM_CHUNK_ROWS
+    conf.STREAM_CHUNK_ROWS = SPILL_CHUNK
+    try:
+        profile_first_action(
+            "gpu:8 reduceByKey(add, %d) spilled count" % SPILL_PARTS,
+            lambda ctx: ctx.parallelize(Columns(keys, vals), N_SHARDS)
+            .reduceByKey(operator.add, SPILL_PARTS).count)
+    finally:
+        conf.STREAM_CHUNK_ROWS = old
+
+
 def profile_window(label, window, top=14):
     """Where the time of one window of device work goes, under
     torch.profiler: the wall time, the summed device time and the ops
@@ -1711,6 +2124,26 @@ def profile_first_action(label, build, top=14):
     ctx.stop()
 
 
+def check_launches(path, fn, *args):
+    """One path's run with the launch counts set to 0 just before it and
+    read just after; every kernel of the path must launch.  Returns the
+    counts."""
+    from dpark_tpu_torch.backend.cuda import kernels as K
+    K.reset_launches()
+    need = fn(*args)
+    got = dict(K.LAUNCHES)
+    print("launches %s: %s" % (path, json.dumps(got)), flush=True)
+    missing = [k for k in PATH_KERNELS[path] if not got[k]]
+    if missing:
+        fail("kernels not launched on the %s path: %s" % (path, missing))
+    mins = dict(PATH_MIN_LAUNCHES.get(path, {}), **(need or {}))
+    for k, least in mins.items():
+        if got[k] < least:
+            fail("%s launched %d times on the %s path, want >= %d"
+                 % (k, got[k], path, least))
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -1727,6 +2160,12 @@ def main():
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     print("build: %.2f s" % K.build(), flush=True)
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--stream-only"]:
+        # the wave stream's phases and paths alone (no result line)
+        spill_kernel_phases(K, dev)
+        merge_phase(K, dev)
+        stream_paths(lambda path, fn, *a: check_launches(path, fn, *a))
+        return
     phases = kernel_phases(K, dev)
     phases.update(sort_kernel_phases(K, dev))
     phases.update(seg_kernel_phases(K, dev))
@@ -1735,21 +2174,7 @@ def main():
     launches = {}
 
     def drive(path, fn, *args):
-        """One path's run with the launch counts set to 0 just before it
-        and read just after; every kernel of the path must launch."""
-        K.reset_launches()
-        need = fn(*args)
-        launches[path] = dict(K.LAUNCHES)
-        print("launches %s: %s" % (path, json.dumps(launches[path])),
-              flush=True)
-        missing = [k for k in PATH_KERNELS[path] if not launches[path][k]]
-        if missing:
-            fail("kernels not launched on the %s path: %s" % (path, missing))
-        mins = dict(PATH_MIN_LAUNCHES.get(path, {}), **(need or {}))
-        for k, least in mins.items():
-            if launches[path][k] < least:
-                fail("%s launched %d times on the %s path, want >= %d"
-                     % (k, launches[path][k], path, least))
+        launches[path] = check_launches(path, fn, *args)
 
     keys, vals = bench_data()
     calls = {}
@@ -1814,6 +2239,10 @@ def main():
     phases.update(bagel_kernel_phase(K, dev, graph))
     drive("bagel gpu:8", bagel_path, graph)
     del graph
+
+    phases.update(spill_kernel_phases(K, dev))
+    merge_phase(K, dev)
+    stream_paths(drive)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

@@ -3,16 +3,28 @@ tensor program over N logical shards on one CUDA device (port of
 dpark_tpu/backend/tpu/__init__.py; TPUScheduler becomes GPUScheduler).
 
 A stage the tensor path cannot admit runs the host object path inline,
-and its record carries the reason (`fallback_reason`).  Before it runs,
-a join or cogroup whose inputs are device-resident no-combine shuffles
-is computed on the device and seeds the partition cache
-(`device_precompute` in the record), so only the group merge runs in
-Python.  A CUDA error, an out-of-memory or a kernel that fails to build
-or launch propagates, in that precompute too (the reference logs and
-skips a failed precompute): there is no runtime degradation ladder.
+and its record carries the reason (`fallback_reason`); a reduce stage
+over spilled runs reads them on the host by design (`reads`, no
+reason).  Before it runs, a join or cogroup whose inputs are
+device-resident no-combine shuffles is computed on the device and seeds
+the partition cache (`device_precompute` in the record), so only the
+group merge runs in Python.
+
+The out-of-memory ladder (port of TPUScheduler._run_degradable): a CUDA
+out-of-memory error, or the emulated ceiling of
+conf.EMULATED_WAVE_OOM_ROWS, retries the stage once on the device with
+half the wave budget the failed attempt used; the retry is written to
+the stage's `degrade_reason`.  A second out-of-memory error propagates
+(the reference then runs the stage on the host: ROADMAP C16), as does
+every other CUDA error and a kernel that fails to build or launch, in
+the join and cogroup precompute too (the reference logs and skips a
+failed precompute).
 """
 
+import gc
 import time
+
+import torch
 
 from dpark_tpu_torch.backend.cuda import layout
 from dpark_tpu_torch.dependency import ShuffleDependency
@@ -20,6 +32,17 @@ from dpark_tpu_torch.rdd import (CoGroupedRDD, _count_iter, _EMPTY,
                                  _PartReduce, _TopN)
 from dpark_tpu_torch.schedule import DAGScheduler, run_task_inline
 from dpark_tpu_torch.task import ResultTask
+
+
+def _device_oom(e):
+    """Is `e` (or its cause) the out-of-memory class the ladder owns: a
+    CUDA allocation failure, or the emulated ceiling's MemoryError?"""
+    for exc in (e, getattr(e, "__cause__", None)):
+        if isinstance(exc, torch.cuda.OutOfMemoryError):
+            return True
+        if isinstance(exc, MemoryError) and "RESOURCE_EXHAUSTED" in str(exc):
+            return True
+    return False
 
 
 def _cached(rdd):
@@ -61,12 +84,15 @@ class GPUScheduler(DAGScheduler):
                                               self.executor)
         if plan is not None:
             try:
-                self._run_array_stage(stage, tasks, plan, report)
+                self._run_degradable(stage, tasks, plan, report)
                 return
             except layout.HostPath as e:
                 # raised while ingesting, before any device work
                 reason = str(e)
-        self.note_stage(stage.id, fallback_reason=reason)
+        if reason == fuse.HOST_RUNS_READ:
+            self.note_stage(stage.id, reads="host_runs")
+        else:
+            self.note_stage(stage.id, fallback_reason=reason)
         seeded = self._precompute_join(stage)
         if seeded is None:
             seeded = self._precompute_cogroup(stage)
@@ -83,18 +109,70 @@ class GPUScheduler(DAGScheduler):
                     rdd.ctx.cache.drop(rdd.id, nparts)
                     rdd.should_cache = False
 
+    def _run_stage(self, stage, record):
+        # a parent whose device output was dropped recomputes through
+        # its lineage, as after a lost map output
+        for parent in stage.parents:
+            if (parent.is_available and self.executor is not None
+                    and str(parent.output_locs[0]).startswith("hbm://")
+                    and parent.shuffle_dep.shuffle_id
+                    not in self.executor.shuffle_store):
+                parent.output_locs = [None] * parent.num_partitions
+        super()._run_stage(stage, record)
+
+    def _run_degradable(self, stage, tasks, plan, report):
+        """The tensor path with the out-of-memory ladder.  An
+        out-of-memory error (raised by run_stage before any task
+        reports) retries the stage once with half the wave budget the
+        failed attempt used (executor.last_wave_budget); fuse._wave_rows
+        reads that budget too, so the retry may stream a stage that ran
+        in core.  An out-of-memory error in a stage without a wave
+        budget (no columnar input feeding a shuffle), a second one, and
+        every other error propagate."""
+        try:
+            self._run_array_stage(stage, tasks, plan, report)
+            return
+        except Exception as e:
+            budget = self.executor.last_wave_budget
+            if not _device_oom(e) or budget is None:
+                raise
+            first = "%s: %s" % (type(e).__name__, str(e)[:160])
+        halved = max(64, budget // 2)
+        self._release()
+        try:
+            self._run_array_stage(stage, tasks, plan, report,
+                                  wave_budget=halved)
+        except Exception as e2:
+            if _device_oom(e2):
+                self.note_stage(stage.id, degrade_reason=(
+                    "%s; halved-wave retry failed (%s: %s); the error "
+                    "propagates" % (first, type(e2).__name__,
+                                    str(e2)[:120])))
+            raise
+        self.note_stage(stage.id, degrade_reason=(
+            "%s; stage retried with halved wave budget (%d rows/device)"
+            % (first, halved)))
+
+    def _release(self):
+        """Free the failed attempt's tensors (the exception's frames held
+        them) and return the cached blocks to the card."""
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------
     # device precompute of a host stage's join or cogroup
     # ------------------------------------------------------------------
     def _resident_nocombine_deps(self, cg):
         """Every input of a CoGroupedRDD as a device-resident no-combine
         shuffle dependency (a shuffled cogroup input is always
-        no-combine), or None (a side read narrowly, or an output on the
-        host)."""
+        no-combine), or None (a side read narrowly, an output on the
+        host, or spilled runs, which the host merge consumes)."""
         deps = []
+        store = self.executor.shuffle_store
         for kind, obj in cg._dep_kinds:
-            if (kind != "shuffle"
-                    or obj.shuffle_id not in self.executor.shuffle_store):
+            if (kind != "shuffle" or obj.shuffle_id not in store
+                    or "host_runs" in store[obj.shuffle_id]):
                 return None
             deps.append(obj)
         return deps
@@ -164,7 +242,8 @@ class GPUScheduler(DAGScheduler):
             parts.append(list(slots.items()))
         return self._seed(stage, cg, parts, "cogroup")
 
-    def _run_array_stage(self, stage, tasks, plan, report):
+    def _run_array_stage(self, stage, tasks, plan, report,
+                         wave_budget=None):
         from dpark_tpu_torch.backend.cuda import fuse
         t0 = time.time()
         result_tasks = not stage.is_shuffle_map and bool(tasks)
@@ -185,10 +264,19 @@ class GPUScheduler(DAGScheduler):
                 and all(isinstance(t.func, _PartReduce) for t in tasks)
                 and len({id(t.func.f) for t in tasks}) == 1):
             plan.reduce_monoid = fuse.classify_merge(tasks[0].func.f)
-        kind, result = self.executor.run_stage(plan)
+        kind, result = self.executor.run_stage(plan, wave_budget)
         note = {"kind": "array"}
+        if self.executor.last_stream_stats is not None:
+            note["pipeline"] = self.executor.last_stream_stats
+            note["wave_budget"] = self.executor.last_wave_budget
         if kind == "shuffle":
-            note["hbm_bytes"] = self.executor.shuffle_store[result]["nbytes"]
+            store = self.executor.shuffle_store[result]
+            note["hbm_bytes"] = store["nbytes"]
+            if "host_runs" in store:
+                note["kind"] = "array+spill"
+                note["stream"] = "host_runs"
+            elif store.get("pre_reduced"):
+                note["stream"] = "pre_reduced"
             uri = "hbm://%d" % result
             for task in tasks:
                 report(task, "success", (uri, {}, {}))

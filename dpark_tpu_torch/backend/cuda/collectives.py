@@ -16,6 +16,7 @@ rows (``n`` an ``(N,)`` int32 tensor) instead of a validity mask:
   members of each size class     K2 stable_partition (by K7's class)
   padded groups of a size class  K8 bucket_gather (and bucket_scatter)
   join match ranges, expansion   K12 join_ranges, join_expand
+  fold logical partitions        K13 rid_fold (spilled-run stream)
 
 The traced segmented scan of an unclassified user merge
 (segmented_combine) stays PyTorch in this slice.
@@ -246,6 +247,36 @@ def bucketize_combine_keys(key_cols, val_leaves, n, n_dst, merge_leaves,
         [d] + ks, fills, vals, n, merge_leaves, monoid, dst_col=0,
         n_dst=n_dst)
     return k_out[1:], v_out, counts, offsets
+
+
+def bucketize_combine_rid(rid, key_cols, val_leaves, n, n_dst,
+                          merge_leaves, monoid=None):
+    """Map-side pre-combine of the spilled-run stream (B12; more logical
+    partitions than shards): K13 folds each row's logical partition `rid`
+    ((N, cap) int32 in [0, r)) onto its shard dev = rid % n_dst; K5 passes
+    sort by (rid, key columns) and K2's partition by dev; K3 (after the
+    traced scan for an unclassified merge) merges rows equal in (rid,
+    every key column) and packs them, with per-shard counts.  The rows
+    sort by the TRUE key columns, never by a key hash: the spilled runs'
+    premerge and the export's adjacent fold rely on lexicographic run
+    order.  Returns ([rid', key cols'...] + vals', counts (N, n_dst),
+    offsets (N, n_dst)); rid' is int64."""
+    key_cols = list(key_cols)
+    nk = len(key_cols)
+    if 2 + nk > kernels.MAX_KEYS:
+        raise ValueError("(dev, rid) and %d key columns exceed the %d key "
+                         "columns K3 merges" % (nk, kernels.MAX_KEYS))
+    dev, rid64, _ = kernels.rid_fold(rid, n, n_dst)
+    vals = list(val_leaves)
+    sorted_ops = _lex_sort([dev, rid64] + key_cols + vals, 2 + nk,
+                           nb0=n_dst + 1)
+    ks = list(sorted_ops[:2 + nk])
+    vals = list(sorted_ops[2 + nk:-1])
+    fills = [n_dst, kernels.KEY_SENTINEL] + [_sentinel(k.dtype)
+                                             for k in key_cols]
+    k_out, v_out, _, counts, offsets = _merge_runs(
+        ks, fills, vals, n, merge_leaves, monoid, dst_col=0, n_dst=n_dst)
+    return list(k_out[1:]) + list(v_out), counts, offsets
 
 
 def exchange(leaves, counts, offsets, key_index=0):

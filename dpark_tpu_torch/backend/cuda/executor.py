@@ -15,18 +15,43 @@ SegMapOp, K7's segment table first (_run_seg_map).  An a.join(b) source
 exchanges and sorts both no-combine sides, then K12 finds each A row's
 range of equal B keys and expands the pairs (device_join_batch).
 
+A columnar input above the wave threshold feeding a shuffle write
+streams in waves (_stream_mode).  With at most one logical partition a
+shard and a usable merge, each wave's combined map output merges into a
+per-shard state on the device (B6: K5 + K3), registered as a
+`pre_reduced` store whose reduce side needs no exchange.  Otherwise
+each wave is exchanged, sorted by (logical partition, key) and spilled
+as key-sorted runs to a host spool (a `host_runs` store); with more
+partitions than shards the logical partition rides the exchange (K13
+folds it onto a shard) and a usable merge pre-reduces each wave on both
+sides (B12: K13 + K5 + K3, then K5 + K3).  The host export premerges a
+partition's runs and folds equal keys with the user's merge.
+
 PyTorch runs eagerly: the reference's compiled programs (narrow,
 exchange, reduce) are plain functions here, and there is no program
-cache.  Nothing here catches a CUDA error: a failed kernel propagates.
+cache (nor its sticky capacity classes).  Nothing here catches a CUDA
+error: a failed kernel propagates (the scheduler's out-of-memory ladder
+retries a stage whose allocation failed).
 """
 
 import itertools
+import os
+import pickle
+import queue
+import shutil
+import struct
+import tempfile
+import threading
+import time
+import zlib
 
 import numpy as np
 import torch
 
-from dpark_tpu_torch.backend.cuda import collectives, fuse, layout
-from dpark_tpu_torch.rdd import _fst
+from dpark_tpu_torch import conf
+from dpark_tpu_torch.backend.cuda import collectives, fuse, kernels, layout
+from dpark_tpu_torch.rdd import _ColumnarSlice, _fst
+from dpark_tpu_torch.shuffle import SpillCorruption, spill_crc
 from dpark_tpu_torch.utils.monoid import local_reduce, monoid_identity
 
 
@@ -54,19 +79,360 @@ def _reslice_parts(slices, ndev):
     return [rows[lo:hi] for lo, hi in _even_ranges(len(rows), ndev)]
 
 
+def _rows_of(slices, starts, lo, hi):
+    """Rows [lo, hi) of the concatenation of columnar `slices` (whose
+    first rows sit at `starts`) as a _ColumnarSlice: views where one
+    slice holds them, one copy of the range where it spans several."""
+    pieces = []
+    for s, st in zip(slices, starts):
+        a, b = max(lo, st), min(hi, st + len(s))
+        if a < b:
+            pieces.append([c[a - st:b - st] for c in s.columns])
+    if len(pieces) == 1:
+        return _ColumnarSlice(pieces[0])
+    if not pieces:
+        return _ColumnarSlice([c[:0] for c in slices[0].columns])
+    return _ColumnarSlice([np.concatenate([p[i] for p in pieces])
+                           for i in range(len(pieces[0]))])
+
+
+def _prefetch_iter(it):
+    """Run `it` in a background thread, one item ahead: the host
+    slices wave k+1 and copies it to the device while the device
+    computes wave k.  If the consumer abandons the generator, the
+    producer is told to stop and the source iterator is closed from the
+    producer thread."""
+    q = queue.Queue(maxsize=1)
+    done = object()
+    stop = threading.Event()
+
+    def _put(x):
+        while not stop.is_set():
+            try:
+                q.put(x, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def run():
+        try:
+            for x in it:
+                if not _put(x):
+                    return
+            _put(done)
+        except BaseException as e:          # re-raised in the consumer
+            _put(e)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except BaseException:
+                    pass
+
+    threading.Thread(target=run, daemon=True,
+                     name="dpark-wave-prefetch").start()
+    try:
+        while True:
+            x = q.get()
+            if x is done:
+                return
+            if isinstance(x, BaseException):
+                raise x
+            yield x
+    finally:
+        stop.set()
+
+
+def _async_d2h(tensors):
+    """Start device-to-host copies of `tensors` into pinned memory
+    without blocking; returns (host tensors, event recorded behind the
+    copies).  The wave loop reads them one wave later, after the event:
+    a pinned copy returns before its data is there (and a pageable one
+    would block here, losing the overlap).  CPU tensors pass through."""
+    if tensors[0].device.type != "cuda":
+        return list(tensors), None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+class _StreamStats:
+    """Per-stream accounting: ingest / compute / exchange / spill
+    seconds, per-wave ms, and a host-observed device-idle share from the
+    union of each wave's busy span (its first dispatch to the host read
+    of its outputs): a wave's span covers its neighbours' host work, so
+    the overlap shows as a lower idle share."""
+
+    PER_WAVE_CAP = 128
+
+    def __init__(self):
+        self._clock = time.perf_counter
+        self.t0 = self._clock()
+        self.waves = 0
+        self.ingest_s = 0.0
+        self.compute_s = 0.0
+        self.exchange_s = 0.0
+        self.spill_s = 0.0
+        self.spilled_rows = 0
+        self.spill_bytes = 0
+        self._busy = []              # (start, end) device-busy spans
+        self.per_wave = []           # bounded per-wave ms dicts
+
+    def now(self):
+        return self._clock()
+
+    def add_busy(self, start, end):
+        if end > start:
+            self._busy.append((start, end))
+
+    def wave_done(self, ingest_s, compute_s, exchange_s):
+        self.waves += 1
+        self.ingest_s += ingest_s
+        self.compute_s += compute_s
+        self.exchange_s += exchange_s
+        if len(self.per_wave) < self.PER_WAVE_CAP:
+            self.per_wave.append({
+                "ingest_ms": round(ingest_s * 1e3, 2),
+                "compute_ms": round(compute_s * 1e3, 2),
+                "exchange_ms": round(exchange_s * 1e3, 2),
+                "spill_ms": 0.0})
+
+    def add_spill(self, seconds, wave):
+        self.spill_s += seconds
+        if wave < len(self.per_wave):
+            self.per_wave[wave]["spill_ms"] = round(
+                self.per_wave[wave]["spill_ms"] + seconds * 1e3, 2)
+
+    def _busy_union(self, until):
+        total = 0.0
+        end_prev = None
+        for s, e in sorted(self._busy):
+            e = min(e, until)
+            if end_prev is None or s > end_prev:
+                total += max(0.0, e - s)
+                end_prev = e
+            elif e > end_prev:
+                total += e - end_prev
+                end_prev = e
+        return total
+
+    def snapshot(self):
+        now = self._clock()
+        wall = max(now - self.t0, 1e-9)
+        idle = max(0.0, wall - self._busy_union(now))
+        return {
+            "waves": self.waves,
+            "ingest_ms": round(self.ingest_s * 1e3, 1),
+            "compute_ms": round(self.compute_s * 1e3, 1),
+            "exchange_ms": round(self.exchange_s * 1e3, 1),
+            "spill_ms": round(self.spill_s * 1e3, 1),
+            "spilled_rows": self.spilled_rows,
+            "spill_bytes": self.spill_bytes,
+            "wall_ms": round(wall * 1e3, 1),
+            "device_idle_frac": round(idle / wall, 4),
+            "per_wave": list(self.per_wave),
+        }
+
+
+def _write_run(path, cols):
+    """One spilled run (a list of column arrays) to disk: pickled,
+    zlib-compressed, framed with its crc32; written to a temporary name
+    and renamed, so a failed write never leaves a partial run.  Returns
+    the bytes written."""
+    blob = zlib.compress(pickle.dumps(cols, -1), 1)
+    tmp = "%s.tmp-%d-%d" % (path, os.getpid(), threading.get_ident())
+    try:
+        with open(tmp, "wb") as f:
+            f.write(struct.pack("<I", spill_crc(blob)))
+            f.write(blob)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    return 4 + len(blob)
+
+
+def _read_run(path):
+    """A spilled run's columns; SpillCorruption when its crc fails."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    (crc,) = struct.unpack("<I", raw[:4])
+    blob = raw[4:]
+    if spill_crc(blob) != crc:
+        raise SpillCorruption("spill run %s: crc32 mismatch (corrupted "
+                              "run)" % path)
+    return pickle.loads(zlib.decompress(blob))
+
+
+class _SpillWriter:
+    """Background run writer of the spilled-run stream: pickling,
+    compression and the write happen on a thread with a bounded queue.
+    A writer error surfaces on the next put() or at finish(); abort()
+    drops queued runs and joins."""
+
+    def __init__(self, depth=4):
+        self._q = queue.Queue(maxsize=depth)
+        self._err = None
+        self._stop = threading.Event()
+        self.bytes = 0
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="dpark-spill-writer")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            try:
+                item = self._q.get(timeout=0.5)
+            except queue.Empty:
+                if self._stop.is_set():
+                    return          # aborted and drained
+                continue
+            try:
+                if item is None:
+                    return
+                if self._stop.is_set():
+                    continue        # aborted: drain without writing
+                try:
+                    self.bytes += _write_run(*item)
+                except BaseException as e:
+                    self._err = e
+                    self._stop.set()
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def put(self, path, cols):
+        self._raise_pending()
+        self._q.put((path, cols))
+
+    def finish(self):
+        """Wait for every queued run to reach the disk; re-raise a writer
+        error.  Called before the shuffle registers."""
+        self._q.join()
+        self._q.put(None)
+        self._thread.join()
+        self._raise_pending()
+
+    def abort(self):
+        self._stop.set()
+        try:
+            self._q.put_nowait(None)
+        except queue.Full:
+            pass
+        self._thread.join(timeout=10)
+
+
+class _RunPremerger:
+    """Export bridge of the spilled runs: merges a partition's key-sorted
+    runs (one a wave) into one run, in the background once the stream
+    ends, or at the first fetch that finds it unmerged.  ensure(rid) is
+    once per partition, behind a lock per partition."""
+
+    def __init__(self, runs, spool, key_cols=1):
+        self._runs = runs            # the list object the store holds
+        self._spool = spool
+        self._key_cols = max(1, key_cols)
+        self._locks = [threading.Lock() for _ in runs]
+        self._merged = [len(p) <= 1 for p in runs]
+        self._stop = threading.Event()
+        self._thread = None
+
+    def start_background(self):
+        self._thread = threading.Thread(
+            target=self._walk, daemon=True, name="dpark-run-premerge")
+        self._thread.start()
+
+    def _walk(self):
+        for rid in range(len(self._runs)):
+            if self._stop.is_set():
+                return
+            try:
+                self.ensure(rid)
+            except Exception:   # the export merges inline and raises
+                pass
+
+    def ensure(self, rid):
+        """Merge partition `rid`'s runs if not yet merged; returns its
+        run paths (one key-sorted run once merged)."""
+        with self._locks[rid]:
+            if self._merged[rid]:
+                return self._runs[rid]
+            paths = self._runs[rid]
+            parts = [_read_run(p) for p in paths]
+            cols = [np.concatenate([pt[li] for pt in parts])
+                    for li in range(len(parts[0]))]
+            # lexicographic over every key column, stable: equal keys
+            # keep their run order for the export's adjacent fold
+            order = _key_order(cols, self._key_cols)
+            cols = [c[order] for c in cols]
+            merged = os.path.join(self._spool, "merged-%d" % rid)
+            _write_run(merged, cols)
+            self._runs[rid] = [merged]
+            self._merged[rid] = True
+            for p in paths:
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+            return self._runs[rid]
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=60)
+
+
+def _key_order(cols, nk):
+    """Stable lexicographic order of rows by their first nk columns."""
+    nk = min(nk, len(cols))
+    if nk == 1:
+        return np.argsort(cols[0], kind="stable")
+    return np.lexsort(tuple(cols[:nk][::-1]))
+
+
 class TorchExecutor:
     def __init__(self, ndev, device):
         self.ndev = layout.make_mesh(ndev)
         self.device = torch.device(device)
         self.shuffle_store = {}       # sid -> stored map output
+        self.last_stream_stats = None
+        self.last_wave_budget = None
+        self._spool_seq = 0
 
     # ------------------------------------------------------------------
     # running
     # ------------------------------------------------------------------
-    def run_stage(self, plan):
+    def run_stage(self, plan, wave_budget=None):
         """Run the whole stage for all shards.  Returns ("shuffle", sid),
         ("counts", [n per shard]), ("reduced", [(value, n) per shard]) or
-        ("result", [rows per shard])."""
+        ("result", [rows per shard]).  `wave_budget` overrides the wave
+        budget of a columnar input (the out-of-memory ladder's retry);
+        the budget used is left in last_wave_budget."""
+        self.last_stream_stats = None
+        self.last_wave_budget = None
+        mode = self._stream_mode(plan, wave_budget)
+        if mode is not None:
+            kind, waves = mode
+            if kind == "combine":
+                return self._run_streamed_shuffle(plan, waves)
+            return self._run_streamed_nocombine(plan, waves)
+        if plan.logical_spill:
+            # admission streams only an input above the wave threshold,
+            # with the same predicate: a safety net, not a route
+            raise ValueError("logical_spill plan without streaming")
         if plan.source[0] == "ingest":
             batch = self._ingest(plan)
         elif plan.source[0] == "join":
@@ -96,6 +462,13 @@ class TorchExecutor:
         dep = plan.source[1]
         store = self.shuffle_store[dep.shuffle_id]
         nk = plan.src_nk
+        if store.get("pre_reduced"):
+            # a streamed combine: shard d holds partition d combined
+            return layout.Batch(plan.in_treedef, store["leaves"],
+                                store["counts"])
+        if "host_runs" in store:
+            # SegAggOp over spilled runs (admission admits no other op)
+            return self._seg_batch_from_runs(store)
         if store["no_combine"]:
             return self._exchange_sorted(store, nk, plan.in_treedef)
         recv, n = collectives.exchange(store["leaves"], store["counts"],
@@ -166,8 +539,13 @@ class TorchExecutor:
     def _run_seg_map(self, plan):
         op = plan.ops[0]
         store = self.shuffle_store[plan.source[1].shuffle_id]
-        batch, table = self._seg_exchange_sorted(store, op.nk,
-                                                 plan.in_treedef)
+        if "host_runs" in store:
+            batch = self._seg_batch_from_runs(store)
+            table = collectives._segment_table(batch.cols[:op.nk],
+                                               batch.counts, want_keys=True)
+        else:
+            batch, table = self._seg_exchange_sorted(store, op.nk,
+                                                     plan.in_treedef)
         op.table = table
         op.layout = self._seg_bucket_layout(table[4])
         return batch
@@ -209,12 +587,23 @@ class TorchExecutor:
             monoid = None
         return merge_fn, monoid
 
-    def _run_narrow(self, plan, batch):
-        """Narrow ops, then the shuffle write when the stage has one.
-        Returns ("rows", Batch) or ("shuffle", counts, offsets, leaves)."""
+    def _merge_probe(self, plan):
+        """_epilogue_merge once a plan (a stream probes it every wave)."""
+        if plan.merge_probe is None:
+            plan.merge_probe = self._epilogue_merge(plan)
+        return plan.merge_probe
+
+    @staticmethod
+    def _apply_ops(plan, batch):
         lv, n = list(batch.cols), batch.counts
         for op in plan.ops:
             lv, n = op.apply(lv, n)
+        return lv, n
+
+    def _run_narrow(self, plan, batch):
+        """Narrow ops, then the shuffle write when the stage has one.
+        Returns ("rows", Batch) or ("shuffle", counts, offsets, leaves)."""
+        lv, n = self._apply_ops(plan, batch)
         if plan.epilogue is None:
             return ("rows", layout.Batch(plan.out_treedef, lv, n))
         return ("shuffle",) + self._epilogue_block(plan, lv, n)
@@ -240,7 +629,7 @@ class TorchExecutor:
             leaves, cnts, offs = collectives.bucketize(lv, n, n_dst, dst,
                                                        hist)
             return cnts, offs, leaves
-        merge_fn, monoid = self._epilogue_merge(plan)
+        merge_fn, monoid = self._merge_probe(plan)
         if merge_fn is not None or monoid is not None:
             dst, _, hsh = collectives.hash_dst_cols(
                 lv[:nk], n_dst, n, r, want_hash=nk > 1)
@@ -252,6 +641,414 @@ class TorchExecutor:
                                                  want_hist=True)
         leaves, cnts, offs = collectives.bucketize(lv, n, n_dst, dst, hist)
         return cnts, offs, leaves
+
+    # ------------------------------------------------------------------
+    # the out-of-core wave stream: an input above the wave threshold
+    # feeding a shuffle write, one wave of at most `chunk` rows a shard
+    # at a time
+    # ------------------------------------------------------------------
+    def _stream_mode(self, plan, wave_budget=None):
+        """None, or ("combine" | "nocombine", wave iterator); each wave
+        is a list of per-shard _ColumnarSlice parts.  The one
+        eligibility predicate is fuse._wave_rows, which admission reads
+        too: a divergence would turn the safety net in run_stage into a
+        user-facing error."""
+        if plan.epilogue is None or plan.source[0] != "ingest":
+            return None
+        pc = plan.source[1]
+        limit = wave_budget or fuse._wave_limit(pc, self.device, self.ndev)
+        if limit is None:
+            return None
+        self.last_wave_budget = int(limit)
+        chunk = fuse._wave_rows(pc, self.device, self.ndev, plan.reslice,
+                                limit)
+        if chunk is None:
+            return None
+        self._check_wave_oom(chunk)
+        waves = self._wave_iter_columnar(plan, chunk)
+        dep = plan.epilogue[1]
+        if fuse.is_list_agg(dep.aggregator):
+            return ("nocombine", waves)
+        merge_fn, monoid = self._merge_probe(plan)
+        if ((merge_fn is not None or monoid is not None)
+                and dep.partitioner.num_partitions <= self.ndev):
+            return ("combine", waves)
+        # more partitions than shards (the per-shard state cannot hold
+        # them: the spilled stream pre-reduces each wave on the device),
+        # or an untraceable merge (created combiners spill, the user's
+        # merge folds them at export)
+        return ("nocombine", waves)
+
+    @staticmethod
+    def _check_wave_oom(chunk_rows):
+        """The emulated memory ceiling (conf.EMULATED_WAVE_OOM_ROWS): a
+        wave budget above it raises the out-of-memory class the
+        scheduler's ladder halves on."""
+        limit = conf.EMULATED_WAVE_OOM_ROWS
+        if limit and chunk_rows > limit:
+            raise MemoryError(
+                "RESOURCE_EXHAUSTED: emulated HBM ceiling: wave "
+                "budget %d rows/device exceeds "
+                "DPARK_EMULATED_WAVE_OOM_ROWS=%d" % (chunk_rows, limit))
+
+    def _wave_iter_columnar(self, plan, chunk):
+        """Per-shard parts of each wave: rows [c*chunk, (c+1)*chunk) of
+        every shard.  A re-sliced input's shard d is the d-th even range
+        of the concatenated slices, cut a wave at a time (the input is
+        never concatenated whole)."""
+        slices = plan.source[1]._slices
+        if plan.reslice:
+            starts = np.cumsum([0] + [len(s) for s in slices[:-1]])
+            total = sum(len(s) for s in slices)
+            ranges = _even_ranges(total, self.ndev)
+        else:
+            starts = None
+            ranges = [(0, len(s)) for s in slices]
+        longest = max(hi - lo for lo, hi in ranges)
+        for c in range(-(-longest // chunk)):
+            parts = []
+            for d, (lo, hi) in enumerate(ranges):
+                a = min(hi, lo + c * chunk)
+                b = min(hi, lo + (c + 1) * chunk)
+                if starts is None:
+                    parts.append(_ColumnarSlice(
+                        [col[a:b] for col in slices[d].columns]))
+                else:
+                    parts.append(_rows_of(slices, starts, a, b))
+            yield parts
+
+    def _ingest_stage(self, plan, waves, stats, side):
+        """Host columns -> device Batch, a wave at a time; yields (batch,
+        ready event or None, ingest seconds).  On a CUDA device the
+        copies run on the side stream, behind an event the compute
+        stream waits on."""
+        try:
+            for parts in waves:
+                t0 = stats.now()
+                ready = None
+                if side is None:
+                    batch = layout.ingest(self.ndev, self.device, parts,
+                                          plan.in_treedef, plan.in_specs,
+                                          key_leaf=0, fine=True)
+                else:
+                    with torch.cuda.stream(side):
+                        batch = layout.ingest(self.ndev, self.device, parts,
+                                              plan.in_treedef,
+                                              plan.in_specs, key_leaf=0,
+                                              fine=True)
+                        ready = torch.cuda.Event()
+                        ready.record(side)
+                yield batch, ready, stats.now() - t0
+        finally:
+            waves.close()
+
+    def _stream_batches(self, plan, waves, stats):
+        """The slicing and the ingest on one thread: wave k+1 is cut
+        and copied to the device while wave k computes (one ingested
+        wave queued, one in flight).  Yields (batch, ingest seconds)
+        with the batch ready for the compute stream."""
+        side = (torch.cuda.Stream(self.device)
+                if self.device.type == "cuda" else None)
+        batches = _prefetch_iter(self._ingest_stage(plan, waves, stats,
+                                                    side))
+        try:
+            for batch, ready, ingest_s in batches:
+                if ready is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(ready)
+                    # the allocator must not hand these blocks to the
+                    # side stream again before the compute stream is done
+                    for t in batch.cols + [batch.counts]:
+                        t.record_stream(cur)
+                yield batch, ingest_s
+        finally:
+            batches.close()
+
+    def _run_streamed_shuffle(self, plan, waves):
+        """A combining write with at most one partition a shard: each
+        wave runs the narrow ops and the combining write (K1, K5, K2, K3),
+        K4's exchange, and merges what it received into the per-shard
+        state (B6: K5 + K3).  The result is a `pre_reduced` store: shard
+        d holds partition d fully combined."""
+        merge_fn, monoid = self._merge_probe(plan)
+        stats = _StreamStats()
+        state = None                    # (leaves, counts) combined so far
+        batches = self._stream_batches(plan, waves, stats)
+        try:
+            for batch, ingest_s in batches:
+                t_disp = stats.now()
+                cnts, offs, leaves = self._epilogue_block(
+                    plan, *self._apply_ops(plan, batch))
+                del batch
+                t_x = stats.now()
+                recv, rn = collectives.exchange(leaves, cnts, offs)
+                del leaves
+                exchange_s = stats.now() - t_x
+                state = self._shrink_state(self._merge_into_state(
+                    plan, state, recv, rn, monoid, merge_fn))
+                del recv
+                stats.add_busy(t_disp, stats.now())
+                stats.wave_done(ingest_s,
+                                (stats.now() - t_disp) - exchange_s,
+                                exchange_s)
+        finally:
+            batches.close()
+        self.last_stream_stats = stats.snapshot()
+        leaves, counts = state
+        return self._register_shuffle(plan, {
+            "leaves": leaves, "counts": counts, "offsets": None,
+            "pre_reduced": True,            # shard d holds partition d
+            "single_map": True,
+        })
+
+    def _merge_into_state(self, plan, state, recv, rn, monoid, merge_fn):
+        """The received rows and the running state, merged into the new
+        per-shard unique-key state: both padded with the key sentinel in
+        key column 0, side by side, then K5's key sort and K3's merge
+        (the traced scan first for an unclassified merge)."""
+        nk = plan.epi_nk
+        if state is not None:
+            st_leaves, st_n = state
+            recv = [torch.cat([a, b], 1) for a, b in zip(st_leaves, recv)]
+            rn = st_n + rn
+        ks, vs, n = collectives.segment_reduce_keys(
+            recv[:nk], recv[nk:], rn, merge_fn, monoid=monoid)
+        return list(ks) + list(vs), n
+
+    @staticmethod
+    def _shrink_state(state):
+        """The state cut to the capacity class its counts need (one host
+        read a wave), so it grows with the distinct keys, not the
+        waves."""
+        leaves, counts = state
+        want = layout.round_capacity(int(counts.max().item()) or 1)
+        if leaves[0].shape[1] > want:
+            leaves = [leaf[:, :want].contiguous() for leaf in leaves]
+        return leaves, counts
+
+    def _rid_over(self, plan, lv, n, r):
+        """Each row's logical partition in [0, r) (K1 hash or K6 range;
+        r on padding rows)."""
+        nk = plan.epi_nk
+        if plan.epi_spec[0] == "range":
+            bounds = torch.from_numpy(plan.epi_bounds).to(self.device)
+            return collectives.range_dst_cols(
+                lv[:nk], bounds, plan.epi_spec[1], r, n, r)[0]
+        return collectives.hash_dst_cols(lv[:nk], r, n, r)[0]
+
+    def _stream_map(self, plan, batch, r, pre):
+        """The spilled stream's map side (the reference's
+        _compile_stream_nocombine): the narrow ops, then with r <= N the
+        stage's own write; with r > N the rid over r and, with a usable
+        merge (`pre`), B12 (K13, K5, K2, K3), else K13 and K2 with the
+        int64 rid riding as the first leaf.  Returns (counts, offsets,
+        leaves)."""
+        lv, n = self._apply_ops(plan, batch)
+        if r <= self.ndev:
+            return self._epilogue_block(plan, lv, n)
+        nk = plan.epi_nk
+        rid = self._rid_over(plan, lv, n, r)
+        if pre is not None:
+            merge_fn, monoid = pre
+            leaves, cnts, offs = collectives.bucketize_combine_rid(
+                rid, lv[:nk], lv[nk:], n, self.ndev, merge_fn,
+                monoid=monoid)
+            return cnts, offs, leaves
+        dev, rid64, hist = kernels.rid_fold(rid, n, self.ndev)
+        leaves, cnts, offs = collectives.bucketize([rid64] + lv, n,
+                                                   self.ndev, dev, hist)
+        return cnts, offs, leaves
+
+    @staticmethod
+    def _rid_prefixed_treedef(plan):
+        """plan.out_treedef with the rid column prepended flat: rows read
+        (rid, k, v...)."""
+        nl = layout.num_leaves(plan.out_treedef)
+        rec = layout.tree_unflatten(plan.out_treedef,
+                                    list(range(1, 1 + nl)))
+        return layout.tree_flatten((0,) + tuple(rec))[1]
+
+    def _sort_received(self, plan, recv, rn, nkeys):
+        """A wave's received rows sorted per shard by their first `nkeys`
+        leaves (K5); a rid column beyond the plan's leaves rides first."""
+        packed = collectives._lex_sort(recv, nkeys)
+        treedef = plan.out_treedef
+        if len(recv) > len(plan.out_specs):
+            treedef = self._rid_prefixed_treedef(plan)
+        return layout.Batch(treedef, list(packed), rn)
+
+    def _prereduce_received(self, plan, recv, rn, merge_fn, monoid):
+        """A wave's received rows merged per (rid, key) (K5 + K3, the
+        traced scan first for an unclassified merge): the spilled runs
+        hold one combiner a distinct key a wave."""
+        nk = plan.epi_nk
+        ks, vs, n = collectives.segment_reduce_keys(
+            recv[:1 + nk], recv[1 + nk:], rn, merge_fn, monoid=monoid)
+        return layout.Batch(self._rid_prefixed_treedef(plan),
+                            list(ks) + list(vs), n)
+
+    def _spill_wave(self, spool, runs, carry_rid, wave, host, writer,
+                    stats):
+        """The host side of one wave's spill: wait for the wave's
+        device-to-host copy (started when its sort was dispatched), cut
+        each shard's valid rows into one run a logical partition, and
+        hand the runs to the writer."""
+        t0 = stats.now()
+        tensors, ready = host
+        if ready is not None:
+            ready.synchronize()
+        counts = tensors[0].numpy()
+        cols = [t.numpy() for t in tensors[1:]]
+        read_done = stats.now()
+
+        def put(path, rid, run_cols):
+            stats.spilled_rows += len(run_cols[0])
+            writer.put(path, run_cols)
+            runs[rid].append(path)
+
+        for d in range(self.ndev):
+            n = int(counts[d])
+            if not n:
+                continue
+            if not carry_rid:            # the shard IS the partition
+                # copies: a view would pin the wave's host columns
+                put(os.path.join(spool, "%d-%d" % (d, wave)), d,
+                    [np.array(col[d, :n]) for col in cols])
+                continue
+            rid = cols[0][d, :n]
+            uniq = np.unique(rid)
+            los = np.searchsorted(rid, uniq, side="left")
+            his = np.searchsorted(rid, uniq, side="right")
+            for u, lo, hi in zip(uniq.tolist(), los.tolist(), his.tolist()):
+                put(os.path.join(spool, "%d-%d-%d" % (u, wave, d)), u,
+                    [np.array(col[d, lo:hi]) for col in cols[1:]])
+        stats.add_spill(stats.now() - t0, wave)
+        return read_done
+
+    def _run_streamed_nocombine(self, plan, waves):
+        """A no-combine write (sortByKey's range shuffle, groupByKey,
+        partitionBy), an untraceable merge, or more partitions than
+        shards, over an input above the wave threshold: each wave runs
+        the map side (_stream_map), K4's exchange, and the receive side
+        (K5 by (rid, key), or K5 + K3 with a merge), then spills one
+        key-sorted column run a logical partition to a fresh spool.  The
+        device holds one wave; the host one wave of columns.  Wave k's
+        runs are read back and spilled while wave k+1 computes; a
+        thread writes them, and another premerges each partition's runs
+        once the stream ends."""
+        dep = plan.epilogue[1]
+        r = dep.partitioner.num_partitions
+        nk = plan.epi_nk
+        self._spool_seq += 1
+        root = conf.spool_root()
+        os.makedirs(root, exist_ok=True)
+        # unique per run: a re-run never writes into (then deletes, with
+        # the old store) the directory of the store it replaces
+        spool = tempfile.mkdtemp(prefix="%d-%d-" % (dep.shuffle_id,
+                                                    self._spool_seq),
+                                 dir=root)
+        runs = [[] for _ in range(r)]
+        carry_rid = r > self.ndev
+        host_combine = not fuse.is_list_agg(dep.aggregator)
+        pre = None
+        if carry_rid and host_combine:
+            merge_fn, monoid = self._merge_probe(plan)
+            if merge_fn is not None or monoid is not None:
+                pre = (merge_fn, monoid)
+        stats = _StreamStats()
+        writer = _SpillWriter()
+        pending = None          # (wave, host copy, dispatch time)
+        batches = self._stream_batches(plan, waves, stats)
+        ok = False
+        try:
+            for c, (batch, ingest_s) in enumerate(batches):
+                t_disp = stats.now()
+                cnts, offs, leaves = self._stream_map(plan, batch, r, pre)
+                del batch
+                t_x = stats.now()
+                recv, rn = collectives.exchange(leaves, cnts, offs)
+                del leaves
+                exchange_s = stats.now() - t_x
+                if pre is not None:
+                    wave = self._prereduce_received(plan, recv, rn, *pre)
+                else:
+                    wave = self._sort_received(
+                        plan, recv, rn, (1 + nk) if carry_rid else nk)
+                del recv
+                host = _async_d2h([wave.counts] + wave.cols)
+                del wave
+                stats.wave_done(ingest_s,
+                                (stats.now() - t_disp) - exchange_s,
+                                exchange_s)
+                if pending is not None:
+                    pw, ph, pd = pending
+                    stats.add_busy(pd, self._spill_wave(
+                        spool, runs, carry_rid, pw, ph, writer, stats))
+                pending = (c, host, t_disp)
+            if pending is not None:
+                pw, ph, pd = pending
+                stats.add_busy(pd, self._spill_wave(
+                    spool, runs, carry_rid, pw, ph, writer, stats))
+            writer.finish()
+            stats.spill_bytes += writer.bytes
+            ok = True
+        finally:
+            batches.close()
+            if not ok:
+                writer.abort()          # drop queued runs
+                # the store never registers: nothing else removes it
+                shutil.rmtree(spool, ignore_errors=True)
+        self.last_stream_stats = stats.snapshot()
+        premerge = _RunPremerger(runs, spool, key_cols=nk)
+        premerge.start_background()
+        return self._register_shuffle(plan, {
+            "leaves": [], "counts": None, "offsets": None,
+            "host_runs": runs, "spool_dir": spool, "premerge": premerge,
+            "no_combine": not host_combine,
+            # runs of a combining write hold CREATED combiners (merged
+            # per wave when a merge traced); the export folds equal keys
+            # with the user's merge_combiners
+            "host_combine": host_combine,
+            "agg": dep.aggregator if host_combine else None,
+            "single_map": True,
+        })
+
+    def _partition_run_cols(self, store, rid):
+        """One spilled partition's columns, key-sorted (the premerger's
+        one run), or None when it has no runs."""
+        runs = store["host_runs"]
+        if rid >= len(runs) or not runs[rid]:
+            return None
+        pieces = [_read_run(p) for p in store["premerge"].ensure(rid)]
+        return [np.concatenate([pt[li] for pt in pieces])
+                for li in range(len(pieces[0]))]
+
+    def _seg_batch_from_runs(self, store):
+        """Premerged spilled runs -> a key-sorted Batch, partition d on
+        shard d (admission takes such a source only for a segment op
+        with r <= N).  A whole partition loads at once; runs above half
+        the card's memory raise HostPath, and the host path consumes them
+        through the export."""
+        specs = store["out_specs"]
+        budget = conf.device_bytes_limit(self.device) // 2
+        total = 0
+        parts = []
+        for d in range(self.ndev):
+            cols = self._partition_run_cols(store, d)
+            if cols is None:
+                parts.append(_ColumnarSlice(
+                    [np.zeros((0,) + tuple(shape), dt)
+                     for dt, shape in specs]))
+                continue
+            total += sum(int(c.nbytes) for c in cols)
+            if budget and total > budget:
+                raise layout.HostPath(
+                    "spilled partitions (%d MB so far) exceed the device "
+                    "load budget (%d MB): the host merges the runs"
+                    % (total >> 20, budget >> 20))
+            parts.append(_ColumnarSlice(cols))
+        return layout.ingest(self.ndev, self.device, parts,
+                             store["out_treedef"], specs)
 
     # ------------------------------------------------------------------
     # stage results
@@ -388,6 +1185,23 @@ class TorchExecutor:
         store = self.shuffle_store.get(sid)
         if store is None:
             raise KeyError("no device shuffle %d" % sid)
+        if store.get("pre_reduced"):
+            # shard d holds partition d combined: map 0's bucket
+            if map_id != 0:
+                return []
+            cnt = int(store["counts"][reduce_id].item())
+            if not cnt:
+                return []
+            lists = [leaf[reduce_id, :cnt].cpu().numpy().tolist()
+                     for leaf in store["leaves"]]
+            treedef = store["out_treedef"]
+            return [layout.tree_unflatten(treedef, [pl[i] for pl in lists])
+                    for i in range(cnt)]
+        if "host_runs" in store:
+            # spilled runs: the whole shuffle exports through map 0
+            if map_id != 0:
+                return []
+            return self._export_runs(store, reduce_id)
         counts = store["counts"].cpu().numpy()
         offsets = store["offsets"].cpu().numpy()
         if store["single_map"]:
@@ -417,8 +1231,43 @@ class TorchExecutor:
             return [(k, [v]) for k, v in rows]
         return rows
 
+    def _export_runs(self, store, reduce_id):
+        """One spilled partition as host (key, combiner) items: its
+        premerged key-sorted run, each row (k, [v]) for a no-combine
+        write; for a combining one the user's merge_combiners folds each
+        run of equal keys (the values are created combiners, merged per
+        wave where a merge traced): O(1) state a key."""
+        cols = self._partition_run_cols(store, reduce_id)
+        if cols is None:
+            return []
+        lists = [c.tolist() for c in cols]
+        treedef = store["out_treedef"]
+        if treedef == (0, 1):
+            recs = zip(lists[0], lists[1])
+        else:
+            recs = (layout.tree_unflatten(treedef, [pl[i] for pl in lists])
+                    for i in range(len(lists[0])))
+        if not store["host_combine"]:
+            return [(k, [v]) for k, v in recs]
+        mc = store["agg"].merge_combiners
+        rows = []
+        for k, v in recs:
+            if rows and rows[-1][0] == k:
+                rows[-1] = (k, mc(rows[-1][1], v))
+            else:
+                rows.append((k, v))
+        return rows
+
     def drop_shuffle(self, sid):
-        self.shuffle_store.pop(sid, None)
+        store = self.shuffle_store.pop(sid, None)
+        if store is None:
+            return
+        if store.get("premerge") is not None:
+            # stop the background merge before deleting what it reads
+            store["premerge"].stop()
+        if store.get("spool_dir"):
+            shutil.rmtree(store["spool_dir"], ignore_errors=True)
 
     def stop(self):
-        self.shuffle_store.clear()
+        for sid in list(self.shuffle_store):
+            self.drop_shuffle(sid)

@@ -14,6 +14,13 @@ source (_analyze_join_source): K12 expands the matched pairs on the
 device and the rest of the chain runs on them.  A join the device does
 not admit runs the host path with the reason.
 
+A columnar input above the wave threshold (_wave_rows, the predicate
+the executor's _stream_mode reads too) feeding a shuffle write streams
+in waves; only such an input may write more logical partitions than
+shards (`logical_spill`: spilled runs).  A reduce stage over spilled
+runs reads them on the host (HOST_RUNS_READ), except a segment op over a
+no-combine write with a partition a shard.
+
 A groupByKey consumed by mapValues(f) stays on the device two ways, as
 in the reference: a provable aggregate (sum/len/min/max/mean) as
 SegAggOp (K3 over the key-sorted rows), any traceable padding-invariant
@@ -54,9 +61,13 @@ RANGE_WIDTH_REASON = "range bounds do not match the key width"
 GROUP_REASON = ("grouped values consumed on the host ((k, [v]) lists have "
                 "no device form for this chain)")
 WAVE_REASON = ("columnar input above the wave threshold (%d rows per "
-               "shard): out-of-core wave stream not yet ported")
-WIDE_REASON = ("more logical partitions (%d) than shards (%d): the "
-               "spilled-run stream is not yet ported")
+               "shard) read by a result stage: only a shuffle write "
+               "streams in waves")
+WIDE_REASON = ("more logical partitions (%d) than shards (%d): only an "
+               "input above the wave threshold streams to spilled runs")
+# not a fallback: a reduce stage over spilled runs reads them on the
+# host (the export premerges and folds them), as the reference does
+HOST_RUNS_READ = "spilled runs: the host export folds them"
 CACHE_REASON = ("cached %s: the device result cache is not yet ported; "
                 "its partitions cache on the host")
 UNION_REASON = "union source: the device union is not yet ported"
@@ -65,6 +76,7 @@ JOIN_NARROW_REASON = ("join side %d is already partitioned like the join "
                       "(e.g. a reduceByKey output) and read narrowly: the "
                       "host merges it")
 JOIN_HOST_REASON = "join side %d's shuffle output lives on the host"
+JOIN_RUNS_REASON = "join side %d's shuffle output is spilled runs"
 JOIN_WIDE_REASON = "join over %d partitions on %d shards"
 JOIN_RECORD_REASON = ("join side %d's records are not (k, v) pairs with a "
                       "numeric scalar or flat-tuple key")
@@ -716,6 +728,10 @@ class StagePlan:
         self.epi_bounds = None      # (m, nk) numpy range bounds
         self.no_combine = False     # the write repartitions, never merges
         self.reslice = False
+        # more logical partitions than shards: the input streams to
+        # spilled runs (admitted only above the wave threshold)
+        self.logical_spill = False
+        self.merge_probe = None     # executor._merge_probe's memo
         # set per run by the scheduler from the stage's tasks
         self.count_only = False
         self.top_candidate = None
@@ -797,16 +813,27 @@ def _columnar_row_bytes(slices):
     return 16
 
 
-def _wave_rows(pc, device, ndev, reslice):
-    """The wave threshold (rows per shard) a columnar input exceeds, or
-    None.  The ndev shards share the card, so each gets 1/ndev of its
-    budget; rows are counted as the shards hold them, after
-    executor._reslice_parts when the stage re-slices."""
+def _wave_limit(pc, device, ndev):
+    """The wave budget (rows per shard) of a columnar input, or None for
+    an input that cannot stream.  The ndev shards share the card, so
+    each gets 1/ndev of its budget."""
     slices = pc._slices
     if not all(isinstance(s, _ColumnarSlice) for s in slices):
         return None
-    limit = conf.stream_chunk_rows(_columnar_row_bytes(slices), device,
-                                   ndev)
+    return conf.stream_chunk_rows(_columnar_row_bytes(slices), device,
+                                  ndev)
+
+
+def _wave_rows(pc, device, ndev, reslice, limit=None):
+    """The wave budget a columnar input exceeds, or None: `limit`
+    (_wave_limit's when not given).  Rows are counted as the shards
+    hold them, after executor._reslice_parts when the stage
+    re-slices."""
+    if limit is None:
+        limit = _wave_limit(pc, device, ndev)
+    if limit is None:
+        return None
+    slices = pc._slices
     if reslice:
         rows = -(-sum(len(s) for s in slices) // ndev)
     else:
@@ -841,6 +868,8 @@ def _analyze_join_source(join_rdd, ndev, store):
         if dep.shuffle_id not in store:
             return None, JOIN_HOST_REASON % si
         meta = store[dep.shuffle_id]
+        if "host_runs" in meta:
+            return None, JOIN_RUNS_REASON % si
         treedef, specs = meta["out_treedef"], meta["out_specs"]
         nk = layout.key_width(treedef, specs, kinds="if")
         if nk is None or len(treedef) != 2 or len(specs) < nk + 1:
@@ -869,6 +898,7 @@ def analyze_stage(stage, ndev, executor):
     src_merge = None
     group_output = False
     reslice = False
+    wave = None
     if source_rdd.should_cache:
         return None, CACHE_REASON % type(source_rdd).__name__
     if isinstance(source_rdd, ParallelCollection):
@@ -878,8 +908,10 @@ def analyze_stage(stage, ndev, executor):
         if reslice and not stage.is_shuffle_map:
             return None, ("result stage over %d input slices on %d "
                           "shards" % (len(source_rdd._slices), ndev))
+        # above the wave threshold a shuffle write streams (the executor
+        # reads the same predicate); a result stage takes the host path
         wave = _wave_rows(source_rdd, executor.device, ndev, reslice)
-        if wave is not None:
+        if wave is not None and not stage.is_shuffle_map:
             return None, WAVE_REASON % wave
         sample = _sample_record(source_rdd)
         if sample is None:
@@ -904,10 +936,16 @@ def analyze_stage(stage, ndev, executor):
         dep = source_rdd.dep
         if dep.shuffle_id not in store:
             return None, "parent shuffle output lives on the host"
+        meta = store[dep.shuffle_id]
+        # spilled runs: the host export consumes them, except for a
+        # segment op over a no-combine write (decided below)
+        from_runs = "host_runs" in meta
+        if from_runs and (meta["host_combine"]
+                          or dep.partitioner.num_partitions > ndev):
+            return None, HOST_RUNS_READ
         if dep.partitioner.num_partitions > ndev:
             return None, WIDE_REASON % (dep.partitioner.num_partitions,
                                         ndev)
-        meta = store[dep.shuffle_id]
         treedef, specs = meta["out_treedef"], meta["out_specs"]
         src_nk = meta["key_cols"]
         if meta["no_combine"]:
@@ -937,6 +975,9 @@ def analyze_stage(stage, ndev, executor):
             if src_merge is None:
                 return None, ("merge_combiners not traceable by "
                               "torch.func.vmap; object path")
+        if from_runs and not (ops and isinstance(ops[0],
+                                                 (SegAggOp, SegMapOp))):
+            return None, HOST_RUNS_READ
         source = ("hbm", dep)
 
     cur_treedef, cur_specs = treedef, specs
@@ -955,18 +996,21 @@ def analyze_stage(stage, ndev, executor):
     plan.group_output = group_output
     plan.reslice = reslice
     if stage.is_shuffle_map:
-        reason = _plan_shuffle_write(plan, stage.shuffle_dep, ndev)
+        reason = _plan_shuffle_write(plan, stage.shuffle_dep, ndev,
+                                     wave is not None)
         if reason is not None:
             return None, reason
     return plan, None
 
 
-def _plan_shuffle_write(plan, dep, ndev):
+def _plan_shuffle_write(plan, dep, ndev, streams=False):
     """Fill in the plan's shuffle-write epilogue; returns the reason the
     write has no device form, or None.  A hash write needs int key
     columns and, when it combines, a traceable create_combiner; a range
     write takes numeric key columns of one dtype and repartitions only;
-    a no-combine write (groupByKey / partitionBy) skips create_combiner."""
+    a no-combine write (groupByKey / partitionBy) skips create_combiner.
+    More logical partitions than shards need the spilled-run stream, so
+    an input above the wave threshold (`streams`)."""
     spec = partitioner_spec(dep.partitioner)
     if spec is None:
         return ("%s has no device destination function"
@@ -1005,7 +1049,9 @@ def _plan_shuffle_write(plan, dep, ndev):
         if epi_nk is None:
             return HASH_KEY_COMBINER_REASON
     if dep.partitioner.num_partitions > ndev:
-        return WIDE_REASON % (dep.partitioner.num_partitions, ndev)
+        if not streams:
+            return WIDE_REASON % (dep.partitioner.num_partitions, ndev)
+        plan.logical_spill = True
     plan.epilogue = ("shuffle_write", dep)
     plan.epi_nk = epi_nk
     plan.epi_spec = spec

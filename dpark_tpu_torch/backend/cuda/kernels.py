@@ -15,6 +15,7 @@ Kernels (sources under csrc/, one shared library each):
   K10 pregel_deliver        csrc/pregel_deliver.cu
   K11 obj_emit_pack         csrc/obj_emit_pack.cu
   K12 join_ranges           csrc/join_expand.cu (with join_expand)
+  K13 rid_fold              csrc/rid_fold.cu
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -54,6 +55,7 @@ SOURCES = {
     "pregel_deliver": "pregel_deliver.cu",
     "obj_emit_pack": "obj_emit_pack.cu",
     "join_expand": "join_expand.cu",
+    "rid_fold": "rid_fold.cu",
 }
 # launch counters: one per entry point (K8's and K12's libraries hold two)
 LAUNCHES = {name: 0 for name in SOURCES
@@ -189,6 +191,9 @@ def _bind(name, lib):
         scatter.argtypes = [_P, _I, _I, _I, _I, _L, _P, _P, _L, _P, _P]
         scatter.restype = ctypes.c_int
         return count, scatter
+    elif name == "rid_fold":
+        fn = lib.dpk_rid_fold
+        fn.argtypes = [_P, _P, _I, _L, _I, _P, _P, _P, _P]
     elif name == "join_expand":
         ranges = lib.dpk_join_ranges
         ranges.argtypes = [_P, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P,
@@ -1410,3 +1415,42 @@ def join_expand(a_leaves, b_vals, lo, per, offs, totals, a_n, cap_out):
                    _stream())
     _check("join_expand", rc)
     return out
+
+
+# ---------------------------------------------------------------------
+# K13 rid_fold
+# ---------------------------------------------------------------------
+def rid_fold_plain(rid, n, n_dst):
+    cap = rid.shape[1]
+    valid = torch.arange(cap, device=rid.device)[None, :] < n[:, None].long()
+    dev = torch.where(valid, rid % n_dst, n_dst).to(torch.int32)
+    rid64 = torch.where(valid, rid.long(),
+                        torch.full((), KEY_SENTINEL, dtype=torch.int64,
+                                   device=rid.device))
+    return dev, rid64, shard_bincount(dev, n_dst + 1)
+
+
+def rid_fold(rid, n, n_dst):
+    """The spilled-run stream's fold of each row's logical partition
+    (rid: (N, cap) int32 in [0, r) on the first n[s] rows of shard s)
+    onto the n_dst shards.  Returns (dev (N, cap) int32: rid % n_dst,
+    n_dst on padding; rid64 (N, cap) int64: rid, KEY_SENTINEL on
+    padding; hist (N, n_dst + 1) int32: each shard's count of dev)."""
+    N, cap = rid.shape
+    _need(rid.dtype == torch.int32 and rid.is_contiguous(),
+          "rid must be a contiguous (N, cap) int32 tensor")
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    _need(n_dst >= 1, "n_dst must be positive")
+    if not _on_cuda([rid, n]):
+        return rid_fold_plain(rid, n, n_dst)
+    fn = _kernel("rid_fold")
+    dev_ = rid.device
+    dev = torch.empty((N, cap), dtype=torch.int32, device=dev_)
+    rid64 = torch.empty((N, cap), dtype=torch.int64, device=dev_)
+    hist = torch.zeros((N, n_dst + 1), dtype=torch.int32, device=dev_)
+    if cap == 0:
+        return dev, rid64, hist
+    rc = fn(rid.data_ptr(), n.data_ptr(), N, cap, int(n_dst),
+            dev.data_ptr(), rid64.data_ptr(), hist.data_ptr(), _stream())
+    _check("rid_fold", rc)
+    return dev, rid64, hist

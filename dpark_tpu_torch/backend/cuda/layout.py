@@ -154,14 +154,17 @@ def numpy_dtype(dt):
     return torch.zeros(0, dtype=dt).numpy().dtype
 
 
-def ingest(ndev, device, partitions, treedef, specs, key_leaf=None):
+def ingest(ndev, device, partitions, treedef, specs, key_leaf=None,
+           fine=False):
     """Host partitions (len == ndev lists of records, or columnar
     slices) -> Batch on `device`.  With `key_leaf`, a key equal to the
     padding sentinel raises HostPath before anything reaches the
-    device."""
+    device.  `fine` pads to a 1/16-octave capacity class (a wave of the
+    stream) instead of a power of two."""
     assert len(partitions) == ndev, (len(partitions), ndev)
     counts = np.array([len(p) for p in partitions], dtype=np.int32)
-    cap = round_capacity(int(counts.max()) if len(counts) else 1)
+    rnd = round_capacity_fine if fine else round_capacity
+    cap = rnd(int(counts.max()) if len(counts) else 1)
     host = []                      # per partition: list of leaf arrays
     for part in partitions:
         cols = getattr(part, "columns", None)

@@ -7,11 +7,31 @@ import os
 # one more sort pass in every shuffle
 MAX_KEY_LEAVES = 4
 
-# rows per shard above which a columnar input would need the out-of-core
-# wave stream (not yet ported: such stages take the host path).  "auto"
-# sizes it to device memory; a number pins it.
+# rows per shard above which a columnar input feeding a shuffle write
+# streams through the out-of-core wave stream, one wave of at most this
+# many rows a shard at a time (executor._stream_mode).  "auto" sizes it
+# to device memory; a number pins it.
 STREAM_CHUNK_ROWS = "auto"
 _STREAM_CHUNK_ROWS_FALLBACK = 4 << 20
+
+# directory under which each spilled-run stream makes its own spool (a
+# fresh directory a run, removed when the shuffle is dropped or the
+# stream fails); empty means tempfile.gettempdir()
+SPOOL_ROOT = os.environ.get("DPARK_SPOOL_ROOT", "")
+
+# a stand-in for the card's memory ceiling (a test aid): a streamed
+# stage whose wave budget is above this many rows a shard raises the
+# out-of-memory class that GPUScheduler's ladder retries once with half
+# the budget.  0 = off.
+EMULATED_WAVE_OOM_ROWS = int(os.environ.get(
+    "DPARK_EMULATED_WAVE_OOM_ROWS", "0") or 0)
+
+
+def spool_root():
+    """Root of the spilled-run spools."""
+    import tempfile
+    return os.path.join(SPOOL_ROOT or tempfile.gettempdir(),
+                        "dpark_tpu_torch_runs")
 
 
 def device_bytes_limit(device):

@@ -10,6 +10,19 @@ consume either.
 """
 
 import pickle
+import zlib
+
+
+class SpillCorruption(IOError):
+    """A spilled run failed its crc check: the run is refused, never
+    unpickled into a wrong answer."""
+
+
+def spill_crc(blob):
+    """Checksum of a spilled run's framing (zlib's crc32): runs are
+    written and read by one installation, so the polynomial only has to
+    agree with itself."""
+    return zlib.crc32(blob) & 0xFFFFFFFF
 
 
 class BucketStore:

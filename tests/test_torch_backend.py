@@ -185,8 +185,10 @@ def test_untraceable_lambda_falls_back(gctx, lctx, f):
 
 
 def test_wave_threshold_falls_back(gctx, lctx):
-    """A columnar input above the wave threshold takes the host path
-    with the not-yet-ported reason."""
+    """A columnar input above the wave threshold feeding a shuffle write
+    streams in waves on the device (a combining write with a partition
+    a shard: a `pre_reduced` store), with no fallback, and its result
+    equals `local`."""
     import numpy as np
     from dpark_tpu_torch import conf
     P = _P(gctx)
@@ -200,8 +202,10 @@ def test_wave_threshold_falls_back(gctx, lctx):
         conf.STREAM_CHUNK_ROWS = old
     assert got == dict(lctx.parallelize(RefColumns(keys, keys), P)
                        .reduceByKey(_add, P).collect())
-    assert "wave stream not yet ported" in \
-        _stages(gctx)[0]["fallback_reason"]
+    assert _array_only(gctx)
+    st = _stages(gctx)[0]
+    assert st["stream"] == "pre_reduced"
+    assert st["pipeline"]["waves"] == -(-400 // P // 10)
 
 
 def test_side_effect_lambda_falls_back(gctx):

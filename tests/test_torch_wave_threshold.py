@@ -106,13 +106,16 @@ def test_vector_column_counts_its_width(card, width, rows):
 
 
 def test_wave_threshold_names_the_shard_budget(card):
-    """A stage over such an input takes the host path with the reason
-    naming the per-shard threshold, and its result is right."""
+    """A stage over such an input streams in waves of the per-shard
+    threshold (its record names the budget), with no fallback, and its
+    result is right."""
     ctx = DparkContext("gpu:8", device="cpu")
     keys = np.arange(N * (PER_SHARD + 1)) % 7
     got = dict(ctx.parallelize(Columns(keys, keys), N)
                .reduceByKey(lambda a, b: a + b, N).collect())
     assert got == {k: int(keys[keys == k].sum()) for k in range(7)}
     st = ctx.scheduler.history[-1]["stage_info"][0]
-    assert st["fallback_reason"] == fuse.WAVE_REASON % PER_SHARD
+    assert "fallback_reason" not in st
+    assert st["wave_budget"] == PER_SHARD
+    assert st["stream"] == "pre_reduced" and st["pipeline"]["waves"] == 2
     ctx.stop()
