@@ -3,16 +3,20 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the thirteen CUDA
+1. prints the card's name and power limit, builds the fourteen CUDA
    kernel libraries from csrc/ (one nvcc each, all started together) and
    prints the build time;
-2. holds each kernel (K1-K13) against its plain PyTorch version on the
+2. holds each kernel (K1-K14) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows; K12 at
    the join path's), and times kernel, plain version, bound and library
-   call; times the plain segmented scan (B8) and the per-shard monoid
-   reduction (B9) at the main shape, and holds the spilled-run combine
-   (B12: K13 + K5 + K2 + K3) and the reduce-side merge (B6: K5 + K3)
-   against the same compositions of the plain versions;
+   call; times the plain segmented scan of a vmapped merge and the
+   per-shard monoid reduction (B9) at the main shape; holds K14 (B8, a
+   traced merge's register program over each run) against its plain
+   version in five cases (bench runs with a (v, 1) add, one run a shard,
+   TPC-H Q1's six leaves over its four runs, an argmax, an empty
+   shard); and holds the spilled-run combine (B12: K13 + K5 + K2 + K3)
+   and the reduce-side merge (B6: K5 + K3) against the same
+   compositions of the plain versions;
 3. drives the reduceByKey path through the public API: bench.py's data
    (64Mi int64 pairs over 65,536 keys) -> reduceByKey -> count / collect
    / top / reduce, a map+filter chain before the shuffle, on gpu:8 and
@@ -29,8 +33,8 @@ NVIDIA GPU.
    exactly against numpy (SegMapOp: K7, K2, K8); then mapValues(sum /
    len / min / max / mean) with the combiner rewrite off (SegAggOp: K3
    once a job) and, as a path of its own, sum with it on (a combining
-   shuffle); a tuple-value reduceByKey (the traced merge: the segmented
-   scan, B8) over bench.py's data;
+   shuffle); a tuple-value reduceByKey (the traced merge, lowered: K14
+   on both sides, no plain scan) over bench.py's data;
 6. drives the device Pregel on gpu:8 through run_pregel over a Graph500
    Kronecker graph at scale 22, edge factor 16 (4,194,304 vertices,
    67,108,864 directed edges): PageRank (20 supersteps, checked against
@@ -51,14 +55,20 @@ NVIDIA GPU.
    reduceByKey), checked exactly against numpy; a cogroup count over a
    2^20-row part of the tables (the host merge of rows exchanged and
    sorted on the device), after holding K12 against its plain version at
-   the path's shapes and on one hot key (4,096 x 4,096 pairs);
+   the path's shapes and on one hot key (4,096 x 4,096 pairs); then
+   TPC-H Q1 as a dpark job on gpu:8 over lineitem at SF 10 (its own
+   seed): filter -> map -> reduceByKey of a six-leaf tuple over the
+   (returnflag, linestatus) key -> mapValues -> collect, its integer
+   sums exactly numpy's and sum_disc within 1e-8 relative, K14 on both
+   sides and no plain scan;
 9. drives the out-of-core wave stream on gpu:8: reduceByKey(add, 8) over
    2^30 of bench.py's pairs (16 GiB of columns; halved, and the cut
    printed, when the host's available memory is under three times that)
    at the auto wave threshold -> count / collect, exactly numpy's (a
    pre_reduced store); reduceByKey(add, 64) and a tuple merge at 64
    partitions over the 64Mi pairs in waves of 2^21 rows a shard (K1's
-   rid, B12, K4, K5 + K3, spilled runs, the host fold); sortByKey(
+   rid, B12, K4, K5 + K3, spilled runs, the host fold; the tuple merge
+   through K14, no plain scan); sortByKey(
    numSplits=32) -> collect and groupByKey(8) -> count over 2^23 random
    int64 keys in waves of 2^18 rows (K6's rid, K13, K2, K4, K5, runs,
    premerge, export); then the out-of-memory ladder on the emulated
@@ -134,6 +144,9 @@ SOURCES = {
                     "dpark_tpu/backend/tpu/executor.py:3176"),
     "rid_fold": ("dpark_tpu_torch/backend/cuda/csrc/rid_fold.cu",
                  "dpark_tpu/backend/tpu/collectives.py:436"),
+    "segmented_merge": (
+        "dpark_tpu_torch/backend/cuda/csrc/segmented_merge.cu",
+        "dpark_tpu/backend/tpu/collectives.py:303"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
@@ -171,10 +184,11 @@ PATH_KERNELS = {
     "bagel gpu:8": ["hash_dst_hist", "stable_partition",
                     "reduce_by_key_compact", "shard_exchange", "radix_sort",
                     "pregel_deliver", "obj_emit_pack"],
-    # the traced tuple merge: K1 + K5 + K2, the segmented scan, K3 "last"
+    # the traced tuple merge: K1 + K5 + K2, K14, K3 "last"; K4; K5, K14,
+    # K3 "last"
     "tuple reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
                                 "reduce_by_key_compact", "shard_exchange",
-                                "radix_sort"],
+                                "radix_sort", "segmented_merge"],
     # both sides' no-combine writes (K1, K2), exchanges (K4) and key
     # sorts (K5), K12's ranges and expansion, then the revenue's
     # combining write (K1, K5, K2, K3) and its merge (K4, K5, K3)
@@ -185,11 +199,17 @@ PATH_KERNELS = {
     "reduceByKey waves gpu:8": ["hash_dst_hist", "stable_partition",
                                 "reduce_by_key_compact", "shard_exchange",
                                 "radix_sort"],
-    # each wave: K1's rid over r, B12 (K13, K5, K2, K3), K4, K5 + K3
+    # each wave: K1's rid over r, B12 (K13, K5, K2, K3), K4, K5 + K3;
+    # the tuple merge's waves K14 before each K3
     "reduceByKey spilled gpu:8": ["hash_dst_hist", "rid_fold",
                                   "stable_partition", "radix_sort",
                                   "reduce_by_key_compact",
-                                  "shard_exchange"],
+                                  "shard_exchange", "segmented_merge"],
+    # TPC-H Q1: filter (K2), the composite key's hash (K1), K5 by it, K2,
+    # K14 over the six leaves, K3 "last"; K4; K5, K14, K3 "last"
+    "tpch q1 gpu:8": ["hash_dst_hist", "stable_partition",
+                      "reduce_by_key_compact", "shard_exchange",
+                      "radix_sort", "segmented_merge"],
     # sortByKey: K6's rid over r, K13, K2, K4, K5 by (rid, key);
     # groupByKey(8): K1, K2, K4, K5
     "sort spilled gpu:8": ["range_dst_hist", "hash_dst_hist", "rid_fold",
@@ -210,6 +230,12 @@ PATH_MIN_LAUNCHES = {
     "bagel gpu:8": {"obj_emit_pack": 20},
     # one K12 ranges and one expansion a join action (count, revenue)
     "join gpu:8": {"join_ranges": 2, "join_expand": 2},
+    # K14 wherever the plain scan ran before: the map side's pre-combine
+    # and the reduce side's merge; in the spilled run, B12's and the
+    # wave's pre-reduce in each of the tuple job's 4 waves
+    "tuple reduceByKey gpu:8": {"segmented_merge": 2},
+    "tpch q1 gpu:8": {"segmented_merge": 2},
+    "reduceByKey spilled gpu:8": {"segmented_merge": 2 * 4},
 }
 # the path whose launches the kernels line reports for each kernel
 LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
@@ -219,7 +245,8 @@ LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "edge_gather": "pregel gpu:8", "pregel_deliver": "pregel gpu:8",
              "obj_emit_pack": "bagel gpu:8",
              "join_ranges": "join gpu:8", "join_expand": "join gpu:8",
-             "rid_fold": "reduceByKey spilled gpu:8"}
+             "rid_fold": "reduceByKey spilled gpu:8",
+             "segmented_merge": "tpch q1 gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 # Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
@@ -239,6 +266,12 @@ URAND_EDGE_FACTOR = 16             # 16,777,216 edges
 TPCH_SF = 10
 COGROUP_ROWS = 1 << 20             # lineitem rows of the cogroup count
 SKEW_ROWS = 4096                   # one key's rows on each join side
+# TPC-H Q1 (section 2.4.1, DELTA = 90) over lineitem's dates (4.2.3), in
+# days since 1992-01-01 (STARTDATE)
+Q1_ORDER_LAST = 2405               # 1998-08-02: ENDDATE - 151 days
+Q1_CURRENT = 1263                  # 1995-06-17: CURRENTDATE
+Q1_SHIP_CUTOFF = 2436              # 1998-09-02: 1998-12-01 - 90 days
+K14_FLOAT_RTOL = 1e-8              # float sums in another association
 # the wave stream: bench.py's pairs at 2^30 (16 GiB of columns, several
 # waves at the auto threshold); the spilled paths at pinned wave sizes
 WAVE_PAIRS = 1 << 30
@@ -1488,21 +1521,46 @@ def plain_phases(dev):
     return b8, b9
 
 
-def tuple_reduce_path(keys, vals):
-    """reduceByKey of (value, 1) pairs with a tuple merge on gpu:8: the
-    merge is traced, so both sides merge through the segmented scan (B8)
-    and K3's "last"; checked exactly against numpy.  Returns the scan's
-    calls."""
-    from dpark_tpu_torch import Columns, DparkContext
+@contextlib.contextmanager
+def no_plain_scan(what):
+    """The block must make no call to the plain segmented scan of a
+    vmapped merge (collectives.segmented_combine): every traced merge it
+    runs lowers to K14 (PATH_MIN_LAUNCHES holds K14's launches)."""
     from dpark_tpu_torch.backend.cuda import collectives
     calls = {}
+    with counting(collectives, "segmented_combine", calls):
+        yield
+    print("calls %s: segmented_combine=%d" % (
+        what, calls.get("segmented_combine", 0)), flush=True)
+    if calls.get("segmented_combine", 0):
+        fail("%s called the plain segmented scan %d times" % (
+            what, calls["segmented_combine"]))
+
+
+def check_merge_routes(ctx, what):
+    """Every traced merge of the last job's stages lowered to K14 (the
+    stage records' merge_route), and at least one ran."""
+    routes = [r for st in ctx.scheduler.history[-1]["stage_info"]
+              for r in st.get("merge_route", {}).values()]
+    print("merge routes %s: %s" % (what, routes), flush=True)
+    if not routes or any(r != "K14" for r in routes):
+        fail("%s: a traced merge did not lower to K14: %s" % (what,
+                                                             routes))
+
+
+def tuple_reduce_path(keys, vals):
+    """reduceByKey of (value, 1) pairs with a tuple merge on gpu:8: the
+    merge is traced and lowered, so both sides merge through K14 and K3's
+    "last" (no plain scan); checked exactly against numpy."""
+    from dpark_tpu_torch import Columns, DparkContext
     ctx = DparkContext("gpu:8")
     r = (ctx.parallelize(Columns(keys, vals), 8)
          .map(lambda kv: (kv[0], (kv[1], 1)))
          .reduceByKey(_pair_sum, 8))
-    with counting(collectives, "segmented_combine", calls):
+    with no_plain_scan("tuple reduceByKey gpu:8"):
         got = act("gpu:8 tuple reduceByKey collect", r.collect)
     check_stages(ctx, "tuple reduceByKey")
+    check_merge_routes(ctx, "tuple reduceByKey")
     sums = np.bincount(keys, weights=vals, minlength=KEYS).astype(np.int64)
     lens = np.bincount(keys, minlength=KEYS)
     if len(got) != KEYS or any(
@@ -1510,10 +1568,283 @@ def tuple_reduce_path(keys, vals):
             for k_, (s_, n_) in got):
         fail("tuple reduceByKey differs from numpy")
     ctx.stop()
-    print("calls tuple reduceByKey gpu:8: segmented_combine=%d"
-          % calls.get("segmented_combine", 0), flush=True)
-    if calls.get("segmented_combine", 0) < 2:
-        fail("the tuple merge did not run the segmented scan on both sides")
+
+
+# ----------------------------------------------------------------------
+# K14: the traced merge's program over each run (B8)
+# ----------------------------------------------------------------------
+def _argmax_merge(a, b):
+    return (torch.where(a[1] >= b[1], a[0], b[0]),
+            torch.maximum(a[1], b[1]))
+
+
+def k14_program(merge, dtypes):
+    """The K14 program of `merge` over (k, (v0, v1, ...)) records with
+    these value dtypes, lowered by fuse.probe_merge; fails unless the
+    merge lowers."""
+    from dpark_tpu_torch.backend.cuda import fuse
+    specs = [(np.dtype(np.int64), ())] + [(np.dtype(d), ()) for d in dtypes]
+    merge_fn = fuse.probe_merge(merge, (0, tuple(range(1, len(specs)))),
+                                specs, 1)
+    if merge_fn is None or merge_fn.route != "K14":
+        fail("merge %s did not lower: %s" % (
+            merge.__name__, merge_fn and merge_fn.route))
+    return list(merge_fn.programs.values())[0][0]
+
+
+def run_last(starts, n):
+    """(N, cap) bool: each run's last valid row."""
+    idx = torch.arange(starts.shape[1], device=starts.device)[None, :]
+    nxt = torch.ones_like(starts)
+    nxt[:, :-1] = starts[:, 1:]
+    return (idx < n[:, None]) & (nxt | (idx == n[:, None] - 1))
+
+
+def k14_case(K, label, prog, starts, n, leaves, library=True, notes=None):
+    """K14 against its plain version at every run's last valid row
+    (integer and bool leaves bit-equal, float leaves within
+    K14_FLOAT_RTOL), timed with its plain version, its bound and, for a
+    sum program over full shards, torch.segment_reduce per leaf."""
+    got = K.segmented_merge(starts, n, leaves, prog)
+    want = K.segmented_merge_plain(starts, n, leaves, prog)
+    last = run_last(starts, n)
+    runs = int(last.sum().item())
+    err = rel = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g[last], w[last]
+        if g.dtype.is_floating_point:
+            if g.numel():
+                err = max(err, float((g - w).abs().max().item()))
+                rel = max(rel, float(((g - w).abs() / w.abs().clamp_min(
+                    1e-300)).max().item()))
+        elif not torch.equal(g, w):
+            bad = (g != w).nonzero()[:5].tolist()
+            fail("K14 %s: leaf %d differs from its plain version at run "
+                 "ends %s" % (label, i, bad))
+    if rel > K14_FLOAT_RTOL:
+        fail("K14 %s: float leaf relative error %g > %g" % (
+            label, rel, K14_FLOAT_RTOL))
+    del got, want
+    row_bytes = sum(v.element_size() * v[0, 0].numel() for v in leaves)
+    rows = int(n.sum().item())
+    rec = {"max_abs_err": err,
+           "ms": timed(lambda: K.segmented_merge(starts, n, leaves, prog)),
+           "plain_ms": timed(lambda: K.segmented_merge_plain(
+               starts, n, leaves, prog), reps=3),
+           # each valid row's flag and leaves read once, each run's
+           # merged leaves written once
+           "bound_ms": bound_ms(rows * (1 + row_bytes) + runs * row_bytes),
+           "library_ms": None,
+           "notes": dict({"runs": runs, "max_rel_err": "%.3g" % rel},
+                         **(notes or {}))}
+    if library:
+        # one PyTorch call a leaf over the same runs, given their lengths
+        pos = torch.nonzero(starts.view(-1)).view(-1)
+        lengths = torch.diff(pos, append=torch.tensor(
+            [starts.numel()], device=pos.device))
+        flat = [v.view(-1) for v in leaves]
+        try:
+            torch.segment_reduce(flat[0][:8], "sum", lengths=torch.tensor(
+                [8], device=pos.device))
+            dtype_note = "native"
+        except RuntimeError:
+            flat = [v.double() for v in flat]
+            dtype_note = "float64 copies (int64 refused)"
+        rec["library_ms"] = timed(lambda: [
+            torch.segment_reduce(v, "sum", lengths=lengths) for v in flat],
+            reps=3)
+        rec["notes"]["library"] = "segment_reduce_%s" % dtype_note.replace(
+            " ", "_")
+        del flat, lengths, pos
+    print_phase("segmented_merge %s" % label, rec)
+    return rec
+
+
+def k14_phases(K, dev, b8):
+    """K14 at the main paths' shape (8 x 8,388,608 rows) against its plain
+    version: (a) bench keys sorted per shard (<= 65,536 runs) with the
+    (v, 1) int64 add; (b) one run a shard; (c) TPC-H Q1's six leaves (5
+    int64, 1 float64) over Q1's four runs a shard; (d) an argmax merge;
+    (e) (a) with one shard empty.  `b8` is the plain scan of the
+    vmapped merge at (a)'s shape (plain_phases)."""
+    from dpark_tpu_torch.backend.cuda import collectives
+    keys, vals = bench_data()
+    order = np.argsort(keys.reshape(N_SHARDS, CAP), axis=1, kind="stable")
+    k = torch.from_numpy(np.take_along_axis(
+        keys.reshape(N_SHARDS, CAP), order, 1)).to(dev)
+    v = torch.from_numpy(vals.reshape(N_SHARDS, CAP)).to(dev)
+    del keys, vals, order
+    ones = torch.ones_like(v)
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    starts = collectives._starts([k])
+    del k
+    pair = k14_program(_pair_sum, (np.int64, np.int64))
+    k14_case(K, "(a) bench runs, (v, 1) add", pair, starts, n, [v, ones],
+             notes={"b8_plain_scan_ms": "%.4f" % b8["ms"]})
+    one = torch.zeros_like(starts)
+    one[:, 0] = True
+    k14_case(K, "(b) one run a shard", pair, one, n, [v, ones])
+    n_e = n.clone()
+    n_e[3] = 0
+    k14_case(K, "(e) shard 3 empty", pair, starts, n_e, [v, ones],
+             library=False)
+    gen = torch.Generator(device=dev).manual_seed(20261027)
+    val = torch.randn((N_SHARDS, CAP), generator=gen, device=dev,
+                      dtype=torch.float64)
+    idx = torch.arange(N_SHARDS * CAP, device=dev).view(N_SHARDS, CAP)
+    k14_case(K, "(d) argmax", k14_program(_argmax_merge,
+                                          (np.int64, np.float64)),
+             starts, n, [idx, val], library=False)
+    del v, ones, one, val, idx, starts
+    # Q1's runs: N-O about half a shard, A-F and R-F a quarter, N-F <1%
+    bounds = [0, int(CAP * 0.2477), int(CAP * 0.4954), int(CAP * 0.5037)]
+    q_starts = torch.zeros((N_SHARDS, CAP), dtype=torch.bool, device=dev)
+    q_starts[:, bounds] = True
+    qty = torch.randint(1, 51, (N_SHARDS, CAP), generator=gen, device=dev)
+    price = qty * torch.randint(90100, 209_899, (N_SHARDS, CAP),
+                                generator=gen, device=dev)
+    disc = torch.randint(0, 11, (N_SHARDS, CAP), generator=gen, device=dev)
+    tax = torch.randint(0, 9, (N_SHARDS, CAP), generator=gen, device=dev)
+    dprice = price * (100 - disc)
+    leaves = [qty, price, dprice, dprice * (100 + tax), disc.double() / 100,
+              torch.ones_like(qty)]
+    del disc, tax
+    q1 = k14_program(q1_merge, (np.int64,) * 4 + (np.float64, np.int64))
+    rec = k14_case(K, "(c) tpch q1 6 leaves", q1, q_starts, n, leaves)
+    del leaves, qty, price, dprice, q_starts
+    torch.cuda.empty_cache()
+    return {"segmented_merge": rec}
+
+
+# ----------------------------------------------------------------------
+# TPC-H Q1 as a dpark job: filter -> map -> reduceByKey (a six-leaf tuple
+# merge over 4 hot keys) -> mapValues -> collect
+# ----------------------------------------------------------------------
+def q1_filter(r):
+    return r[2] <= Q1_SHIP_CUTOFF
+
+
+def q1_map(r):
+    """((returnflag, linestatus), (quantity, base price, discounted price
+    x 100, charge x 10^4, discount, 1)); prices in cents."""
+    price, disc, tax = r[4], r[5], r[6]
+    return ((r[0], r[1]), (r[3], price, price * (100 - disc),
+                           price * (100 - disc) * (100 + tax),
+                           disc / 100.0, 1))
+
+
+def q1_merge(a, b):
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def q1_outputs(v):
+    """Q1's eight columns: sum_qty, sum_base_price, sum_disc_price,
+    sum_charge, avg_qty, avg_price, avg_disc, count_order."""
+    return (v[0], v[1], v[2], v[3], v[0] / v[5], v[1] / v[5], v[4] / v[5],
+            v[5])
+
+
+def q1_job(ctx, data, parts):
+    """Q1 over the lineitem columns of tpch_q1_data on `parts`
+    partitions; its collect gives ((flag, status), eight columns)."""
+    from dpark_tpu_torch import Columns
+    return (ctx.parallelize(Columns(*data), parts).filter(q1_filter)
+            .map(q1_map).reduceByKey(q1_merge, parts).mapValues(q1_outputs))
+
+
+def tpch_q1_data(sf=None, seed=20261026):
+    """TPC-H lineitem's Q1 columns at scale factor `sf` by the
+    specification's row rules (section 4.2.3), int64: (l_returnflag,
+    l_linestatus, l_shipdate, l_quantity, l_extendedprice (cents),
+    l_discount (percent), l_tax (percent)), flags as character codes,
+    dates in days since 1992-01-01.  Its own seed: tpch_data's draws stay
+    as they are.
+
+    1,500,000 sf orders, o_orderdate uniform in [1992-01-01, 1998-08-02],
+    1-7 lines each; l_shipdate = orderdate + [1, 121] days, l_receiptdate
+    = shipdate + [1, 30]; l_returnflag R or A when receiptdate <=
+    1995-06-17, else N; l_linestatus O when shipdate > 1995-06-17, else F;
+    l_quantity in 1-50, l_discount 0-10, l_tax 0-8; l_extendedprice =
+    quantity x p_retailprice of a partkey uniform in [1, 200,000 sf]."""
+    sf = TPCH_SF if sf is None else sf
+    rng = np.random.default_rng(seed)
+    n_orders = int(1_500_000 * sf)
+    odate = rng.integers(0, Q1_ORDER_LAST + 1, n_orders)
+    ship = np.repeat(odate, rng.integers(1, 8, n_orders))
+    del odate
+    n = len(ship)
+    ship += rng.integers(1, 122, n)
+    receipt = ship + rng.integers(1, 31, n)
+    flag = np.where(receipt <= Q1_CURRENT,
+                    np.where(rng.integers(0, 2, n) == 1, ord("R"), ord("A")),
+                    ord("N")).astype(np.int64)
+    del receipt
+    status = np.where(ship > Q1_CURRENT, ord("O"), ord("F")).astype(np.int64)
+    qty = rng.integers(1, 51, n)
+    partkey = rng.integers(1, int(200_000 * sf) + 1, n)
+    price = qty * (90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000))
+    del partkey
+    return (flag, status, ship, qty, price, rng.integers(0, 11, n),
+            rng.integers(0, 9, n))
+
+
+def q1_numpy(data):
+    """Q1 in numpy: {(flag, status): eight columns}, the sums exact in
+    int64 (guarded against overflow), sum_disc a float64 sum."""
+    flag, status, ship, qty, price, disc, tax = data
+    keep = ship <= Q1_SHIP_CUTOFF
+    dprice = price * (100 - disc)
+    charge = dprice * (100 + tax)
+    group = flag * 256 + status
+    out = {}
+    for g in np.unique(group[keep]):
+        m = keep & (group == g)
+        cnt = int(m.sum())
+        if int(charge[m].max()) * cnt >= 2 ** 63:
+            fail("q1: sum_charge could overflow int64")
+        sq, sp = int(qty[m].sum()), int(price[m].sum())
+        sdp, sc = int(dprice[m].sum()), int(charge[m].sum())
+        sd = float((disc[m] / 100.0).sum())
+        out[(int(g) // 256, int(g) % 256)] = (
+            sq, sp, sdp, sc, sq / cnt, sp / cnt, sd / cnt, cnt)
+    return out
+
+
+def check_q1(what, got, want, rtol):
+    """Q1's integer columns exactly, its float columns within rtol."""
+    got = dict(got)
+    if sorted(got) != sorted(want):
+        fail("%s: groups %s, numpy %s" % (what, sorted(got), sorted(want)))
+    for key, w in want.items():
+        g = got[key]
+        ints = [0, 1, 2, 3, 7]
+        if any(int(g[i]) != w[i] or isinstance(g[i], float) for i in ints):
+            fail("%s: group %s integer columns %s, numpy %s"
+                 % (what, key, g, w))
+        for i in (4, 5, 6):
+            if abs(g[i] - w[i]) > rtol * abs(w[i]):
+                fail("%s: group %s column %d %r, numpy %r"
+                     % (what, key, i, g[i], w[i]))
+
+
+def tpch_q1_path(data):
+    """TPC-H Q1 on gpu:8 at SF 10: every stage on the tensor path, every
+    merge K14 (no plain scan), the eight columns of each (returnflag,
+    linestatus) group equal to numpy's (integer sums exactly, sum_disc
+    within K14_FLOAT_RTOL)."""
+    from dpark_tpu_torch import DparkContext
+    ctx = DparkContext("gpu:8")
+    with no_plain_scan("tpch q1 gpu:8"):
+        got = act("gpu:8 tpch q1 collect",
+                  q1_job(ctx, data, N_SHARDS).collect)
+    check_stages(ctx, "tpch q1")
+    check_merge_routes(ctx, "tpch q1")
+    ctx.stop()
+    want = q1_numpy(data)
+    check_q1("tpch q1", got, want, K14_FLOAT_RTOL)
+    for key, cols in sorted(dict(got).items()):
+        print("q1 %s%s: %s" % (chr(key[0]), chr(key[1]),
+                               " ".join(repr(c) for c in cols)), flush=True)
 
 
 def tpch_data(sf=None, seed=20261024):
@@ -1959,11 +2290,13 @@ def spilled_reduce_path(keys, vals):
         if len(got) != KEYS or not np.array_equal(sums[gk], gv) \
                 or len(np.unique(gk)) != KEYS:
             fail("spilled reduceByKey differs from numpy")
-        got = act("gpu:8 tuple reduceByKey(%d) spilled collect"
-                  % SPILL_PARTS,
-                  src.map(lambda kv: (kv[0], (kv[1], 1)))
-                  .reduceByKey(_pair_sum, SPILL_PARTS).collect)
+        with no_plain_scan("tuple reduceByKey spilled gpu:8"):
+            got = act("gpu:8 tuple reduceByKey(%d) spilled collect"
+                      % SPILL_PARTS,
+                      src.map(lambda kv: (kv[0], (kv[1], 1)))
+                      .reduceByKey(_pair_sum, SPILL_PARTS).collect)
         st = check_streamed(ctx, "tuple reduceByKey spilled", "host_runs")
+        check_merge_routes(ctx, "tuple reduceByKey spilled")
         print_stream("gpu:8 tuple reduceByKey spilled", st)
         if len(got) != KEYS or any(
                 (s_, n_) != (int(sums[k_]), int(lens[k_]))
@@ -2169,7 +2502,8 @@ def main():
     phases = kernel_phases(K, dev)
     phases.update(sort_kernel_phases(K, dev))
     phases.update(seg_kernel_phases(K, dev))
-    plain_phases(dev)
+    b8, _ = plain_phases(dev)
+    phases.update(k14_phases(K, dev, b8))
 
     launches = {}
 
@@ -2217,6 +2551,16 @@ def main():
             Columns(data[0], data[1]), 8).join(ctx.parallelize(
                 Columns(data[2], data[3]), 8), 8).count)
     del data
+
+    t0 = time.perf_counter()
+    q1 = tpch_q1_data()
+    print("tpch q1: SF %d, %d lines, generated in %.1f s" % (
+        TPCH_SF, len(q1[0]), time.perf_counter() - t0), flush=True)
+    drive("tpch q1 gpu:8", tpch_q1_path, q1)
+    profile_first_action(
+        "gpu:8 tpch q1 collect",
+        lambda ctx: q1_job(ctx, q1, N_SHARDS).collect)
+    del q1
 
     t0 = time.perf_counter()
     graph = kronecker_graph(GRAPH_SCALE, EDGE_FACTOR)

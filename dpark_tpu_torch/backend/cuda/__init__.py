@@ -5,7 +5,9 @@ dpark_tpu/backend/tpu/__init__.py; TPUScheduler becomes GPUScheduler).
 A stage the tensor path cannot admit runs the host object path inline,
 and its record carries the reason (`fallback_reason`); a reduce stage
 over spilled runs reads them on the host by design (`reads`, no
-reason).  Before it runs, a join or cogroup whose inputs are
+reason).  A stage that merges with a traced user merge records each
+merge's route (`merge_route`: "K14", or why the merge kept the plain
+scan).  Before it runs, a join or cogroup whose inputs are
 device-resident no-combine shuffles is computed on the device and seeds
 the partition cache (`device_precompute` in the record), so only the
 group merge runs in Python.
@@ -296,5 +298,8 @@ class GPUScheduler(DAGScheduler):
                 assert isinstance(task, ResultTask)
                 value = task.func(iter(result[task.partition]))
                 report(task, "success", (value, {}, {}))
+        routes = self.executor.merge_routes(plan)
+        if routes:
+            note["merge_route"] = routes
         note["run_seconds"] = round(time.time() - t0, 6)
         self.note_stage(stage.id, **note)

@@ -29,7 +29,8 @@ import torch
 
 from dpark_tpu_torch.bagel import (
     PREGEL_MONOIDS, PregelInputError, as_leaves, rewrap)
-from dpark_tpu_torch.backend.cuda import collectives, kernels, layout
+from dpark_tpu_torch.backend.cuda import (collectives, kernels, layout,
+                                         merge_program)
 from dpark_tpu_torch.backend.cuda.fuse import _as_leaf, python_float_semantics
 from dpark_tpu_torch.utils.phash import phash_np
 
@@ -118,6 +119,9 @@ class DevicePregel:
         self.compute = compute
         self.send = send
         self.combine = combine
+        # the merge of tuple or narrow messages, as a function K14's
+        # programs memoise on
+        self._merge = merge_program.lowerable(self._combine_leaves)
         self.aggregator = aggregator
         self.max_superstep = max_superstep
         t0 = time.perf_counter()
@@ -126,9 +130,9 @@ class DevicePregel:
         self.stats = {"setup_seconds": time.perf_counter() - t0,
                       "cap_v": self.cap_v, "cap_e": self.cap_e}
 
-    def _merge(self, a, b):
-        """The message monoid over leaf lists (the scan route of tuple or
-        narrow messages)."""
+    def _combine_leaves(self, a, b):
+        """The message monoid over leaf lists (the merge of tuple or
+        narrow messages: K14, collectives._merge_runs)."""
         return [_COMBINE[self.combine](x, y) for x, y in zip(a, b)]
 
     # ------------------------------------------------------------------

@@ -22,7 +22,7 @@ The model is the reference's:
 * **Messages are data.**  Emitted messages leave compute as (dst,
   value-leaf) columns; K11 packs the kept ones of every (class, mail)
   block, K1-K5 pre-combine them per target and bucket them by hash(dst),
-  K4 exchanges them, K5 + K3 (or B8's scan for a traced merge) combine
+  K4 exchanges them, K5 + K3 (K14 first for a traced merge) combine
   them, and K10 delivers them into every class slice.
 
 What falls back and what propagates (ROADMAP C8): the host loop answers
@@ -41,7 +41,8 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from dpark_tpu_torch.backend.cuda import collectives, kernels, layout
+from dpark_tpu_torch.backend.cuda import (collectives, kernels, layout,
+                                         merge_program)
 from dpark_tpu_torch.backend.cuda.fuse import python_float_semantics
 from dpark_tpu_torch.utils import pytree
 from dpark_tpu_torch.utils.monoid import monoid_identity
@@ -329,6 +330,8 @@ class DeviceObjectPregel:
             self._class_min_deg[w] = d if cur is None else min(cur, d)
         self._discover_mspec(pend)
         self._setup_merge()
+        # a function K14's programs memoise on (a bound method cannot)
+        self._merge = merge_program.lowerable(self._merge_leaves)
         if bucketed:
             self._bucket_canary(0)
 
@@ -449,7 +452,7 @@ class DeviceObjectPregel:
         """The message combine: a classified monoid per leaf when the
         value is a single (scalar or vector) leaf; otherwise the user's
         op as a structure-preserving merge over the leaf tuple, vmapped
-        over rows (collectives' scan route)."""
+        over rows (lowered for K14 by collectives._merge_runs)."""
         from dpark_tpu_torch.bagel import PREGEL_MONOIDS
         if self.nm == 1 and self.monoid in PREGEL_MONOIDS:
             self._mmerge = None
@@ -492,8 +495,10 @@ class DeviceObjectPregel:
         self.monoid = None
         self._mmerge = merged
 
-    def _merge(self, a, b):
-        """The message combine over leaf lists (the scan route)."""
+    def _merge_leaves(self, a, b):
+        """The message combine over leaf lists (the merge of K14,
+        collectives._merge_runs, when no single-leaf monoid classifies
+        it)."""
         if self._mmerge is not None:
             return self._mmerge(a, b)
         return [_COMBINE[self.monoid](x, y) for x, y in zip(a, b)]

@@ -17,15 +17,20 @@ rows (``n`` an ``(N,)`` int32 tensor) instead of a validity mask:
   padded groups of a size class  K8 bucket_gather (and bucket_scatter)
   join match ranges, expansion   K12 join_ranges, join_expand
   fold logical partitions        K13 rid_fold (spilled-run stream)
+  merge runs by a traced merge   K14 segmented_merge, then K3 "last"
 
-The traced segmented scan of an unclassified user merge
-(segmented_combine) stays PyTorch in this slice.
+A user merge that is not a classified single-leaf monoid is traced and
+lowered into a register program once, when it is probed
+(merge_program.py); K14 runs the program.  A merge the lowering refuses
+keeps the plain segmented scan of the vmapped merge (segmented_combine)
+on the same device.
 """
 
 import torch
 
 from dpark_tpu_torch.backend.cuda import kernels
 from dpark_tpu_torch.backend.cuda import layout
+from dpark_tpu_torch.backend.cuda import merge_program
 
 
 def _sentinel(dtype):
@@ -168,31 +173,8 @@ def _starts(key_cols):
     return start
 
 
-def segmented_combine(starts, val_leaves, merge_leaves):
-    """Inclusive segmented scan per shard: scanned[i] = the user merge
-    over its run's values from the run start through i, as log2(cap)
-    Hillis-Steele steps of the vmapped merge."""
-    vals = list(val_leaves)
-    N, cap = starts.shape
-    idx = torch.arange(cap, device=starts.device)
-    f = starts.clone()
-    d = 1
-    while d < cap:
-        prev = [torch.cat([v[:, :d], v[:, :-d]], 1) for v in vals]
-        flat = lambda xs: [x.reshape((N * cap,) + tuple(x.shape[2:]))
-                           for x in xs]
-        merged = merge_leaves(flat(prev), flat(vals))
-        upd = (~f) & (idx[None, :] >= d)
-        new = []
-        for v, m in zip(vals, merged):
-            m = m.reshape(v.shape).to(v.dtype)
-            u = upd.view(upd.shape + (1,) * (v.dim() - 2))
-            new.append(torch.where(u, m, v))
-        vals = new
-        fprev = torch.cat([f[:, :d], f[:, :-d]], 1)
-        f = f | (fprev & (idx[None, :] >= d))
-        d *= 2
-    return vals
+# the scan of the vmapped merge: the route of a merge that is not lowered
+segmented_combine = kernels.segmented_scan
 
 
 def _monoid_ok(monoid, val_leaves):
@@ -203,16 +185,26 @@ def _monoid_ok(monoid, val_leaves):
 def _merge_runs(key_cols, fills, val_leaves, n, merge_leaves, monoid,
                 dst_col=None, n_dst=0):
     """K3 over rows sorted by key_cols: a classified monoid reduces in the
-    kernel; an unclassified merge runs the traced scan first and K3 keeps
-    each run's last scanned value."""
+    kernel; any other merge leaves each run's merge at its last row
+    first -- K14 over the merge's program, or the scan of the vmapped
+    merge when it has none -- and K3 keeps those rows.  Every traced
+    merge of the port reaches K14 here."""
     if _monoid_ok(monoid, val_leaves):
         return kernels.reduce_by_key_compact(
             key_cols, fills, val_leaves, n, monoid, dst_col, n_dst)
-    # leafless values (distinct's (x, None)) have nothing to scan
-    scanned = segmented_combine(_starts(key_cols), val_leaves,
-                                merge_leaves) if val_leaves else []
+    merged = []
+    # leafless values (distinct's (x, None)) have nothing to merge
+    if val_leaves:
+        starts = _starts(key_cols)
+        program = merge_program.program_for(
+            merge_leaves, merge_program.signature(val_leaves))
+        if program is not None:
+            merged = kernels.segmented_merge(
+                starts, n, [v.contiguous() for v in val_leaves], program)
+        else:
+            merged = segmented_combine(starts, val_leaves, merge_leaves)
     return kernels.reduce_by_key_compact(
-        key_cols, fills, [s.contiguous() for s in scanned], n, "last",
+        key_cols, fills, [s.contiguous() for s in merged], n, "last",
         dst_col, n_dst)
 
 
@@ -254,9 +246,9 @@ def bucketize_combine_rid(rid, key_cols, val_leaves, n, n_dst,
     """Map-side pre-combine of the spilled-run stream (B12; more logical
     partitions than shards): K13 folds each row's logical partition `rid`
     ((N, cap) int32 in [0, r)) onto its shard dev = rid % n_dst; K5 passes
-    sort by (rid, key columns) and K2's partition by dev; K3 (after the
-    traced scan for an unclassified merge) merges rows equal in (rid,
-    every key column) and packs them, with per-shard counts.  The rows
+    sort by (rid, key columns) and K2's partition by dev; K3 (after K14
+    for a traced merge) merges rows equal in (rid, every key column) and
+    packs them, with per-shard counts.  The rows
     sort by the TRUE key columns, never by a key hash: the spilled runs'
     premerge and the export's adjacent fold rely on lexicographic run
     order.  Returns ([rid', key cols'...] + vals', counts (N, n_dst),

@@ -587,6 +587,27 @@ class TorchExecutor:
             monoid = None
         return merge_fn, monoid
 
+    @staticmethod
+    def merge_routes(plan):
+        """The routes of the traced merges a stage ran ("K14", or why the
+        merge kept the plain scan), by side: "read" for the merge of its
+        combining shuffle source, "write" for its shuffle write's; a side
+        that a classified single-leaf monoid merges (K3) is left out."""
+        routes = {}
+        if plan.src_merge is not None:
+            vals = plan.in_specs[plan.src_nk:]
+            monoid = fuse.classify_merge(
+                plan.source[1].aggregator.merge_combiners)
+            if not (monoid is not None and len(vals) == 1 and np.dtype(
+                    vals[0][0]) in (np.dtype(np.int64),
+                                    np.dtype(np.float64))):
+                routes["read"] = getattr(plan.src_merge, "route", None)
+        if plan.merge_probe is not None:
+            merge_fn, monoid = plan.merge_probe
+            if merge_fn is not None and monoid is None:
+                routes["write"] = getattr(merge_fn, "route", None)
+        return routes
+
     def _merge_probe(self, plan):
         """_epilogue_merge once a plan (a stream probes it every wave)."""
         if plan.merge_probe is None:
@@ -805,7 +826,7 @@ class TorchExecutor:
         """The received rows and the running state, merged into the new
         per-shard unique-key state: both padded with the key sentinel in
         key column 0, side by side, then K5's key sort and K3's merge
-        (the traced scan first for an unclassified merge)."""
+        (K14 first for a traced merge)."""
         nk = plan.epi_nk
         if state is not None:
             st_leaves, st_n = state
@@ -878,8 +899,8 @@ class TorchExecutor:
         return layout.Batch(treedef, list(packed), rn)
 
     def _prereduce_received(self, plan, recv, rn, merge_fn, monoid):
-        """A wave's received rows merged per (rid, key) (K5 + K3, the
-        traced scan first for an unclassified merge): the spilled runs
+        """A wave's received rows merged per (rid, key) (K5 + K3, K14
+        first for a traced merge): the spilled runs
         hold one combiner a distinct key a wave."""
         nk = plan.epi_nk
         ks, vs, n = collectives.segment_reduce_keys(

@@ -35,7 +35,7 @@ import torch
 from torch.func import vmap
 
 from dpark_tpu_torch import conf
-from dpark_tpu_torch.backend.cuda import kernels, layout
+from dpark_tpu_torch.backend.cuda import kernels, layout, merge_program
 from dpark_tpu_torch.dependency import HashPartitioner, RangePartitioner
 from dpark_tpu_torch.rdd import (
     CoGroupedRDD, FilteredRDD, FlatMappedValuesRDD, KeyedRDD, MappedRDD,
@@ -282,7 +282,9 @@ class SortOp:
 def _leaves_merge_fn(merge, record_treedef):
     """User merge_combiners (value, value) -> value lifted to leaf lists
     and vmapped.  The value's real structure is rebuilt before calling
-    the user function (a nested accumulator sees its own shape)."""
+    the user function (a nested accumulator sees its own shape).  The
+    returned function carries its K14 programs (merge_program.program_for:
+    `programs` by leaf signature, `route`)."""
     if isinstance(record_treedef, tuple) and len(record_treedef) == 2:
         vdef = layout._renumber(record_treedef[1])     # (k, value)
         nleaves = layout.num_leaves(vdef)
@@ -313,21 +315,28 @@ def _leaves_merge_fn(merge, record_treedef):
     def merged(va_leaves, vb_leaves):
         with python_float_semantics():
             return list(vfn(*(list(va_leaves) + list(vb_leaves))))
+    merged.route = None
     return merged
 
 
 def probe_merge(merge, treedef, specs, nk):
     """The vmapped merge when it traces on the value specs and keeps
-    their leaf count, else None."""
+    their leaf count, else None.  The merge is lowered here, once, for
+    the value specs (K14's program, or the reason it stays on the plain
+    scan: merge_fn.route)."""
     try:
         merge_fn = _leaves_merge_fn(merge, treedef)
         sample = _sample(specs[nk:])
         out = merge_fn(sample, sample)
         if len(out) != len(specs) - nk:
             return None
-        return merge_fn
     except Exception:        # user code: any failure means "not traceable"
         return None
+    if out:
+        merge_program.program_for(merge_fn, tuple(
+            (layout.torch_dtype(dt), tuple(shape))
+            for dt, shape in specs[nk:]))
+    return merge_fn
 
 
 def _subscript_const_index(f):

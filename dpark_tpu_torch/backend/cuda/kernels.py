@@ -16,6 +16,8 @@ Kernels (sources under csrc/, one shared library each):
   K11 obj_emit_pack         csrc/obj_emit_pack.cu
   K12 join_ranges           csrc/join_expand.cu (with join_expand)
   K13 rid_fold              csrc/rid_fold.cu
+  K14 segmented_merge       csrc/segmented_merge.cu (a traced merge's
+                            register program, merge_program.py)
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -56,6 +58,7 @@ SOURCES = {
     "obj_emit_pack": "obj_emit_pack.cu",
     "join_expand": "join_expand.cu",
     "rid_fold": "rid_fold.cu",
+    "segmented_merge": "segmented_merge.cu",
 }
 # launch counters: one per entry point (K8's and K12's libraries hold two)
 LAUNCHES = {name: 0 for name in SOURCES
@@ -194,6 +197,9 @@ def _bind(name, lib):
     elif name == "rid_fold":
         fn = lib.dpk_rid_fold
         fn.argtypes = [_P, _P, _I, _L, _I, _P, _P, _P, _P]
+    elif name == "segmented_merge":
+        fn = lib.dpk_segmented_merge
+        fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _L, _P, _L, _P]
     elif name == "join_expand":
         ranges = lib.dpk_join_ranges
         ranges.argtypes = [_P, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P,
@@ -1454,3 +1460,99 @@ def rid_fold(rid, n, n_dst):
             dev.data_ptr(), rid64.data_ptr(), hist.data_ptr(), _stream())
     _check("rid_fold", rc)
     return dev, rid64, hist
+
+
+# ---------------------------------------------------------------------
+# K14 segmented_merge
+# ---------------------------------------------------------------------
+K14_ROWS_PER_THREAD = 8       # K14_C of csrc/segmented_merge.cu
+_K14_TYPES = {torch.int64: 0, torch.int32: 1, torch.float64: 2,
+              torch.float32: 3, torch.bool: 4}
+
+
+def segmented_scan(starts, val_leaves, merge_leaves):
+    """Inclusive segmented scan per shard: scanned[i] = the merge over its
+    run's values from the run start through i, as log2(cap) Hillis-Steele
+    steps of merge_leaves (leaf lists of rows -> merged leaf lists), each
+    result cast to its leaf's dtype."""
+    vals = list(val_leaves)
+    N, cap = starts.shape
+    idx = torch.arange(cap, device=starts.device)
+    f = starts.clone()
+    d = 1
+    while d < cap:
+        prev = [torch.cat([v[:, :d], v[:, :-d]], 1) for v in vals]
+        flat = lambda xs: [x.reshape((N * cap,) + tuple(x.shape[2:]))
+                           for x in xs]
+        merged = merge_leaves(flat(prev), flat(vals))
+        upd = (~f) & (idx[None, :] >= d)
+        new = []
+        for v, m in zip(vals, merged):
+            m = m.reshape(v.shape).to(v.dtype)
+            u = upd.view(upd.shape + (1,) * (v.dim() - 2))
+            new.append(torch.where(u, m, v))
+        vals = new
+        fprev = torch.cat([f[:, :d], f[:, :-d]], 1)
+        f = f | (fprev & (idx[None, :] >= d))
+        d *= 2
+    return vals
+
+
+def segmented_merge_plain(starts, n, leaves, program):
+    """The Hillis-Steele scan of segmented_scan with the program evaluated
+    in torch in place of the user merge: every row holds its run's merge
+    through it (rows >= n[s] included; nothing reads them)."""
+    return segmented_scan(starts, leaves, program.merge_leaves)
+
+
+def _k14_scratch_bytes(N, cap, S):
+    """dpk_segmented_merge_scratch: each level above the first holds its
+    (N, cap_l, S) int64 slots and (N, cap_l) flags (8-byte aligned)."""
+    total, c = 0, cap
+    while c > K14_ROWS_PER_THREAD:
+        c = -(-c // K14_ROWS_PER_THREAD)
+        total += N * c * S * 8 + -(-N * c // 8) * 8
+    return total
+
+
+def segmented_merge(starts, n, leaves, program):
+    """K14: over key-sorted rows ((N, cap) bool run starts, row 0 always
+    a start; the first n[s] rows of shard s valid) and the value leaves
+    (N, cap, ...) that `program` (merge_program.Program) was lowered for,
+    each run's last valid row of the returned leaves holds the run's
+    values merged left to right in row order, in the leaf's dtype.  Other
+    rows are unspecified (the plain version fills them with the running
+    merge).  Returns the merged leaves."""
+    leaves = list(leaves)
+    N, cap = starts.shape
+    _need(starts.dtype == torch.bool and starts.is_contiguous(),
+          "starts must be a contiguous (N, cap) bool tensor")
+    _check_cols(leaves, N, cap, "value leaves")
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    _need([(v.dtype, tuple(v.shape[2:])) for v in leaves] == [
+        (dt, tuple(shp)) for dt, shp in program.specs],
+          "the leaves are not those the program was lowered for")
+    if not _on_cuda([starts, n] + leaves):
+        return segmented_merge_plain(starts, n, leaves, program)
+    fn = _kernel("segmented_merge")
+    dev = starts.device
+    outs = [torch.empty_like(v) for v in leaves]
+    if cap == 0:
+        return outs
+    ins, ptrs, types, strides = [], [], [], []
+    for v, o in zip(leaves, outs):
+        w = _lanes(v)
+        for k in range(w):
+            ins.append(v.data_ptr() + k * v.element_size())
+            ptrs.append(o.data_ptr() + k * o.element_size())
+            types.append(_K14_TYPES[v.dtype])
+            strides.append(w)
+    S = len(ins)
+    nbytes = _k14_scratch_bytes(N, cap, S)
+    scratch = torch.empty((max(8, nbytes),), dtype=torch.uint8, device=dev)
+    rc = fn((ctypes.c_void_p * S)(*ins), (ctypes.c_void_p * S)(*ptrs),
+            (ctypes.c_int * S)(*types), (ctypes.c_int64 * S)(*strides), S,
+            program.device_words(dev).data_ptr(), starts.data_ptr(),
+            n.data_ptr(), N, cap, scratch.data_ptr(), nbytes, _stream())
+    _check("segmented_merge", rc)
+    return outs
