@@ -3,9 +3,10 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the fourteen CUDA
+1. prints the card's name and power limit, builds the fifteen CUDA
    kernel libraries from csrc/ (one nvcc each, all started together) and
-   prints the build time;
+   prints the build time, and fails unless the native host library
+   (dpark_tpu_torch/native, g++) built and loaded;
 2. holds each kernel (K1-K14) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows; K12 at
    the join path's), and times kernel, plain version, bound and library
@@ -14,13 +15,16 @@ NVIDIA GPU.
    traced merge's register program over each run) against its plain
    version in five cases (bench runs with a (v, 1) add, one run a shard,
    TPC-H Q1's six leaves over its four runs, an argmax, an empty
-   shard); and holds the spilled-run combine (B12: K13 + K5 + K2 + K3)
-   and the reduce-side merge (B6: K5 + K3) against the same
+   shard); holds K15 (B14's masked min/max) against its plain version at
+   8 x 8,388,608 int64 rows with ragged counts over key-sentinel padding
+   and an empty shard; and holds the spilled-run combine (B12: K13 + K5
+   + K2 + K3) and the reduce-side merge (B6: K5 + K3) against the same
    compositions of the plain versions;
 3. drives the reduceByKey path through the public API: bench.py's data
    (64Mi int64 pairs over 65,536 keys) -> reduceByKey -> count / collect
    / top / reduce, a map+filter chain before the shuffle, on gpu:8 and
-   gpu, checked exactly against numpy;
+   gpu, checked exactly against numpy, with top(10, key=lambda kv: kv[1]
+   * 65536 + kv[0]) on the device through the ranged-int probe (K15);
 4. drives the sort path: 64Mi (random int64 key, row index) pairs ->
    sortByKey (both directions) -> count / top / collect on gpu:8 (range
    shuffle) and gpu (one in-place sort), collect checked row for row
@@ -60,7 +64,14 @@ NVIDIA GPU.
    seed): filter -> map -> reduceByKey of a six-leaf tuple over the
    (returnflag, linestatus) key -> mapValues -> collect, its integer
    sums exactly numpy's and sum_disc within 1e-8 relative, K14 on both
-   sides and no plain scan;
+   sides and no plain scan; then the reduceByKey gpu:8 count and the Q1
+   collect with the host-to-device wire narrowed (conf.NARROW_EXCHANGE)
+   and not, off, on, on, off; then HiBench's wordcount at its `large`
+   size on gpu:8: 3.2e9 bytes of text generated from a seed under
+   build/ (2^20 lowercase words under Zipf's law, 8 a line) ->
+   textFile -> flatMap(split) -> map((w, 1)) -> reduceByKey(add) ->
+   top(10) by count and collect, exactly numpy's counts, through the
+   canonical C++ tokenizer in text waves, K15 in the collect's egest;
 9. drives the out-of-core wave stream on gpu:8: reduceByKey(add, 8) over
    2^30 of bench.py's pairs (16 GiB of columns; halved, and the cut
    printed, when the host's available memory is under three times that)
@@ -87,13 +98,18 @@ NVIDIA GPU.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 `python3 chip_smoke.py --stream-only` builds the kernels and runs only
-the wave stream's phases and paths (9), printing no result line.
+the wave stream's phases and paths (9), printing no result line;
+`--text-only` runs only K15's phase, the reduceByKey gpu:8 path, the
+narrowing timings and the wordcount (no result line).
 """
 
+import collections
+import concurrent.futures
 import contextlib
 import json
 import math
 import operator
+import os
 import resource
 import subprocess
 import sys
@@ -147,17 +163,26 @@ SOURCES = {
     "segmented_merge": (
         "dpark_tpu_torch/backend/cuda/csrc/segmented_merge.cu",
         "dpark_tpu/backend/tpu/collectives.py:303"),
+    "column_ranges": ("dpark_tpu_torch/backend/cuda/csrc/column_ranges.cu",
+                      "dpark_tpu/backend/tpu/executor.py:960"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
                   "bucket_scatter"]
 # the kernels each driven path must launch
 PATH_KERNELS = {
+    # the ranged-int top reads K15's per-column ranges
     "reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
                           "reduce_by_key_compact", "shard_exchange",
-                          "radix_sort"],
+                          "radix_sort", "column_ranges"],
     "reduceByKey gpu": ["hash_dst_hist", "stable_partition",
-                        "reduce_by_key_compact", "radix_sort"],
+                        "reduce_by_key_compact", "radix_sort",
+                        "column_ranges"],
+    # each text wave: K1, K5, K2, K3 combine, K4, K5 + K3 into the state;
+    # the collect's egest narrows through K15
+    "wordcount gpu:8": ["hash_dst_hist", "stable_partition",
+                        "reduce_by_key_compact", "shard_exchange",
+                        "radix_sort", "column_ranges"],
     "sort gpu:8": ["range_dst_hist", "stable_partition", "shard_exchange",
                    "radix_sort"],
     "sort gpu": ["stable_partition", "radix_sort"],
@@ -246,7 +271,8 @@ LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "obj_emit_pack": "bagel gpu:8",
              "join_ranges": "join gpu:8", "join_expand": "join gpu:8",
              "rid_fold": "reduceByKey spilled gpu:8",
-             "segmented_merge": "tpch q1 gpu:8"}
+             "segmented_merge": "tpch q1 gpu:8",
+             "column_ranges": "wordcount gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 # Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
@@ -280,6 +306,15 @@ SPILL_CHUNK = 1 << 21              # rows a shard a wave: 4 waves
 SORT_SPILL_PAIRS = 1 << 23
 SORT_SPILL_PARTS = 32
 SORT_SPILL_CHUNK = 1 << 18         # 4 waves
+# HiBench's WordCount `large` profile (hibench.wordcount.large.datasize):
+# 3.2e9 bytes of text.  Its generator (RandomTextWriter) draws from a fixed
+# 1,000-word list; here words come from a seeded vocabulary of 2^20
+# lowercase ASCII words under Zipf's law with exponent 1, as in natural
+# text, 8 words a line, so the result has about a million rows
+WORDCOUNT_BYTES = 3_200_000_000
+VOCAB_WORDS = 1 << 20
+WORDS_PER_LINE = 8
+CORPUS_CHUNK_LINES = 1 << 20       # lines a generator task
 
 
 def fail(msg):
@@ -772,6 +807,16 @@ def main_path(master, keys, vals):
     order = np.argsort(-sums, kind="stable")[:10]
     if top != [(int(k), int(sums[k])) for k in order]:
         fail("%s top differs from numpy: %s" % (master, top))
+    # an integer key expression: the device top through the ranged-int
+    # probe (K15's per-column ranges prove it cannot leave int64)
+    top = act(master + " top ranged int",
+              lambda: r.top(10, key=lambda kv: kv[1] * 65536 + kv[0]))
+    kind = ctx.scheduler.history[-1]["stage_info"][-1]["kind"]
+    order = np.argsort(-(sums * 65536 + np.arange(KEYS)), kind="stable")[:10]
+    if kind != "array+top" or top != [(int(k), int(sums[k]))
+                                      for k in order]:
+        fail("%s ranged-int top (%s) differs from numpy: %s"
+             % (master, kind, top))
     total = act(master + " reduce",
                 lambda: r.map(lambda kv: kv[1]).reduce(add))
     kinds = [s["kind"] for s in ctx.scheduler.history[-1]["stage_info"]]
@@ -2412,6 +2457,229 @@ def stream_paths(drive):
         conf.STREAM_CHUNK_ROWS = old
 
 
+def column_ranges_phase(K, dev):
+    """K15 at the main shape: 8 x 8,388,608 random int64 rows, ragged
+    counts over key-sentinel padding, shard 3 empty; bound = the valid
+    rows' bytes; library = torch.aminmax over each shard's valid slice."""
+    rng = np.random.default_rng(20261029)
+    col = torch.from_numpy(rng.integers(INT64_MIN, INT64_MAX,
+                                        (N_SHARDS, CAP), dtype=np.int64))
+    n_host = np.array([CAP - s * (CAP // 16) for s in range(N_SHARDS)],
+                      np.int32)
+    n_host[3] = 0
+    col[torch.arange(CAP)[None, :] >= torch.from_numpy(n_host)[:, None]] = \
+        K.KEY_SENTINEL
+    col = col.to(dev)
+    n = torch.from_numpy(n_host).to(dev)
+    a = K.column_ranges([col], n)
+    b = K.column_ranges_plain([col], n)
+    err = max_err([("K15 ranges", a, b)])
+    host = col.cpu().numpy()
+    for s in range(N_SHARDS):
+        want = ([INT64_MAX, INT64_MIN] if not n_host[s] else
+                [host[s, :n_host[s]].min(), host[s, :n_host[s]].max()])
+        if a[0, s].tolist() != want:
+            fail("K15 shard %d: %s, numpy %s" % (s, a[0, s].tolist(), want))
+
+    def library():
+        return [torch.aminmax(col[s, :int(n_host[s])])
+                for s in range(N_SHARDS) if n_host[s]]
+    rec = {"max_abs_err": err,
+           "ms": timed(lambda: K.column_ranges([col], n)),
+           "plain_ms": timed(lambda: K.column_ranges_plain([col], n),
+                             reps=3),
+           "bound_ms": bound_ms(int(n_host.sum()) * 8),
+           "library_ms": timed(library),
+           "notes": {"valid_rows": int(n_host.sum())}}
+    print_phase("column_ranges", rec)
+    del col, a, b, host
+    torch.cuda.empty_cache()
+    return {"column_ranges": rec}
+
+
+def wordcount_vocab(seed=20261027):
+    """VOCAB_WORDS distinct lowercase ASCII words of 3-10 letters in a
+    seeded order, as (letters (V, 10) uint8, NUL past each word; lengths
+    (V,))."""
+    rng = np.random.default_rng(seed)
+    m = VOCAB_WORDS * 5 // 4
+    lens = rng.integers(3, 11, m)
+    letters = rng.integers(97, 123, (m, 10), dtype=np.uint8)
+    letters[np.arange(10)[None, :] >= lens[:, None]] = 0
+    words = np.unique(letters.view("S10").ravel())
+    if len(words) < VOCAB_WORDS:
+        fail("vocabulary: %d distinct words" % len(words))
+    words = words[rng.permutation(len(words))[:VOCAB_WORDS]]
+    table = np.frombuffer(words.astype("S10").tobytes(),
+                          np.uint8).reshape(-1, 10)
+    return table, (table != 0).sum(1)
+
+
+def corpus_chunk(table, lens, c):
+    """Chunk c of the corpus: CORPUS_CHUNK_LINES lines of WORDS_PER_LINE
+    words, each word's rank r in [0, V) drawn as floor((V + 1)^u) - 1, u
+    uniform (P(r) = ln((r + 2) / (r + 1)) / ln(V + 1): Zipf's law with
+    exponent 1); returns (bytes as uint8, the ranks)."""
+    rng = np.random.default_rng([20261028, c])
+    n = CORPUS_CHUNK_LINES * WORDS_PER_LINE
+    ids = np.floor(np.exp(rng.random(n) * math.log(VOCAB_WORDS + 1)))
+    ids = np.clip(ids.astype(np.int64) - 1, 0, VOCAB_WORDS - 1)
+    wl = lens[ids]
+    rec = np.zeros((n, 11), np.uint8)
+    rec[:, :10] = table[ids]
+    sep = np.full(n, ord(" "), np.uint8)
+    sep[WORDS_PER_LINE - 1::WORDS_PER_LINE] = ord("\n")
+    rec[np.arange(n), wl] = sep
+    return rec[np.arange(11)[None, :] <= wl[:, None]], ids
+
+
+def wordcount_corpus(path):
+    """Write WORDCOUNT_BYTES of corpus (through the first line end at or
+    past it) to `path`, its chunks generated on 8 threads; returns each
+    vocabulary word's count and the vocabulary (wordcount_vocab's
+    letters)."""
+    t0 = time.perf_counter()
+    table, lens = wordcount_vocab()
+    counts = np.zeros(VOCAB_WORDS, np.int64)
+    written = 0
+    with open(path, "wb") as f, \
+            concurrent.futures.ThreadPoolExecutor(8) as pool:
+        pending = collections.deque(
+            pool.submit(corpus_chunk, table, lens, c) for c in range(8))
+        c = 8
+        while written < WORDCOUNT_BYTES:
+            buf, ids = pending.popleft().result()
+            pending.append(pool.submit(corpus_chunk, table, lens, c))
+            c += 1
+            need = WORDCOUNT_BYTES - written
+            if len(buf) > need:
+                end = need - 1 + int(np.flatnonzero(buf[need - 1:] == 10)[0])
+                buf = buf[:end + 1]
+                ids = ids[:int(np.count_nonzero((buf == 32) | (buf == 10)))]
+            buf.tofile(f)
+            written += len(buf)
+            counts += np.bincount(ids, minlength=VOCAB_WORDS)
+        for fut in pending:
+            fut.cancel()
+    print("wordcount corpus: %d bytes, %d words, %d distinct, generated "
+          "in %.1f s" % (written, int(counts.sum()),
+                         int(np.count_nonzero(counts)),
+                         time.perf_counter() - t0), flush=True)
+    return counts, table
+
+
+def wordcount_path(path, counts, table):
+    """HiBench's wordcount on gpu:8: textFile -> flatMap(split) -> map((w,
+    1)) -> reduceByKey(add), then top(10) by count and collect, each equal
+    to numpy's counts of the drawn words; the map stage must read the
+    text through the canonical C++ tokenizer in waves (above
+    conf.STREAM_TEXT_BYTES) with no fallback reason."""
+    from dpark_tpu_torch import DparkContext
+    ctx = DparkContext("gpu:8")
+    r = (ctx.textFile(path).flatMap(lambda line: line.split())
+         .map(lambda w: (w, 1)).reduceByKey(operator.add))
+    nsplits = len(ctx.textFile(path).splits)
+    top = act("wordcount gpu:8 top", lambda: r.top(10, key=lambda kv: kv[1]))
+    check_stages(ctx, "wordcount top")
+    st = ctx.scheduler.history[-1]["stage_info"][0]
+    text = st.get("text", {})
+    pipe = st.get("pipeline", {})
+    if not (st.get("source") == "text" and text.get("canonical")
+            and text["cpp_splits"] == nsplits
+            and not text["prologue_splits"]
+            and pipe.get("waves", 0) >= 2
+            and st.get("stream") == "pre_reduced"):
+        fail("wordcount map stage: %s" % st)
+    print("wordcount gpu:8: splits=%d cpp_splits=%d tokenize_ms=%.1f "
+          "waves=%d ingest_ms=%.1f compute_ms=%.1f exchange_ms=%.1f "
+          "wall_ms=%.1f device_idle_frac=%.4f" % (
+              nsplits, text["cpp_splits"], text["tokenize_ms"],
+              pipe["waves"], pipe["ingest_ms"], pipe["compute_ms"],
+              pipe["exchange_ms"], pipe["wall_ms"],
+              pipe["device_idle_frac"]), flush=True)
+    words = table.view("S10").ravel()
+    order = np.argsort(-counts, kind="stable")[:10]
+    want = [(words[i].decode(), int(counts[i])) for i in order]
+    if top != want:
+        fail("wordcount top differs from numpy: %s, want %s" % (top, want))
+    got = act("wordcount gpu:8 collect", r.collect)
+    check_stages(ctx, "wordcount collect")
+    nz = np.flatnonzero(counts)
+    if len(got) != len(nz) or dict(got) != {
+            words[i].decode(): int(counts[i]) for i in nz.tolist()}:
+        fail("wordcount collect differs from numpy (%d rows, want %d)"
+             % (len(got), len(nz)))
+    print("wordcount gpu:8: %d words, top %s" % (len(got), top[:3]),
+          flush=True)
+    ctx.stop()
+
+
+def narrow_timings(keys, vals, q1):
+    """The first action of the reduceByKey gpu:8 count and of the Q1
+    collect with the host-to-device wire narrowed (conf.NARROW_EXCHANGE
+    on) and at int64, in the order off, on, on, off, a fresh context
+    each."""
+    from dpark_tpu_torch import Columns, DparkContext, conf
+    jobs = (("reduceByKey gpu:8 count", lambda ctx: ctx.parallelize(
+                Columns(keys, vals), N_SHARDS).reduceByKey(
+                    operator.add, N_SHARDS).count),
+            ("tpch q1 collect", lambda ctx: q1_job(ctx, q1,
+                                                   N_SHARDS).collect))
+    old = conf.NARROW_EXCHANGE
+    try:
+        for label, build in jobs:
+            secs, results = [], []
+            for on in (False, True, True, False):
+                conf.NARROW_EXCHANGE = on
+                ctx = DparkContext("gpu:8")
+                action = build(ctx)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results.append(action())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                check_stages(ctx, "narrow " + label)
+                ctx.stop()
+            if any(res != results[0] for res in results):
+                fail("narrow %s: results differ off and on" % label)
+            print("narrow %s: off=%.3f on=%.3f on=%.3f off=%.3f s" % (
+                (label,) + tuple(secs)), flush=True)
+    finally:
+        conf.NARROW_EXCHANGE = old
+
+
+def text_paths(drive, K, dev):
+    """K15's phase, the reduceByKey gpu:8 path with its ranged-int top,
+    the narrowing on/off timings and the wordcount path.  Returns K15's
+    phase record."""
+    phase = column_ranges_phase(K, dev)
+    keys, vals = bench_data()
+    drive("reduceByKey gpu:8", main_path, "gpu:8", keys, vals)
+    t0 = time.perf_counter()
+    q1 = tpch_q1_data()
+    print("tpch q1: SF %d, %d lines, generated in %.1f s" % (
+        TPCH_SF, len(q1[0]), time.perf_counter() - t0), flush=True)
+    narrow_timings(keys, vals, q1)
+    del keys, vals, q1
+    wordcount_drive(drive)
+    return phase
+
+
+def wordcount_drive(drive):
+    """Generate the corpus under build/ (ignored by git), drive the
+    wordcount path, remove the corpus."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "smoke_wordcount")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "corpus.txt")
+    try:
+        counts, table = wordcount_corpus(path)
+        drive("wordcount gpu:8", wordcount_path, path, counts, table)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+
+
 def profile_window(label, window, top=14):
     """Where the time of one window of device work goes, under
     torch.profiler: the wall time, the summed device time and the ops
@@ -2492,6 +2760,10 @@ def main():
     print("versions: python %s torch %s cuda %s" % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
     print("build: %.2f s" % K.build(), flush=True)
+    from dpark_tpu_torch import native
+    if native.get_lib() is None:
+        fail("the native host library (dpark_tpu_torch/native) did not "
+             "build or load")
     dev = torch.device("cuda")
     if sys.argv[1:] == ["--stream-only"]:
         # the wave stream's phases and paths alone (no result line)
@@ -2499,11 +2771,20 @@ def main():
         merge_phase(K, dev)
         stream_paths(lambda path, fn, *a: check_launches(path, fn, *a))
         return
+    if sys.argv[1:] == ["--text-only"]:
+        # K15, the ranged-int top, the narrowing timings and the wordcount
+        # alone (no result line)
+        text_paths(lambda path, fn, *a: check_launches(path, fn, *a), K,
+                   dev)
+        return
+    if sys.argv[1:]:
+        fail("unknown arguments %s" % sys.argv[1:])
     phases = kernel_phases(K, dev)
     phases.update(sort_kernel_phases(K, dev))
     phases.update(seg_kernel_phases(K, dev))
     b8, _ = plain_phases(dev)
     phases.update(k14_phases(K, dev, b8))
+    phases.update(column_ranges_phase(K, dev))
 
     launches = {}
 
@@ -2560,7 +2841,10 @@ def main():
     profile_first_action(
         "gpu:8 tpch q1 collect",
         lambda ctx: q1_job(ctx, q1, N_SHARDS).collect)
-    del q1
+    keys, vals = bench_data()
+    narrow_timings(keys, vals, q1)
+    del q1, keys, vals
+    wordcount_drive(drive)
 
     t0 = time.perf_counter()
     graph = kronecker_graph(GRAPH_SCALE, EDGE_FACTOR)

@@ -9,6 +9,9 @@
     final = Bagel.run(ctx, verts, msgs, compute,       # (id, Vertex) RDD
                       combiner=BasicCombiner(operator.add))
     li.join(od, 8).count()               # K12 expands the pairs
+    wc = (ctx.textFile(path).flatMap(lambda line: line.split())
+          .map(lambda w: (w, 1)).reduceByKey(add))
+    wc.top(10, key=lambda kv: kv[1])     # words encoded to ids on the card
 
 The package imports torch, never jax, and nothing of dpark_tpu.
 """

@@ -10,7 +10,9 @@ merge's route (`merge_route`: "K14", or why the merge kept the plain
 scan).  Before it runs, a join or cogroup whose inputs are
 device-resident no-combine shuffles is computed on the device and seeds
 the partition cache (`device_precompute` in the record), so only the
-group merge runs in Python.
+group merge runs in Python.  A text stage's record carries `source:
+"text"` and `text` (whether the C++ tokenizer ran, on how many splits,
+and the tokenize time).
 
 The out-of-memory ladder (port of TPUScheduler._run_degradable): a CUDA
 out-of-memory error, or the emulated ceiling of
@@ -193,14 +195,14 @@ class GPUScheduler(DAGScheduler):
         """When the stage's top RDD is a.join(b) that the device admits
         as a join source (fuse._analyze_join_source) but the stage runs
         on the host (a partial job, an op after the join the device
-        refuses), expand the pairs on the device and seed the join's
-        partitions."""
+        refuses, string keys encoded on both sides), expand the pairs on
+        the device and seed the join's partitions."""
         from dpark_tpu_torch.backend.cuda import fuse
         top = stage.rdd
         if not fuse.is_join(top) or _cached(top):
             return None
         joined, _ = fuse._analyze_join_source(
-            top, self.ndev, self.executor.shuffle_store)
+            top, self.ndev, self.executor.shuffle_store, allow_encoded=True)
         if joined is None:
             return None
         rows = self.executor.run_device_join(*joined[2])
@@ -271,6 +273,16 @@ class GPUScheduler(DAGScheduler):
         if self.executor.last_stream_stats is not None:
             note["pipeline"] = self.executor.last_stream_stats
             note["wave_budget"] = self.executor.last_wave_budget
+        text = self.executor.last_text_stats
+        if text is not None:
+            # which tokenizer ran: the verified C++ one ("canonical") on
+            # cpp_splits, the user's chain on prologue_splits
+            note["source"] = "text"
+            note["text"] = {
+                "canonical": text["canonical"] and text["cpp_splits"] > 0,
+                "cpp_splits": text["cpp_splits"],
+                "prologue_splits": text["prologue_splits"],
+                "tokenize_ms": round(text["tokenize_s"] * 1e3, 1)}
         if kind == "shuffle":
             store = self.executor.shuffle_store[result]
             note["hbm_bytes"] = store["nbytes"]

@@ -15,8 +15,15 @@ SegMapOp, K7's segment table first (_run_seg_map).  An a.join(b) source
 exchanges and sorts both no-combine sides, then K12 finds each A row's
 range of equal B keys and expands the pairs (device_join_batch).
 
-A columnar input above the wave threshold feeding a shuffle write
-streams in waves (_stream_mode).  With at most one logical partition a
+A "text" source runs the stage's narrow chain over a text file on the
+host a split at a time (the C++ tokenizer for the verified canonical
+wordcount, the user's generators otherwise), encodes string keys to
+int64 ids in the executor's token dict, and ingests the columns; every
+host exit of an encoded store decodes the ids (_maybe_decode).
+
+A columnar input above the wave threshold, or text above
+conf.STREAM_TEXT_BYTES, feeding a shuffle write streams in waves
+(_stream_mode).  With at most one logical partition a
 shard and a usable merge, each wave's combined map output merges into a
 per-shard state on the device (B6: K5 + K3), registered as a
 `pre_reduced` store whose reduce side needs no exchange.  Otherwise
@@ -34,6 +41,7 @@ error: a failed kernel propagates (the scheduler's out-of-memory ladder
 retries a stage whose allocation failed).
 """
 
+import concurrent.futures
 import itertools
 import os
 import pickle
@@ -50,7 +58,7 @@ import torch
 
 from dpark_tpu_torch import conf
 from dpark_tpu_torch.backend.cuda import collectives, fuse, kernels, layout
-from dpark_tpu_torch.rdd import _ColumnarSlice, _fst
+from dpark_tpu_torch.rdd import TextFileRDD, _ColumnarSlice, _fst
 from dpark_tpu_torch.shuffle import SpillCorruption, spill_crc
 from dpark_tpu_torch.utils.monoid import local_reduce, monoid_identity
 
@@ -411,6 +419,8 @@ class TorchExecutor:
         self.last_stream_stats = None
         self.last_wave_budget = None
         self._spool_seq = 0
+        self.token_dict = None        # text ingest's string -> id dict
+        self.last_text_stats = None
 
     # ------------------------------------------------------------------
     # running
@@ -423,6 +433,7 @@ class TorchExecutor:
         the budget used is left in last_wave_budget."""
         self.last_stream_stats = None
         self.last_wave_budget = None
+        self.last_text_stats = None
         mode = self._stream_mode(plan, wave_budget)
         if mode is not None:
             kind, waves = mode
@@ -435,6 +446,8 @@ class TorchExecutor:
             raise ValueError("logical_spill plan without streaming")
         if plan.source[0] == "ingest":
             batch = self._ingest(plan)
+        elif plan.source[0] == "text":
+            batch = self._ingest_text(plan)
         elif plan.source[0] == "join":
             batch = self.device_join_batch(*plan.source[1])
         elif plan.ops and isinstance(plan.ops[0], fuse.SegMapOp):
@@ -494,16 +507,21 @@ class TorchExecutor:
     def gather_rows(self, dep):
         """One no-combine shuffle's rows, exchanged and key-sorted on the
         device: per-partition (k, v) row lists on the host (a cogroup's
-        host merge consumes them)."""
+        host merge consumes them), string keys decoded."""
         store = self.shuffle_store[dep.shuffle_id]
         batch = self._exchange_sorted(store, store["key_cols"],
                                       store["out_treedef"])
-        return layout.egest(batch)
+        return [self._maybe_decode(store, rows)
+                for rows in layout.egest(batch)]
 
     def run_device_join(self, dep_a, dep_b):
         """a.join(b) over two device-resident no-combine shuffles:
-        per-partition (k, (va, vb)) row lists on the host."""
-        return layout.egest(self.device_join_batch(dep_a, dep_b))
+        per-partition (k, (va, vb)) row lists on the host.  Both sides of
+        a string-keyed join encode through the one token dict, so id
+        equality is string equality; the keys decode here."""
+        store_a = self.shuffle_store[dep_a.shuffle_id]
+        return [self._maybe_decode(store_a, rows) for rows in
+                layout.egest(self.device_join_batch(dep_a, dep_b))]
 
     def device_join_batch(self, dep_a, dep_b):
         """Inner join of two device-resident no-combine shuffles as a
@@ -674,19 +692,28 @@ class TorchExecutor:
         eligibility predicate is fuse._wave_rows, which admission reads
         too: a divergence would turn the safety net in run_stage into a
         user-facing error."""
-        if plan.epilogue is None or plan.source[0] != "ingest":
+        if plan.epilogue is None:
             return None
-        pc = plan.source[1]
-        limit = wave_budget or fuse._wave_limit(pc, self.device, self.ndev)
-        if limit is None:
+        if plan.source[0] == "text":
+            # text above conf.STREAM_TEXT_BYTES: waves of whole splits
+            if not fuse._big_text(plan.stage):
+                return None
+            waves = self._wave_iter_text(plan)
+        elif plan.source[0] == "ingest":
+            pc = plan.source[1]
+            limit = wave_budget or fuse._wave_limit(pc, self.device,
+                                                    self.ndev)
+            if limit is None:
+                return None
+            self.last_wave_budget = int(limit)
+            chunk = fuse._wave_rows(pc, self.device, self.ndev,
+                                    plan.reslice, limit)
+            if chunk is None:
+                return None
+            self._check_wave_oom(chunk)
+            waves = self._wave_iter_columnar(plan, chunk)
+        else:
             return None
-        self.last_wave_budget = int(limit)
-        chunk = fuse._wave_rows(pc, self.device, self.ndev, plan.reslice,
-                                limit)
-        if chunk is None:
-            return None
-        self._check_wave_oom(chunk)
-        waves = self._wave_iter_columnar(plan, chunk)
         dep = plan.epilogue[1]
         if fuse.is_list_agg(dep.aggregator):
             return ("nocombine", waves)
@@ -1072,6 +1099,212 @@ class TorchExecutor:
                              store["out_treedef"], specs)
 
     # ------------------------------------------------------------------
+    # text ingest: the narrow chain over a text file runs as a host
+    # prologue per split (the user's own generators, or for the verified
+    # canonical wordcount the C++ tokenizer), string keys are
+    # dictionary-encoded to int64 ids, then the device shuffle takes over
+    # ------------------------------------------------------------------
+    def _token_dict(self):
+        if self.token_dict is None:
+            from dpark_tpu_torch.native import TokenDict
+            self.token_dict = TokenDict()
+        return self.token_dict
+
+    @staticmethod
+    def _tokenizer_safe(data, sep=None):
+        """True iff the ASCII byte tokenizer provably equals the Python
+        chain on these bytes.  Whitespace mode (sep None): every byte is
+        printable ASCII or \\t \\n \\r (bytes >= 0x80 may decode to
+        unicode whitespace, and \\x0b \\x0c \\x1c-\\x1f are str.split()
+        whitespace but not the tokenizer's).  Separator mode: only bytes
+        >= 0x80 (utf-8 replacement may rewrite a token) are unsafe."""
+        if not data:
+            return True
+        a = np.frombuffer(data, np.uint8)
+        if sep is not None:
+            return not bool((a >= 0x80).any())
+        bad = (a >= 0x80) | ((a < 0x20) & (a != 9) & (a != 10) & (a != 13))
+        return not bool(bad.any())
+
+    @staticmethod
+    def _verify_canonical(plan, data, td):
+        """Run the user's own flatMap and map on this split's first 4 KiB
+        of whole lines and compare with the C++ tokenizer: a divergence
+        (or nothing to compare: a longer first line) keeps the host
+        prologue for this run."""
+        prefix = data[:4096]
+        cut = prefix.rfind(b"\n")
+        prefix = b"" if cut < 0 else prefix[:cut + 1]
+        if not prefix:
+            return False
+        fm, mp = plan.text_chain
+        expect = []
+        # TextFileRDD's lines: \n-separated, trailing \r\n stripped
+        for raw in prefix.split(b"\n")[:-1]:
+            line = raw.rstrip(b"\r\n").decode("utf-8", "replace")
+            for w in fm.f(line):
+                rec = mp.f(w)
+                if rec[1] != 1:
+                    return False
+                expect.append(rec[0])
+        got = [td.decode(int(t))
+               for t in td.encode(prefix, sep=plan.canonical_sep)]
+        return got == expect
+
+    @staticmethod
+    def _encode_rows(plan, sp, td):
+        """The host prologue for one split: the user's chain, its records
+        as columns, string keys encoded (HostPath when a record does not
+        fit the sampled types)."""
+        keys = []
+        leaf_lists = [[] for _ in plan.in_specs[1:]]
+        for rec in plan.stage.rdd.iterator(sp):
+            if not (isinstance(rec, tuple) and len(rec) == 2):
+                raise layout.HostPath("records of mixed structure")
+            k, v = rec
+            if plan.encoded_keys:
+                if not isinstance(k, str):
+                    raise layout.HostPath("text chain keys of mixed types")
+                k = td.put(k)
+            leaves = layout.tree_leaves(v)
+            if len(leaves) != len(leaf_lists):
+                raise layout.HostPath("records of mixed structure")
+            keys.append(k)
+            for li, leaf in enumerate(leaves):
+                leaf_lists[li].append(leaf)
+        try:
+            return [np.asarray(keys, np.int64)] + [
+                np.asarray(ll, dt)
+                for ll, (dt, _) in zip(leaf_lists, plan.in_specs[1:])]
+        except (TypeError, ValueError, OverflowError) as e:
+            raise layout.HostPath("records do not fit the sampled leaf "
+                                  "types (%s)" % e) from e
+
+    def _text_split_cols(self, plan, sp, td, state):
+        """Columns of one split: the C++ tokenizer on the canonical path
+        (the chain proven by bytecode, each split's bytes scanned, the
+        first safe split verified against the user's functions), the
+        user's own generators otherwise."""
+        if state["canonical"]:
+            sep = plan.canonical_sep
+            data = TextFileRDD.split_bytes(sp)
+            if not state["checked"] and self._tokenizer_safe(data[:4096],
+                                                             sep):
+                state["checked"] = True
+                if not self._verify_canonical(plan, data, td):
+                    state["canonical"] = False
+            if state["canonical"] and self._tokenizer_safe(data, sep):
+                ids = td.encode(data, sep=sep)
+                state["cpp_splits"] += 1
+                return [ids, np.ones(len(ids), np.int64)]
+        state["prologue_splits"] += 1
+        return self._encode_rows(plan, sp, td)
+
+    def _text_parts(self, plan, chunks):
+        """Per-split columns concatenated and cut into even per-shard
+        parts, whatever the file's split layout (the hash exchange owns
+        placement; the store is read through map 0, single_map)."""
+        if chunks:
+            cols = [np.concatenate([c[li] for c in chunks])
+                    for li in range(len(plan.in_specs))]
+        else:
+            cols = [np.zeros((0,) + tuple(shape), dt)
+                    for dt, shape in plan.in_specs]
+        return [_ColumnarSlice([c[lo:hi] for c in cols])
+                for lo, hi in _even_ranges(len(cols[0]), self.ndev)]
+
+    def _split_cols_parallel(self, plan, splits, td, state):
+        """Per-split columns, tokenized concurrently: after the first
+        split that runs the sample verification (walked serially: the C++
+        path never runs unverified), worker threads read and tokenize each
+        split into a private TokenDict (ctypes releases the GIL), and the
+        private vocabularies merge into `td` in split order, so the ids
+        equal a serial walk's.  The user's own chain (the host prologue)
+        stays on this thread."""
+        t0 = time.perf_counter()
+        try:
+            return self._split_cols(plan, splits, td, state)
+        finally:
+            state["tokenize_s"] += time.perf_counter() - t0
+
+    def _split_cols(self, plan, splits, td, state):
+        nw = conf.INGEST_THREADS or (os.cpu_count() or 1)
+        nw = min(nw, max(1, len(splits)))
+        results = []
+        i = 0
+        while (nw > 1 and i < len(splits) and state["canonical"]
+               and not state["checked"]):
+            results.append(self._text_split_cols(plan, splits[i], td,
+                                                 state))
+            i += 1
+        rest = splits[i:]
+        if nw <= 1 or not (state["canonical"] and state["checked"]):
+            results.extend(self._text_split_cols(plan, sp, td, state)
+                           for sp in rest)
+            return results
+        sep = plan.canonical_sep
+
+        def work(sp):
+            # read, byte scan and tokenize into a private dict; an unsafe
+            # split goes back to this thread's host prologue
+            from dpark_tpu_torch.native import TokenDict
+            data = TextFileRDD.split_bytes(sp)
+            if not self._tokenizer_safe(data, sep):
+                return None
+            ltd = TokenDict()
+            return ltd, ltd.encode(data, sep=sep)
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=nw) as pool:
+            done = list(pool.map(work, rest))
+        for sp, out in zip(rest, done):       # split order: stable ids
+            if out is None:
+                state["prologue_splits"] += 1
+                results.append(self._encode_rows(plan, sp, td))
+                continue
+            state["cpp_splits"] += 1
+            ltd, local_ids = out
+            ids = td.merge_from(ltd)[local_ids] if len(ltd) else local_ids
+            results.append([ids, np.ones(len(ids), np.int64)])
+        return results
+
+    def _text_state(self, plan):
+        """The run's tokenizer state: whether the canonical C++ path is
+        still on, whether its sample check ran, and the counts the stage
+        record reports (last_text_stats)."""
+        self.last_text_stats = {"canonical": plan.canonical,
+                                "checked": False, "cpp_splits": 0,
+                                "prologue_splits": 0, "tokenize_s": 0.0}
+        return self.last_text_stats
+
+    def _ingest_text(self, plan):
+        td = self._token_dict() if plan.encoded_keys else None
+        state = self._text_state(plan)
+        chunks = self._split_cols_parallel(plan, plan.stage.rdd.splits, td,
+                                           state)
+        return layout.ingest(self.ndev, self.device,
+                             self._text_parts(plan, chunks),
+                             plan.in_treedef, plan.in_specs, key_leaf=0)
+
+    def _wave_iter_text(self, plan):
+        """Per-shard parts of each wave of a text source: groups of
+        whole splits of about conf.STREAM_TEXT_BYTES, each group's
+        splits tokenized concurrently."""
+        td = self._token_dict() if plan.encoded_keys else None
+        state = self._text_state(plan)
+        budget = conf.STREAM_TEXT_BYTES
+        group, acc = [], 0
+        for sp in plan.stage.rdd.splits:
+            group.append(sp)
+            acc += max(0, sp.end - sp.begin) or budget
+            if acc >= budget:
+                yield self._text_parts(plan, self._split_cols_parallel(
+                    plan, group, td, state))
+                group, acc = [], 0
+        if group:
+            yield self._text_parts(plan, self._split_cols_parallel(
+                plan, group, td, state))
+
+    # ------------------------------------------------------------------
     # stage results
     # ------------------------------------------------------------------
     def _finish_stage(self, plan, outs):
@@ -1081,9 +1314,14 @@ class TorchExecutor:
                 "leaves": leaves,            # (N, cap, ...) dst-sorted
                 "counts": cnts,              # (N, N) [src, dst]
                 "offsets": offs,             # (N, N)
-                "single_map": plan.reslice,
+                # text and re-sliced ingest spread rows evenly: a shard
+                # is no map partition, the bridge reads through map 0
+                "single_map": plan.reslice or plan.source[0] == "text",
             })
         batch = outs[1]
+        store = (self.shuffle_store.get(plan.source[1].shuffle_id, {})
+                 if plan.source[0] == "hbm" else {})
+        encoded = bool(store.get("encoded_keys"))
         if plan.count_only:
             # count() consumes cardinalities only: read the counts leaf;
             # a bare groupByKey counts the distinct keys of its key-sorted
@@ -1094,9 +1332,9 @@ class TorchExecutor:
         if plan.group_output:
             # bare groupByKey: rows arrive key-sorted; runs of equal keys
             # become (k, [v]) on the host
-            return ("result", [
-                [(k, [rec[1] for rec in grp])
-                 for k, grp in itertools.groupby(rows, key=_fst)]
+            return ("result", [self._maybe_decode(store, [
+                (k, [rec[1] for rec in grp])
+                for k, grp in itertools.groupby(rows, key=_fst)])
                 for rows in layout.egest(batch)])
         monoid = plan.reduce_monoid
         col = batch.cols[0]
@@ -1126,12 +1364,37 @@ class TorchExecutor:
         top = plan.top_candidate
         if top is not None:
             kspec = fuse.classify_top_key(top[1], plan.out_treedef,
-                                          plan.out_specs)
+                                          plan.out_specs, encoded)
+            if kspec is None and top[1] is not None and not encoded:
+                # the ranged-int probe: an integer key expression rides
+                # the device when its interval over the batch's exact
+                # per-column (lo, hi) stays inside int64 (K15)
+                kspec = fuse.classify_top_key(
+                    top[1], plan.out_treedef, plan.out_specs, encoded,
+                    col_ranges=self._int_col_ranges(batch))
             if kspec is not None:
                 batch = self._device_topk(plan, batch, kspec, top[0],
                                           top[2])
                 plan.topk_used = True
-        return ("result", layout.egest(batch))
+        return ("result", [self._maybe_decode(store, rows)
+                           for rows in layout.egest(batch)])
+
+    @staticmethod
+    def _int_col_ranges(batch):
+        """Exact (lo, hi) Python ints of each int64/int32 scalar column of
+        a result batch over its valid rows (one K15 launch, one host
+        read), None for the other leaves: the input of classify_top_key's
+        ranged-int probe."""
+        idx = [i for i, c in enumerate(batch.cols)
+               if c.dim() == 2 and c.dtype in (torch.int64, torch.int32)]
+        ranges = [None] * len(batch.cols)
+        if idx:
+            r = kernels.column_ranges([batch.cols[i] for i in idx],
+                                      batch.counts)
+            lohi = torch.stack([r[:, :, 0].amin(1), r[:, :, 1].amax(1)], 1)
+            for i, (lo, hi) in zip(idx, lohi.cpu().tolist()):
+                ranges[i] = (lo, hi)
+        return ranges
 
     def _device_topk(self, plan, batch, kspec, n, smallest):
         """Per-shard top-n by the classified key: a stable sort by
@@ -1193,6 +1456,7 @@ class TorchExecutor:
         store["out_specs"] = plan.out_specs
         store["key_cols"] = plan.epi_nk
         store["no_combine"] = plan.no_combine
+        store["encoded_keys"] = plan.encoded_keys
         store["nbytes"] = sum(int(leaf.numel() * leaf.element_size())
                               for leaf in store["leaves"])
         self.shuffle_store[sid] = store
@@ -1201,11 +1465,16 @@ class TorchExecutor:
     def export_bucket(self, sid, map_id, reduce_id):
         """Device-resident map output -> host (key, combiner) items of one
         (map, reduce) bucket, for a host reduce stage (the HBM -> host
-        bridge).  A no-combine store holds raw values: each exports as
-        the list combiner [v] its host merge (list extend) expects."""
+        bridge), string keys decoded.  A no-combine store holds raw
+        values: each exports as the list combiner [v] its host merge
+        (list extend) expects."""
         store = self.shuffle_store.get(sid)
         if store is None:
             raise KeyError("no device shuffle %d" % sid)
+        return self._maybe_decode(store, self._export_rows(store, map_id,
+                                                           reduce_id))
+
+    def _export_rows(self, store, map_id, reduce_id):
         if store.get("pre_reduced"):
             # shard d holds partition d combined: map 0's bucket
             if map_id != 0:
@@ -1278,6 +1547,14 @@ class TorchExecutor:
             else:
                 rows.append((k, v))
         return rows
+
+    def _maybe_decode(self, store, rows):
+        """Dictionary-encoded string keys leave the device as ids; every
+        host exit decodes them back."""
+        if not store.get("encoded_keys") or not rows:
+            return rows
+        dec = self.token_dict.decode
+        return [(dec(r[0]),) + tuple(r[1:]) for r in rows]
 
     def drop_shuffle(self, sid):
         store = self.shuffle_store.pop(sid, None)

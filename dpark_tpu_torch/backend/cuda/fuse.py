@@ -9,6 +9,11 @@ strings, data-dependent control flow, .item(), numpy or jnp calls on
 tensors — sends the stage to the host object path with the reason
 recorded.  analyze_stage never raises for user code.
 
+A shuffle stage whose narrow chain reads a text file is a "text" source
+(analyze_text_stage): the chain runs on the host, string keys become
+int64 ids, and ids never feed further device ops (only a plain read of
+an encoded store, decoded at egest, rides the device).
+
 An a.join(b) over two device-resident no-combine shuffles is a "join"
 source (_analyze_join_source): K12 expands the matched pairs on the
 device and the rest of the chain runs on them.  A join the device does
@@ -38,8 +43,9 @@ from dpark_tpu_torch import conf
 from dpark_tpu_torch.backend.cuda import kernels, layout, merge_program
 from dpark_tpu_torch.dependency import HashPartitioner, RangePartitioner
 from dpark_tpu_torch.rdd import (
-    CoGroupedRDD, FilteredRDD, FlatMappedValuesRDD, KeyedRDD, MappedRDD,
-    MappedValuesRDD, MapPartitionsRDD, ParallelCollection, ShuffledRDD,
+    CoGroupedRDD, DerivedRDD, FilteredRDD, FlatMappedRDD,
+    FlatMappedValuesRDD, KeyedRDD, MappedRDD, MappedValuesRDD,
+    MapPartitionsRDD, ParallelCollection, ShuffledRDD, TextFileRDD,
     UnionRDD, _ColumnarSlice, _SortPartFn, _append, _extend, _identity,
     _join_values, _mk_list)
 from dpark_tpu_torch.utils import monoid as _monoid
@@ -82,6 +88,17 @@ JOIN_RECORD_REASON = ("join side %d's records are not (k, v) pairs with a "
                       "numeric scalar or flat-tuple key")
 JOIN_KEY_REASON = "join sides' key widths or dtypes differ (%s vs %s)"
 JOIN_LEAVES_REASON = "joined records of %d leaves (the kernel takes %d)"
+JOIN_ENCODED_REASON = ("join side %d's keys are dictionary-encoded strings: "
+                       "the host path compares the decoded keys")
+JOIN_MIXED_REASON = "mixed encoded/plain join keys"
+# a store whose keys are dictionary-encoded string ids (text ingest)
+ENCODED_REASON = ("keys are dictionary-encoded string ids: only a plain "
+                  "read (decoded at egest) rides the device")
+TEXT_RESULT_REASON = ("text source read by a result stage: the host runs "
+                      "the chain")
+TEXT_RECORD_REASON = ("text chain records are not (str or int key, "
+                      "numeric value) pairs")
+TEXT_RANGE_REASON = "string keys have no range bounds"
 
 
 def classify_merge(merge):
@@ -366,18 +383,104 @@ def _no_none(treedef):
         _no_none(c) for c in treedef))
 
 
-def classify_top_key(key, treedef, specs):
+class _IntInterval:
+    """Exact integer interval for the ranged-int top key probe: the
+    user's key expression runs once over per-column [min, max] intervals
+    (Python ints: no wrap), and every intermediate checks its bounds
+    against int64.  If the whole expression stays in range, int64
+    arithmetic on the device provably never wraps and the device's key
+    equals the host's exact Python int for every record (a corner check
+    of the output alone would miss interior extremes such as x*(K-x)).
+    Any operation outside +, -, *, // (by a positive divisor) and unary
+    +/- raises and keeps the host path."""
+
+    _LIMIT = 2 ** 63 - 1
+
+    __slots__ = ("lo", "hi")
+
+    def __init__(self, lo, hi):
+        if abs(lo) > self._LIMIT or abs(hi) > self._LIMIT:
+            raise OverflowError("interval exceeds int64")
+        self.lo, self.hi = lo, hi
+
+    @classmethod
+    def _of(cls, other):
+        if isinstance(other, _IntInterval):
+            return other
+        if isinstance(other, bool) or not isinstance(other, int):
+            raise TypeError("non-int operand")
+        return cls(other, other)
+
+    def __add__(self, o):
+        o = self._of(o)
+        return _IntInterval(self.lo + o.lo, self.hi + o.hi)
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        o = self._of(o)
+        return _IntInterval(self.lo - o.hi, self.hi - o.lo)
+
+    def __rsub__(self, o):
+        return self._of(o).__sub__(self)
+
+    def __mul__(self, o):
+        o = self._of(o)
+        corners = [self.lo * o.lo, self.lo * o.hi,
+                   self.hi * o.lo, self.hi * o.hi]
+        return _IntInterval(min(corners), max(corners))
+    __rmul__ = __mul__
+
+    def __floordiv__(self, o):
+        o = self._of(o)
+        if o.lo <= 0:
+            raise ValueError("floordiv needs a provably positive divisor")
+        return _IntInterval(min(self.lo // o.lo, self.lo // o.hi),
+                            max(self.hi // o.lo, self.hi // o.hi))
+
+    def __neg__(self):
+        return _IntInterval(-self.hi, -self.lo)
+
+    def __pos__(self):
+        return self
+
+
+def _ranged_int_key_ok(key, treedef, specs, col_ranges):
+    """True when the user's int key expression provably stays inside
+    int64 over the batch's actual per-column value ranges (`col_ranges[i]`
+    the exact (lo, hi) of leaf i, None for a leaf that is not an int
+    scalar: reading it aborts the probe)."""
+    if col_ranges is None or len(col_ranges) != len(specs):
+        return False
+    try:
+        leaves = []
+        for rng, (dt, shape) in zip(col_ranges, specs):
+            if rng is None or shape != () or dt.kind != "i":
+                return False
+            leaves.append(_IntInterval(int(rng[0]), int(rng[1])))
+        out = key(layout.tree_unflatten(treedef, leaves))
+        return isinstance(out, _IntInterval)
+    except Exception:        # user code: any failure means host path
+        return False
+
+
+def classify_top_key(key, treedef, specs, encoded=False, col_ranges=None):
     """How to compute each record's top() ordering key on the device:
     ("leaves", (i, ...)) for records compared as themselves (a scalar, or
     a tuple of numeric scalars, lexicographically in leaf order) or a
     provable ``x[i]`` subscript of a flat record, ("fn", key) for a traced
-    float64 key expression, None (host path).  Integer key expressions stay
-    on the host: the host computes exact Python ints where the device
-    would wrap at int64."""
+    key expression, None (host path).
+
+    With dictionary-`encoded` string keys in leaf 0, only a subscript of
+    a value leaf (index >= 1) qualifies: anything that reads leaf 0 would
+    order by the raw ids.  A float key expression rides as it is; an
+    integer one only with `col_ranges` (the batch's exact per-column
+    (lo, hi), executor._int_col_ranges), when the interval probe proves
+    no intermediate leaves int64: the host computes exact Python ints
+    where the device would wrap."""
     nl = len(specs)
     if key is None:
         # a None inside a record makes Python's tuple compare raise
-        if not _no_none(treedef) or any(
+        if encoded or not _no_none(treedef) or any(
                 shape != () or dt.kind not in "if" for dt, shape in specs):
             return None
         return ("leaves", tuple(range(nl)))
@@ -386,16 +489,23 @@ def classify_top_key(key, treedef, specs):
         if not (0 <= idx < nl) or treedef != tuple(range(nl)):
             return None
         dt, shape = specs[idx]
-        if shape != () or dt.kind not in "if":
+        if shape != () or dt.kind not in "if" or (encoded and idx == 0):
             return None
         return ("leaves", (idx,))
+    if encoded:
+        return None
     try:
         fn = _row_fn(key, treedef)
         with python_float_semantics():
             out = vmap(fn)(*_sample(specs))
     except Exception:        # user code: any failure means host path
         return None
-    if len(out) == 1 and out[0].dim() == 1 and out[0].dtype == torch.float64:
+    if len(out) != 1 or out[0].dim() != 1:
+        return None
+    if out[0].dtype == torch.float64:
+        return ("fn", key)
+    if (out[0].dtype in (torch.int64, torch.int32)
+            and _ranged_int_key_ok(key, treedef, specs, col_ranges)):
         return ("fn", key)
     return None
 
@@ -721,7 +831,8 @@ class StagePlan:
     def __init__(self, source, ops, epilogue, in_treedef, in_specs,
                  out_treedef, out_specs, stage):
         self.source = source        # ("ingest", pc) | ("hbm", dep) |
-        #                             ("join", (dep_a, dep_b))
+        #                             ("join", (dep_a, dep_b)) |
+        #                             ("text", text_rdd)
         self.ops = ops
         self.epilogue = epilogue    # None | ("shuffle_write", dep)
         self.in_treedef = in_treedef
@@ -741,6 +852,13 @@ class StagePlan:
         # spilled runs (admitted only above the wave threshold)
         self.logical_spill = False
         self.merge_probe = None     # executor._merge_probe's memo
+        # a text source: the narrow chain (root -> top) the host runs per
+        # split, whether string keys are dictionary-encoded to int64 ids,
+        # and the canonical wordcount's separator (None: whitespace)
+        self.text_chain = None
+        self.encoded_keys = False
+        self.canonical = False
+        self.canonical_sep = None
         # set per run by the scheduler from the stage's tasks
         self.count_only = False
         self.top_candidate = None
@@ -858,11 +976,17 @@ def joined_treedef(ta, tb):
     return layout.tree_flatten((sa[0], (sa[1], sb[1])))[1]
 
 
-def _analyze_join_source(join_rdd, ndev, store):
+def _analyze_join_source(join_rdd, ndev, store, allow_encoded=False):
     """((treedef, specs, (dep_a, dep_b)), None) when both inputs of the
     a.join(b) cogroup are device-resident no-combine shuffles (a shuffled
     cogroup input always is one) of (k, v) records with keys of one width
-    and dtypes, over at most ndev partitions; else (None, reason)."""
+    and dtypes, over at most ndev partitions; else (None, reason).
+
+    Encoded string ids must not feed further device ops, so a join over
+    an encoded store is no stage source; the host stage's precompute
+    (`allow_encoded`) may still expand it on the device when both sides
+    are encoded (one token dict: id equality is string equality), and
+    decodes at the exit."""
     cg = join_rdd.prev
     deps = []
     for si, (kind, obj) in enumerate(cg._dep_kinds):
@@ -879,12 +1003,17 @@ def _analyze_join_source(join_rdd, ndev, store):
         meta = store[dep.shuffle_id]
         if "host_runs" in meta:
             return None, JOIN_RUNS_REASON % si
+        if meta.get("encoded_keys") and not allow_encoded:
+            return None, JOIN_ENCODED_REASON % si
         treedef, specs = meta["out_treedef"], meta["out_specs"]
         nk = layout.key_width(treedef, specs, kinds="if")
         if nk is None or len(treedef) != 2 or len(specs) < nk + 1:
             return None, JOIN_RECORD_REASON % si
         metas.append(meta)
         sigs.append((nk, tuple(str(np.dtype(dt)) for dt, _ in specs[:nk])))
+    if bool(metas[0].get("encoded_keys")) != bool(
+            metas[1].get("encoded_keys")):
+        return None, JOIN_MIXED_REASON
     if sigs[0] != sigs[1]:
         return None, JOIN_KEY_REASON % (sigs[0], sigs[1])
     nk = sigs[0][0]
@@ -896,6 +1025,163 @@ def _analyze_join_source(join_rdd, ndev, store):
                              metas[1]["out_treedef"])
     return (treedef, specs, (deps[0], deps[1])), None
 
+
+
+# ----------------------------------------------------------------------
+# text-source stages: the narrow chain over a text file is string-typed
+# and untraceable, so it runs as a host prologue per split (the user's own
+# generators), string keys are dictionary-encoded to int64 ids, and the
+# shuffle write and combine run on the device.  The canonical wordcount
+# chain runs the C++ tokenizer instead, verified against the user's
+# functions on each run.
+# ----------------------------------------------------------------------
+def extract_text_chain(top):
+    """(text source, chain root -> top) of one-parent narrow links ending
+    at a text file, or None (another source, or a cached link: its
+    partitions cache on the host)."""
+    chain = []
+    cur = top
+    while True:
+        if cur.should_cache:
+            return None
+        if isinstance(cur, TextFileRDD):
+            chain.reverse()
+            return cur, chain
+        if not isinstance(cur, DerivedRDD):
+            return None
+        chain.append(cur)
+        cur = cur.prev
+
+
+def _code_matches(f, template):
+    """f is a closure-free function with the template's bytecode."""
+    code = getattr(f, "__code__", None)
+    if code is None or getattr(f, "__closure__", None):
+        return False
+    t = template.__code__
+    return (code.co_code == t.co_code
+            and code.co_consts == t.co_consts
+            and code.co_names == t.co_names
+            and code.co_argcount == t.co_argcount)
+
+
+def _is_whitespace_split(f):
+    # 'split' in the template is an attribute load on the argument, not
+    # a global: bytecode equality is sufficient
+    return f is str.split or _code_matches(f, lambda line: line.split())
+
+
+def _const_split_sep(f):
+    """The separator when f is exactly `lambda line: line.split(SEP)` with
+    a single-byte ASCII constant (not \\n or \\r), else None.  Only the
+    string constant may differ from the template's: it is extracted, not
+    assumed."""
+    code = getattr(f, "__code__", None)
+    if code is None or getattr(f, "__closure__", None):
+        return None
+    t = (lambda line: line.split("\x00")).__code__
+    if not (code.co_code == t.co_code
+            and code.co_names == t.co_names
+            and code.co_argcount == t.co_argcount):
+        return None
+    strs = [c for c in code.co_consts if isinstance(c, str)]
+    others = [c for c in code.co_consts if not isinstance(c, str)]
+    t_others = [c for c in t.co_consts if not isinstance(c, str)]
+    if len(strs) != 1 or others != t_others:
+        return None
+    sep = strs[0]
+    if len(sep) == 1 and ord(sep) < 0x80 and sep not in "\n\r":
+        return sep
+    return None
+
+
+def _is_pair_one(f):
+    return _code_matches(f, lambda w: (w, 1))
+
+
+def canonical_wordcount(chain):
+    """The separator when chain is exactly flatMap(split) -> map(w -> (w,
+    1)): "" for a whitespace split, a 1-character string for a
+    constant-separator split, None otherwise."""
+    if len(chain) != 2:
+        return None
+    fm, mp = chain
+    if not (isinstance(fm, FlatMappedRDD) and isinstance(mp, MappedRDD)
+            and _is_pair_one(mp.f)):
+        return None
+    if _is_whitespace_split(fm.f):
+        return ""
+    return _const_split_sep(fm.f)
+
+
+def _sample_text_record(top):
+    """The first record of the chain, from the first non-empty of its
+    first eight splits (memoized on the RDD)."""
+    if hasattr(top, "_text_sample"):
+        return top._text_sample
+    sample = None
+    for sp in top.splits[:8]:
+        it = top.iterator(sp)
+        try:
+            for rec in it:
+                sample = rec
+                break
+        finally:
+            close = getattr(it, "close", None)
+            if close:
+                close()
+        if sample is not None:
+            break
+    top._text_sample = sample
+    return sample
+
+
+def _big_text(stage):
+    """A text source above conf.STREAM_TEXT_BYTES streams in waves of
+    splits."""
+    return (sum(max(0, sp.end - sp.begin) for sp in stage.rdd.splits)
+            > conf.STREAM_TEXT_BYTES)
+
+
+def analyze_text_stage(stage, ndev):
+    """(StagePlan, None) for a shuffle-map stage whose narrow chain reads a
+    text file and yields (str or int key, numeric value) records: a
+    ("text", text_rdd) source whose host prologue feeds the device shuffle
+    write; (None, reason) for a text chain the device does not take;
+    (None, None) when the chain reads no text file."""
+    extracted = extract_text_chain(stage.rdd)
+    if extracted is None:
+        return None, None
+    if not stage.is_shuffle_map:
+        return None, TEXT_RESULT_REASON
+    text_rdd, chain = extracted
+    dep = stage.shuffle_dep
+    spec = partitioner_spec(dep.partitioner)
+    sample = _sample_text_record(stage.rdd)
+    if not (isinstance(sample, tuple) and len(sample) == 2):
+        return None, TEXT_RECORD_REASON
+    k, v = sample
+    key_is_str = isinstance(k, str)
+    if not key_is_str and (isinstance(k, bool) or not isinstance(
+            k, (int, np.integer))):
+        return None, TEXT_RECORD_REASON
+    if key_is_str and spec is not None and spec[0] != "hash":
+        return None, TEXT_RANGE_REASON
+    try:
+        treedef, specs = layout.record_spec((0, v))
+    except TypeError:
+        return None, TEXT_RECORD_REASON
+    plan = StagePlan(("text", text_rdd), [], None, treedef, specs, treedef,
+                     specs, stage)
+    plan.text_chain = chain
+    plan.encoded_keys = key_is_str
+    sep = canonical_wordcount(chain) if key_is_str else None
+    plan.canonical = sep is not None
+    plan.canonical_sep = sep or None      # "" (whitespace) -> None
+    reason = _plan_shuffle_write(plan, dep, ndev, _big_text(stage))
+    if reason is not None:
+        return None, reason
+    return plan, None
 
 
 def analyze_stage(stage, ndev, executor):
@@ -939,13 +1225,19 @@ def analyze_stage(stage, ndev, executor):
     elif isinstance(source_rdd, UnionRDD):
         return None, UNION_REASON
     elif not isinstance(source_rdd, ShuffledRDD):
-        return None, ("%s has no tensor form yet; object path"
-                      % type(source_rdd).__name__)
+        plan, reason = analyze_text_stage(stage, ndev)
+        if plan is not None:
+            return plan, None
+        return None, reason or ("%s has no tensor form yet; object path"
+                                % type(source_rdd).__name__)
     else:
         dep = source_rdd.dep
         if dep.shuffle_id not in store:
             return None, "parent shuffle output lives on the host"
         meta = store[dep.shuffle_id]
+        if meta.get("encoded_keys") and (ops or stage.is_shuffle_map):
+            # the host path sees decoded rows through the export bridge
+            return None, ENCODED_REASON
         # spilled runs: the host export consumes them, except for a
         # segment op over a no-combine write (decided below)
         from_runs = "host_runs" in meta

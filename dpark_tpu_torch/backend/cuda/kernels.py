@@ -18,6 +18,7 @@ Kernels (sources under csrc/, one shared library each):
   K13 rid_fold              csrc/rid_fold.cu
   K14 segmented_merge       csrc/segmented_merge.cu (a traced merge's
                             register program, merge_program.py)
+  K15 column_ranges         csrc/column_ranges.cu
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -59,6 +60,7 @@ SOURCES = {
     "join_expand": "join_expand.cu",
     "rid_fold": "rid_fold.cu",
     "segmented_merge": "segmented_merge.cu",
+    "column_ranges": "column_ranges.cu",
 }
 # launch counters: one per entry point (K8's and K12's libraries hold two)
 LAUNCHES = {name: 0 for name in SOURCES
@@ -81,15 +83,20 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
+def build_root():
+    """``build/dpark_tpu_torch_kernels`` beside the package (ignored by
+    git): every library the port compiles lives under it."""
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    return os.path.join(pkg_root, "build", "dpark_tpu_torch_kernels")
+
+
 def _build_dir():
     digest = hashlib.sha1()
     for fn in sorted(os.listdir(CSRC)):
         with open(os.path.join(CSRC, fn), "rb") as f:
             digest.update(fn.encode() + b"\0" + f.read())
-    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))))
-    return os.path.join(pkg_root, "build", "dpark_tpu_torch_kernels",
-                        digest.hexdigest()[:16])
+    return os.path.join(build_root(), digest.hexdigest()[:16])
 
 
 def _nvcc():
@@ -197,6 +204,9 @@ def _bind(name, lib):
     elif name == "rid_fold":
         fn = lib.dpk_rid_fold
         fn.argtypes = [_P, _P, _I, _L, _I, _P, _P, _P, _P]
+    elif name == "column_ranges":
+        fn = lib.dpk_column_ranges
+        fn.argtypes = [_P, _P, _I, _P, _I, _L, _P, _P]
     elif name == "segmented_merge":
         fn = lib.dpk_segmented_merge
         fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _L, _P, _L, _P]
@@ -1556,3 +1566,63 @@ def segmented_merge(starts, n, leaves, program):
             n.data_ptr(), N, cap, scratch.data_ptr(), nbytes, _stream())
     _check("segmented_merge", rc)
     return outs
+
+
+# ---------------------------------------------------------------------
+# K15 column_ranges
+# ---------------------------------------------------------------------
+_RANGE_TYPES = (torch.int64, torch.int32)
+
+
+def _range_init(cols, N, device):
+    """(L, N, 2) int64 holding each column dtype's (max, min): the
+    result of a shard with no valid row."""
+    out = torch.empty((len(cols), N, 2), dtype=torch.int64, device=device)
+    for li, c in enumerate(cols):
+        info = torch.iinfo(c.dtype)
+        out[li, :, 0] = info.max
+        out[li, :, 1] = info.min
+    return out
+
+
+def column_ranges_plain(cols, n):
+    N = n.shape[0]
+    out = _range_init(cols, N, n.device)
+    for li, c in enumerate(cols):
+        cap = c.shape[1]
+        if not cap:
+            continue
+        info = torch.iinfo(c.dtype)
+        valid = (torch.arange(cap, device=c.device)[None, :]
+                 < n[:, None].long())
+        out[li, :, 0] = torch.where(valid, c, info.max).amin(1)
+        out[li, :, 1] = torch.where(valid, c, info.min).amax(1)
+    return out
+
+
+def column_ranges(cols, n):
+    """B14's masked min/max: for each (N, cap) int64 or int32 column of
+    `cols` (all of one shape), the (min, max) over each shard's valid rows
+    [0, n[s]), as an (L, N, 2) int64 tensor; a shard with no valid row
+    holds the dtype's (max, min).  Rows past n[s] (padding, the key
+    sentinel) are never read.  One launch per MAX_LEAVES columns."""
+    _need(len(cols) >= 1, "column_ranges needs at least one column")
+    N, cap = cols[0].shape[:2]
+    _check_cols(cols, N, cap, "columns")
+    _need(all(c.dim() == 2 and c.dtype in _RANGE_TYPES for c in cols),
+          "columns must be (N, cap) int64 or int32 tensors")
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    if not _on_cuda(list(cols) + [n]):
+        return column_ranges_plain(cols, n)
+    fn = _kernel("column_ranges")
+    out = _range_init(cols, N, n.device)
+    if cap == 0:
+        return out
+    for g in range(0, len(cols), MAX_LEAVES):
+        group = cols[g:g + MAX_LEAVES]
+        widths = (ctypes.c_int * len(group))(
+            *[c.element_size() for c in group])
+        rc = fn(_ptrs(group), widths, len(group), n.data_ptr(), N, cap,
+                out[g:].data_ptr(), _stream())
+        _check("column_ranges", rc)
+    return out

@@ -160,12 +160,19 @@ def ingest(ndev, device, partitions, treedef, specs, key_leaf=None,
     slices) -> Batch on `device`.  With `key_leaf`, a key equal to the
     padding sentinel raises HostPath before anything reaches the
     device.  `fine` pads to a 1/16-octave capacity class (a wave of the
-    stream) instead of a power of two."""
+    stream) instead of a power of two.
+
+    The host-to-device wire narrows (B14, conf.NARROW_EXCHANGE): when
+    every non-empty partition is columnar, an int64 scalar leaf whose
+    values all fit int32 (one host pass a column) is cast to int32 on the
+    host, copied as int32, and widened back to int64 on the device; the
+    Batch holds the spec dtypes either way."""
     assert len(partitions) == ndev, (len(partitions), ndev)
     counts = np.array([len(p) for p in partitions], dtype=np.int32)
     rnd = round_capacity_fine if fine else round_capacity
     cap = rnd(int(counts.max()) if len(counts) else 1)
     host = []                      # per partition: list of leaf arrays
+    columnar = True
     for part in partitions:
         cols = getattr(part, "columns", None)
         if not len(part):
@@ -174,8 +181,10 @@ def ingest(ndev, device, partitions, treedef, specs, key_leaf=None,
             host.append([np.asarray(c).astype(dt, copy=False)
                          for c, (dt, _) in zip(cols, specs)])
         elif len(specs) == 1 and treedef == 0:
+            columnar = False
             host.append([np.asarray(list(part), dtype=specs[0][0])])
         else:
+            columnar = False
             leaf_lists = [[] for _ in specs]
             for rec in part:
                 leaves = tree_leaves(rec)
@@ -195,26 +204,77 @@ def ingest(ndev, device, partitions, treedef, specs, key_leaf=None,
         for a, (dt, shape) in zip(arrays, specs):
             if a.shape[1:] != tuple(shape):
                 raise HostPath("records of mixed leaf shapes")
-        if key_leaf is not None:
-            kc = arrays[key_leaf]
-            if kc.dtype.kind == "f":
-                if np.isinf(kc).any() or np.isnan(kc).any():
-                    raise HostPath("inf/nan float key collides with "
-                                   "device padding; taking the host path")
-            elif kc.size and int(kc.max()) == int(np.iinfo(kc.dtype).max):
-                raise HostPath("key equal to the device sentinel; "
-                               "taking the host path")
+    # the fit scan: (lo, hi) of each int64 scalar leaf of a columnar input
+    ranges = {}
+    if conf.NARROW_EXCHANGE and columnar:
+        for li, (dt, shape) in enumerate(specs):
+            if np.dtype(dt) == np.int64 and tuple(shape) == ():
+                ranges[li] = _fit_scan(host, li)
+    if key_leaf is not None:
+        _check_key(host, key_leaf, ranges.get(key_leaf))
     dev_cols = []
     for li, (dt, shape) in enumerate(specs):
-        col = torch.zeros((ndev, cap) + tuple(shape), dtype=torch_dtype(dt),
-                          device=device)
+        rng = ranges.get(li)
+        wire = dt
+        if rng is not None and _I32.min <= rng[0] and rng[1] <= _I32.max:
+            wire = np.dtype(np.int32)
+        col = torch.zeros((ndev, cap) + tuple(shape),
+                          dtype=torch_dtype(wire), device=device)
         for d, arrays in enumerate(host):
             if arrays is not None:
-                col[d, :counts[d]].copy_(torch.from_numpy(
-                    np.ascontiguousarray(arrays[li])))
+                src = torch.from_numpy(np.ascontiguousarray(arrays[li]))
+                _h2d(col[d, :counts[d]], src.to(col.dtype))
+        if wire != dt:
+            col = col.to(torch_dtype(dt))       # widen on the device
         dev_cols.append(col)
     return Batch(treedef, dev_cols,
                  torch.from_numpy(counts).to(device))
+
+
+_I32 = np.iinfo(np.int32)
+
+
+def _fit_scan(host, li):
+    """(lo, hi) of leaf `li` over every partition's host array, one
+    multi-threaded pass a partition (torch.aminmax); None when all are
+    empty."""
+    lo = hi = None
+    for arrays in host:
+        if arrays is None or not arrays[li].size:
+            continue
+        mn, mx = torch.aminmax(torch.from_numpy(
+            np.ascontiguousarray(arrays[li])))
+        mn, mx = int(mn), int(mx)
+        lo = mn if lo is None else min(lo, mn)
+        hi = mx if hi is None else max(hi, mx)
+    return None if lo is None else (lo, hi)
+
+
+def _check_key(host, key_leaf, rng):
+    """HostPath when a key collides with the device padding: a float key
+    that is inf or nan, an int key equal to its spec dtype's max (the
+    sentinel; `rng` is the fit scan's (lo, hi) when it ran)."""
+    for arrays in host:
+        if arrays is None:
+            continue
+        kc = arrays[key_leaf]
+        if kc.dtype.kind == "f":
+            if np.isinf(kc).any() or np.isnan(kc).any():
+                raise HostPath("inf/nan float key collides with "
+                               "device padding; taking the host path")
+        elif kc.size and rng is None \
+                and int(kc.max()) == int(np.iinfo(kc.dtype).max):
+            raise HostPath("key equal to the device sentinel; "
+                           "taking the host path")
+    if rng is not None and rng[1] == int(np.iinfo(np.int64).max):
+        raise HostPath("key equal to the device sentinel; "
+                       "taking the host path")
+
+
+def _h2d(dst, src):
+    """The host-to-device copy of one shard's leaf (src is already in the
+    wire dtype)."""
+    dst.copy_(src)
 
 
 def batch_from_numpy(treedef, counts, cols, device):
@@ -233,7 +293,7 @@ def egest(batch):
     counts = batch.counts.cpu().numpy()
     # only the longest valid prefix crosses to the host, not the padding
     m = int(counts.max()) if len(counts) else 0
-    host_cols = [c[:, :m].cpu().numpy() for c in batch.cols]
+    host_cols = _egest_read(batch.cols, batch.counts, m)
     tdef = batch.treedef
     out = []
     for d in range(batch.ndev):
@@ -247,6 +307,35 @@ def egest(batch):
         else:
             out.append(list(_zip_build(tdef, lists)))
     return out
+
+
+def _egest_read(cols, counts, m):
+    """The first m rows of each column on the host.  The device-to-host
+    wire narrows (B14, conf.NARROW_EXCHANGE): the int64 (N, cap) columns
+    of at least conf.EGEST_NARROW_MIN_BYTES go through one K15 launch
+    (min/max over each shard's valid rows), one host read of each
+    column's (lo, hi), and a column that fits int32 is cast on the device
+    and crosses as int32 (the row lists built from it are the same
+    Python ints)."""
+    big = [i for i, c in enumerate(cols)
+           if conf.NARROW_EXCHANGE and c.dim() == 2
+           and c.dtype == torch.int64
+           and c.numel() * c.element_size() >= conf.EGEST_NARROW_MIN_BYTES]
+    fits = set()
+    if big and m:
+        from dpark_tpu_torch.backend.cuda import kernels
+        r = kernels.column_ranges([cols[i] for i in big], counts)
+        lohi = torch.stack([r[:, :, 0].amin(1), r[:, :, 1].amax(1)], 1)
+        for i, (lo, hi) in zip(big, lohi.cpu().tolist()):
+            if _I32.min <= lo and hi <= _I32.max:
+                fits.add(i)
+    return [_d2h(c[:, :m].to(torch.int32) if i in fits else c[:, :m])
+            for i, c in enumerate(cols)]
+
+
+def _d2h(t):
+    """The device-to-host copy of an egested column."""
+    return t.cpu().numpy()
 
 
 def _zip_build(struct, lists):

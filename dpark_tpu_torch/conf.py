@@ -73,3 +73,23 @@ GROUP_AGG_REWRITE = os.environ.get("DPARK_GROUP_AGG_REWRITE",
 # vmap over power-of-two padded group buckets.  "0" keeps such stages on
 # the host object path.
 SEG_MAP = os.environ.get("DPARK_SEG_MAP", "1") != "0"
+
+# text-source stages bigger than this stream in waves of splits instead of
+# tokenizing the whole input into one device batch (executor._stream_mode)
+STREAM_TEXT_BYTES = 1 << 28
+
+# threads that read and tokenize text splits (the C++ tokenizer releases
+# the GIL, so splits tokenize concurrently).  0 = the CPU count.
+INGEST_THREADS = int(os.environ.get("DPARK_INGEST_THREADS", "0") or 0)
+
+# wire narrowing (B14): an int64 scalar column whose values all fit int32
+# crosses a wire as int32 and widens back on the other side.  Two wires
+# exist on one card: host-to-device at ingest (a host fit scan) and
+# device-to-host at egest (K15's masked min/max over the valid rows).
+# Compute stays int64 either way; "0" keeps both wires at int64.
+NARROW_EXCHANGE = os.environ.get("DPARK_NARROW_EXCHANGE", "1") != "0"
+
+# device-to-host egest: int64 columns of at least this many bytes are
+# min/max-probed and cross as int32 when every valid value fits.  Tests
+# shrink it to exercise the path at toy sizes.
+EGEST_NARROW_MIN_BYTES = 8 << 20

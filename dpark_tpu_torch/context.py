@@ -8,7 +8,8 @@ Masters:
 
 The gpu master runs on CUDA and raises when no CUDA device is present.
 Pass ``device="cpu"`` to run the same tensor path on the CPU with the
-kernels' plain PyTorch versions (what the tests do).
+kernels' plain PyTorch versions (what the tests do).  Root RDDs:
+``parallelize`` (rows or Columns) and ``textFile`` (plain files).
 """
 
 import itertools
@@ -89,6 +90,24 @@ class DparkContext:
 
     def parallelize(self, seq, numSlices=None):
         return _rdd.ParallelCollection(self, seq, numSlices)
+
+    def textFile(self, path, numSplits=None, splitSize=None):
+        """The lines of a plain text file (or of every file under a
+        directory) in newline-aligned splits of splitSize bytes (64 MiB,
+        or the total over numSplits).  Compressed files are ROADMAP A8b."""
+        if path.endswith((".gz", ".bz2")):
+            raise NotImplementedError(
+                "compressed text sources (%s) are not yet ported (ROADMAP "
+                "A8b)" % path)
+        return _rdd.TextFileRDD(self, path, numSplits, splitSize)
+
+    def partialTextFile(self, path, begin, end, splitSize=None):
+        raise NotImplementedError("partialTextFile is not yet ported "
+                                  "(ROADMAP A8b)")
+
+    def csvFile(self, path, dialect="excel", numSplits=None,
+                splitSize=None):
+        raise NotImplementedError("csvFile is not yet ported (ROADMAP A8b)")
 
     def union(self, rdds):
         return _rdd.UnionRDD(self, list(rdds))

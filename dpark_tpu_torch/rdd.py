@@ -12,6 +12,7 @@ import itertools
 import pickle
 
 from dpark_tpu_torch import cache as _cache
+from dpark_tpu_torch import file_manager
 from dpark_tpu_torch.dependency import (
     Aggregator, HashPartitioner, OneToOneDependency, RangeDependency,
     RangePartitioner, ShuffleDependency)
@@ -790,3 +791,78 @@ class ParallelCollection(RDD):
 
     def compute(self, split):
         return iter(split.values)
+
+
+# ----------------------------------------------------------------------
+# file sources
+# ----------------------------------------------------------------------
+class TextSplit(Split):
+    def __init__(self, index, path, begin, end):
+        super().__init__(index)
+        self.path = path
+        self.begin = begin
+        self.end = end
+
+
+DEFAULT_BLOCK = 64 << 20
+
+
+class TextFileRDD(RDD):
+    """The lines of one file or of every file under a directory, in
+    newline-aligned byte-range splits: a split owns each line that starts
+    inside [begin, end), read to its newline; records are str with the
+    trailing \\r\\n stripped, decoded as utf-8 (invalid bytes replaced)."""
+
+    def __init__(self, ctx, path, numSplits=None, splitSize=None):
+        super().__init__(ctx)
+        self.path = path
+        files = list(file_manager.walk(path))
+        total = sum(sz for _, sz in files)
+        if splitSize is None:
+            if numSplits:
+                splitSize = max(1, total // numSplits) or 1
+            else:
+                splitSize = DEFAULT_BLOCK
+        self._file_splits = []
+        for p, sz in files:
+            off = 0
+            while off < sz or (sz == 0 and off == 0):
+                end = min(off + splitSize, sz)
+                self._file_splits.append((p, off, end))
+                off = end
+                if sz == 0:
+                    break
+
+    def _make_splits(self):
+        return [TextSplit(i, p, b, e)
+                for i, (p, b, e) in enumerate(self._file_splits)]
+
+    @staticmethod
+    def split_bytes(split):
+        """The bytes of the lines `split` owns (compute's rule, in one
+        read): the text ingest tokenizes them whole."""
+        with file_manager.open_file(split.path) as f:
+            begin = split.begin
+            if begin > 0:
+                f.seek(begin - 1)
+                if f.read(1) != b"\n":
+                    f.readline()
+                begin = f.tell()
+            data = f.read(split.end - begin) if split.end > begin else b""
+            if data and not data.endswith(b"\n"):
+                data += f.readline()
+            return data
+
+    def compute(self, split):
+        with file_manager.open_file(split.path) as f:
+            if split.begin > 0:
+                f.seek(split.begin - 1)
+                if f.read(1) != b"\n":
+                    f.readline()        # skip the partial first line
+            while f.tell() <= split.end:
+                line = f.readline()
+                if not line:
+                    break
+                if f.tell() - len(line) >= split.end:
+                    break
+                yield line.rstrip(b"\r\n").decode("utf-8", "replace")

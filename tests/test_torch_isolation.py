@@ -1,6 +1,8 @@
-"""The port stands alone: importing dpark_tpu_torch and running a job
-loads neither jax nor the JAX package, and the gpu master refuses to
-start without CUDA unless the caller asks for the CPU."""
+"""The port stands alone: importing dpark_tpu_torch and running a job (a
+reduceByKey, a textFile wordcount through dpark_tpu_torch.native, a
+Pregel, an object Bagel) loads neither jax nor the JAX package, and the
+gpu master refuses to start without CUDA unless the caller asks for the
+CPU."""
 
 import json
 import os
@@ -12,17 +14,28 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import json, sys
+import json, os, sys, tempfile
 from dpark_tpu_torch import DparkContext
 c = DparkContext("gpu:2", device="cpu")
 pairs = [(i % 5, i) for i in range(100)]
 got = dict(c.parallelize(pairs, 2).reduceByKey(lambda a, b: a + b, 2)
            .collect())
 kinds = [s["kind"] for s in c.scheduler.history[-1]["stage_info"]]
+# a textFile wordcount: dpark_tpu_torch.native's tokenizer, the text
+# ingest and the decode at egest
+path = os.path.join(tempfile.mkdtemp(), "words.txt")
+with open(path, "w") as f:
+    f.write("a b a\nc a b\n" * 50)
+words = dict(c.textFile(path).flatMap(lambda line: line.split())
+             .map(lambda w: (w, 1)).reduceByKey(lambda a, b: a + b, 2)
+             .collect())
+text = c.scheduler.history[-1]["stage_info"][0]["text"]
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "dpark_tpu" or m.startswith("dpark_tpu."))
-print(json.dumps({"sum": sum(got.values()), "kinds": kinds, "mods": mods}))
+print(json.dumps({"sum": sum(got.values()), "kinds": kinds, "mods": mods,
+                  "words": words, "canonical": text["canonical"],
+                  "native": "dpark_tpu_torch.native" in sys.modules}))
 """
 
 
@@ -34,6 +47,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["sum"] == sum(range(100))
     assert res["kinds"] == ["array", "array"]
+    assert res["words"] == {"a": 150, "b": 100, "c": 50}
+    assert res["canonical"] is True and res["native"] is True
     assert res["mods"] == []
 
 
