@@ -100,7 +100,11 @@ Exits non-zero, printing no result, without CUDA or outside the repo.
 `python3 chip_smoke.py --stream-only` builds the kernels and runs only
 the wave stream's phases and paths (9), printing no result line;
 `--text-only` runs only K15's phase, the reduceByKey gpu:8 path, the
-narrowing timings and the wordcount (no result line).
+narrowing timings and the wordcount (no result line); `--sort-only` runs
+only K5's and K6's phases, B7's composed top, B6's merge, the sort and
+reduceByKey gpu:8 paths and the sortByKey count's profile (no result
+line).  Every run prints K5's tiles and ptxas's registers and spills for
+radix_sort.cu.
 """
 
 import collections
@@ -473,14 +477,66 @@ def print_phase(name, rec):
           flush=True)
 
 
+def k5_split(K, col, src=None, reps=3):
+    """Device ms of one K5 call by part, under torch.profiler over `reps`
+    calls: through src the stage (k5_stage), the histogram pass (k5_hist,
+    k5_bases), the digit passes (k5_pass) and the rest (the zeroed
+    scratch); and the gap, the
+    mean time in the same trace from the end of each call's k5_bases to
+    the start of its first k5_pass (the host's read of the digit flags
+    and the allocation and launch of the passes)."""
+    from torch.profiler import ProfilerActivity, profile
+    K.radix_sort(col, src)
+    torch.cuda.synchronize()
+    # the device's activity alone: tracing the host's ops would lengthen
+    # the gap it measures
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            K.radix_sort(col, src)
+        torch.cuda.synchronize()
+    parts = {"stage": 0.0, "hist": 0.0, "passes": 0.0, "other": 0.0}
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    gaps, bases_end = [], None
+    for ev in evs:
+        part = ("stage" if "k5_stage" in ev.name
+                else "hist" if "k5_hist" in ev.name or "k5_bases" in ev.name
+                else "passes" if "k5_pass" in ev.name else "other")
+        parts[part] += ev.time_range.elapsed_us() / 1e3 / reps
+        if "k5_bases" in ev.name:
+            bases_end = ev.time_range.end
+        elif "k5_pass" in ev.name and bases_end is not None:
+            gaps.append((ev.time_range.start - bases_end) / 1e3)
+            bases_end = None
+    parts["gap"] = sum(gaps) / len(gaps) if gaps else None
+    return parts
+
+
+def lsd_bytes(rows, nat, src, passes, width):
+    """The bytes K5's own passes must move: the histogram pass reads the
+    key once (through src: reads src and the key, writes the staged
+    image, reads and rewrites it); each digit pass reads its image (the
+    key column or the staged image on the first) and its index (none on
+    the first without src) and writes both (only the index on the
+    last)."""
+    total = nat + (4 + 3 * nat if src else 0)
+    for j in range(len(passes)):
+        total += (nat if j == 0 else width) + (4 if j or src else 0)
+        total += 4 + (0 if j == len(passes) - 1 else width)
+    return rows * total
+
+
 def radix_case(K, col, src=None):
     """K5 on one (N, CAP) column against its plain version and against
     torch.sort(stable=True) on the CPU (NaN of either sign last, as numpy
     and jnp sort); timed.  Whether the card's torch.sort agrees is
     printed, not required.  bound_ms: the key column (and src) read once
     and the permutation written once; lsd_bound_ms: the kernel's own
-    passes (one histogram read of the keys, 24 B a row per active
-    digit)."""
+    passes (lsd_bytes); the split of the device time between the
+    histogram pass and the digit passes, the gap between them in the
+    same trace (k5_split), and the peak scratch of one call, bytes a
+    row."""
     a = K.radix_sort(col, src)
     b = K.radix_sort_plain(col, src)
     err = max_err([("K5 perm", a, b)])
@@ -494,19 +550,33 @@ def radix_case(K, col, src=None):
     if not torch.equal(a.long().cpu(), host):
         fail("K5 differs from torch.sort(stable=True)")
     card = composed(torch.sort(cur, dim=1, stable=True).indices)
-    img, ndig = K.radix_key_image(cur)
-    active = sum(1 for d in range(ndig) if bool(
-        ((K.shard_bincount(K._digit(img, d), 256) > 0).sum(1) > 1).any()))
-    rows = col.numel()
+    _, (passes, width) = K.radix_sorted_image(cur, src is not None)
+    nat = col.element_size()
     extra = [src] if src is not None else []
+    ms = timed(lambda: K.radix_sort(col, src))
+    split = k5_split(K, col, src)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.radix_sort(col, src)
+    scratch = torch.cuda.max_memory_allocated() - held
     return {
         "max_abs_err": err,
-        "ms": timed(lambda: K.radix_sort(col, src)),
+        "ms": ms,
         "plain_ms": timed(lambda: K.radix_sort_plain(col, src), reps=1),
         "bound_ms": bound_ms(nbytes(col, a, *extra)),
         "library_ms": timed(lambda: torch.sort(cur, dim=1, stable=True)),
-        "notes": {"active_digits": active,
-                  "lsd_bound_ms": "%.4f" % bound_ms(rows * (8 + 24 * active)),
+        "notes": {"active_digits": len(passes), "image_bytes": width,
+                  "tiles": "%s/%s" % (K5_TILES[nat], K5_TILES[width]),
+                  "lsd_bound_ms": "%.4f" % bound_ms(lsd_bytes(
+                      col.numel(), nat, src is not None, passes, width)),
+                  "stage_ms": "%.4f" % split["stage"],
+                  "hist_ms": "%.4f" % split["hist"],
+                  "passes_ms": "%.4f" % split["passes"],
+                  "other_ms": "%.4f" % split["other"],
+                  "gap_ms": (None if split["gap"] is None
+                             else "%.4f" % split["gap"]),
+                  "scratch_bytes_a_row": "%.2f" % (scratch / col.numel()),
                   "card_torch_sort_agrees": bool(torch.equal(a.long(),
                                                              card))},
     }
@@ -540,14 +610,53 @@ def range_case(K, cols, bounds, ascending, n):
     }
 
 
+def k5_columns(K, dev, rng):
+    """K5's four cases at the sort path's shape, {name: (col, src)}:
+    bench.py's keys, full-range random int64 and float64 keys (with -0.0,
+    infinities and NaN mixed in), and an int32 column read through a
+    permutation (K5's own order of the random int64 keys)."""
+    shape = (N_SHARDS, CAP)
+    bench, _ = bench_data()
+    cases = {"radix_sort bench keys": (
+        torch.from_numpy(bench.reshape(shape)).to(dev), None)}
+    rand = torch.from_numpy(rng.integers(INT64_MIN, INT64_MAX, shape,
+                                         dtype=np.int64)).to(dev)
+    cases["radix_sort"] = (rand, None)
+    f = rng.standard_normal(shape) * 1e3
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan])
+    pos = rng.integers(0, CAP, (N_SHARDS, 4096))
+    for s_ in range(N_SHARDS):
+        f[s_, pos[s_]] = rng.choice(special, 4096)
+    cases["radix_sort float64"] = (torch.from_numpy(f).to(dev), None)
+    del f
+    perm = K.radix_sort(rand)
+    small = torch.from_numpy(rng.integers(-1000, 1000, shape,
+                                          dtype=np.int32)).to(dev)
+    cases["radix_sort int32 through src_idx"] = (small, perm)
+    return cases
+
+
+K5_TILES = {4: "512x12", 8: "512x8"}    # radix_sort.cu's k5_items
+
+
+def k5_report(K):
+    """K5's tiles and ptxas's registers, shared memory and spills for
+    radix_sort.cu's kernels."""
+    for width, tile in sorted(K5_TILES.items()):
+        print("k5 tile: passes reading a %d-byte image: %s (threads x "
+              "rows)" % (width, tile))
+    for line in K.build_logs["radix_sort"].splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("k5 ptxas: " + line.strip())
+    sys.stdout.flush()
+
+
 def sort_kernel_phases(K, dev):
     """K5 and K6 against their plain versions at the sort path's shapes.
-    K5: bench.py's keys, full-range random int64 and float64 keys (with
-    -0.0, infinities and NaN mixed in), and an int32 column read through
-    a permutation.  K6: 7 bounds over one and two int64 key columns, both
-    directions, and one float64 column.  The kernels line reports the
-    sort path's own cases: random int64 (K5), one int64 column ascending
-    (K6)."""
+    K5: k5_columns' four cases.  K6: 7 bounds over one and two int64 key
+    columns, both directions, and one float64 column.  The kernels line
+    reports the sort path's own cases: random int64 (K5), one int64
+    column ascending (K6)."""
     rng = np.random.default_rng(20261018)
     shape = (N_SHARDS, CAP)
     out = {}
@@ -555,27 +664,11 @@ def sort_kernel_phases(K, dev):
     def add(name, rec):
         out[name] = rec
         print_phase(name, rec)
-    bench, _ = bench_data()
-    keys = torch.from_numpy(bench.reshape(shape)).to(dev)
-    add("radix_sort bench keys", radix_case(K, keys))
-    del keys
-    rand = torch.from_numpy(rng.integers(INT64_MIN, INT64_MAX, shape,
-                                         dtype=np.int64)).to(dev)
-    add("radix_sort", radix_case(K, rand))
-    f = rng.standard_normal(shape) * 1e3
-    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan])
-    pos = rng.integers(0, CAP, (N_SHARDS, 4096))
-    for s_ in range(N_SHARDS):
-        f[s_, pos[s_]] = rng.choice(special, 4096)
-    fcol = torch.from_numpy(f).to(dev)
-    del f
-    add("radix_sort float64", radix_case(K, fcol))
-    del fcol
-    perm = K.radix_sort(rand)
-    small = torch.from_numpy(rng.integers(-1000, 1000, shape,
-                                          dtype=np.int32)).to(dev)
-    add("radix_sort int32 through src_idx", radix_case(K, small, perm))
-    del small, perm
+    cases = k5_columns(K, dev, rng)
+    for name, (col, src) in cases.items():
+        add(name, radix_case(K, col, src))
+    rand = cases["radix_sort"][0]
+    del cases
     torch.cuda.empty_cache()
 
     n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
@@ -2707,9 +2800,12 @@ def profile_window(label, window, top=14):
     rows = sorted(((us, name, n) for name, (us, n) in per_name.items()
                    if us), reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
+    # K5's kernels: the histogram pass and the one-sweep digit passes
+    k5 = sum(r[0] for r in rows if "k5_" in r[1]) / 1e3
     print("profile %s: wall_ms=%.1f device_busy_ms=%.1f "
-          "idle_share=%.3f" % (label, wall * 1e3, busy,
-                               1 - busy / (wall * 1e3)))
+          "idle_share=%.3f k5_ms=%.1f k5_share=%.3f" % (
+              label, wall * 1e3, busy, 1 - busy / (wall * 1e3), k5,
+              k5 / busy if busy else 0.0))
     for dev_us, name, count in rows[:top]:
         print("profile  %9.3f ms  x%-4d %s" % (dev_us / 1e3, count,
                                                 name[:90]))
@@ -2745,6 +2841,24 @@ def check_launches(path, fn, *args):
     return got
 
 
+def sort_only(K, dev):
+    """K5's and K6's phases, B7's composed top, B6's merge, the
+    sort and reduceByKey gpu:8 paths and the sortByKey count's profile
+    (no result line)."""
+    from dpark_tpu_torch import Columns
+    sort_kernel_phases(K, dev)
+    topk_phase(dev)
+    merge_phase(K, dev)
+    keys, vals = bench_data()
+    check_launches("reduceByKey gpu:8", main_path, "gpu:8", keys, vals)
+    del keys, vals
+    skeys, svals = sort_data()
+    check_launches("sort gpu:8", sort_path, "gpu:8", skeys, svals)
+    profile_first_action(
+        "gpu:8 sortByKey count", lambda ctx: ctx.parallelize(
+            Columns(skeys, svals), 8).sortByKey(numSplits=8).count)
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -2764,7 +2878,11 @@ def main():
     if native.get_lib() is None:
         fail("the native host library (dpark_tpu_torch/native) did not "
              "build or load")
+    k5_report(K)
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--sort-only"]:
+        sort_only(K, dev)
+        return
     if sys.argv[1:] == ["--stream-only"]:
         # the wave stream's phases and paths alone (no result line)
         spill_kernel_phases(K, dev)

@@ -76,6 +76,10 @@ MAX_KEYS = 6
 _libs = {}
 _build_lock = threading.Lock()
 build_seconds = None
+# libraries built with `-Xptxas -v`: their registers, shared memory and
+# spills per kernel land in build_logs[name] once loaded
+VERBOSE_PTXAS = ("radix_sort",)
+build_logs = {}
 
 
 def reset_launches():
@@ -127,20 +131,28 @@ def build():
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                    "-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
+            if name in VERBOSE_PTXAS:
+                cmd[1:1] = ["-Xptxas", "-v"]
             procs.append((name, so, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         errors = []
         for name, so, tmp, p in procs:
             out, _ = p.communicate()
+            out = out.decode(errors="replace")
             if p.returncode != 0:
-                errors.append("%s:\n%s" % (name, out.decode(errors="replace")))
+                errors.append("%s:\n%s" % (name, out))
             else:
+                with open(so[:-3] + ".log", "w") as f:
+                    f.write(out)
                 os.replace(tmp, so)
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
         for name in SOURCES:
             _libs[name] = _bind(name, ctypes.CDLL(
                 os.path.join(out_dir, "lib%s.so" % name)))
+            if name in VERBOSE_PTXAS:
+                with open(os.path.join(out_dir, "lib%s.log" % name)) as f:
+                    build_logs[name] = f.read()
         build_seconds = time.perf_counter() - t0
         return build_seconds
 
@@ -166,11 +178,11 @@ def _bind(name, lib):
         fn.argtypes = [_P, _P, _P, _I, _P, _P, _I, _L, _L, _I, _L, _P, _P]
     elif name == "radix_sort":
         hist = lib.dpk_radix_sort_hist
-        hist.argtypes = [_P, _I, _P, _I, _L, _I, _P, _P, _P, _P]
+        hist.argtypes = [_P, _I, _P, _I, _L, _I, _P, _P, _P, _P, _P, _P]
         hist.restype = ctypes.c_int
-        fn = lib.dpk_radix_sort_pass
-        fn.argtypes = [_P, _I, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P,
-                       _P]
+        fn = lib.dpk_radix_sort_passes
+        fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _L, _I, _P, _P, _P]
         fn.restype = ctypes.c_int
         return hist, fn
     elif name == "segment_table":
@@ -659,10 +671,37 @@ def _counting_pass(img, idx, d):
     return out_img, out_idx
 
 
+def radix_plan(flags):
+    """K5's digit passes and the width in bytes of the key image it
+    carries between them, from the per-digit flags (4 for an int32 key,
+    else 8) that say whether some shard's rows differ in that digit: a
+    digit on which every shard's rows agree is skipped, and the image is
+    4 bytes when every remaining digit lies in its low four bytes (the
+    high ones are then constant in each shard), else 8."""
+    passes = [d for d, a in enumerate(flags) if a]
+    return passes, 4 if not passes or passes[-1] < 4 else 8
+
+
+def radix_sorted_image(keys, relative):
+    """The image K5's digit passes sort, with its plan (radix_plan):
+    radix_key_image's, less each shard's least image when `relative` (as
+    K5 takes it through src_idx, so that a narrow range of keys needs only
+    its low digits even where it straddles zero)."""
+    img, ndig = radix_key_image(keys)
+    if relative and img.shape[1]:
+        # the least as unsigned: the signed least of the flipped patterns
+        img = img - ((img ^ _I64_MIN).min(1, keepdim=True).values
+                     ^ _I64_MIN)
+    return img, radix_plan(
+        [bool(((shard_bincount(_digit(img, d), 256) > 0).sum(1) > 1).any())
+         for d in range(ndig)])
+
+
 def radix_sort_plain(col, src_idx=None):
-    """K5's arithmetic in PyTorch: the same key image and digit skipping,
-    and one stable counting pass (per-tile digit counts, their scan, and
-    ranks inside a tile) per active digit."""
+    """K5's arithmetic in PyTorch: the same key image (radix_sorted_image:
+    relative to each shard's least through src_idx), digit skipping and
+    image width (radix_plan), and one stable counting pass (per-tile digit
+    counts, their scan, and ranks inside a tile) per active digit."""
     N, cap = col.shape
     dev = col.device
     if src_idx is None:
@@ -672,13 +711,17 @@ def radix_sort_plain(col, src_idx=None):
     else:
         idx = src_idx.clone()
         keys = torch.gather(col, 1, src_idx.long())
-    img, ndig = radix_key_image(keys)
-    active = [d for d in range(ndig)
-              if bool(((shard_bincount(_digit(img, d), 256) > 0).sum(1)
-                       > 1).any())]
-    for d in active:
+    img, (passes, width) = radix_sorted_image(keys, src_idx is not None)
+    if width == 4:
+        img = img & 0xFFFFFFFF
+    for d in passes:
         img, idx = _counting_pass(img, idx, d)
     return idx
+
+
+# the rows of csrc/radix_sort.cu's smallest tile (K5_MIN_TILE: 512
+# threads x 8 rows), by which the look-back's status words are tiled
+_K5_MIN_TILE = 4096
 
 
 def radix_sort(col, src_idx=None):
@@ -687,7 +730,11 @@ def radix_sort(col, src_idx=None):
     ((N, cap) int32 source rows of the current order, identity when None),
     composed with src_idx: bit-identical to
     ``src_idx.gather(1, torch.sort(col.gather(1, src_idx), dim=1,
-    stable=True).indices)``.  NaN sorts last and -0.0 ties +0.0."""
+    stable=True).indices)``.  NaN sorts last and -0.0 ties +0.0.
+
+    On the card: the histogram pass, one host read of its digit flags
+    (radix_plan), then one one-sweep pass per active digit launched by
+    one C call (csrc/radix_sort.cu)."""
     _need(col.dim() == 2 and col.is_contiguous()
           and col.dtype in _RADIX_KINDS,
           "radix_sort takes a contiguous (N, cap) int32/int64/float64 "
@@ -701,46 +748,64 @@ def radix_sort(col, src_idx=None):
         extra = [src_idx]
     if not _on_cuda([col] + extra):
         return radix_sort_plain(col, src_idx)
-    hist_fn, pass_fn = _kernel("radix_sort")
+    hist_fn, passes_fn = _kernel("radix_sort")
     dev = col.device
-    if cap == 0:
-        return torch.empty((N, 0), dtype=torch.int32, device=dev)
+    if N == 0 or cap == 0:
+        return torch.empty((N, cap), dtype=torch.int32, device=dev)
     kind = _RADIX_KINDS[col.dtype]
     ndig = 4 if col.dtype == torch.int32 else 8
+    kdt = torch.int32 if ndig == 4 else torch.int64
     src = src_idx.data_ptr() if src_idx is not None else None
     hist = torch.zeros((N, ndig, 256), dtype=torch.int32, device=dev)
     bases = torch.empty_like(hist)
     active = torch.zeros((ndig,), dtype=torch.int32, device=dev)
-    _check("radix_sort", hist_fn(col.data_ptr(), kind, src, N, cap, ndig,
-                                 hist.data_ptr(), bases.data_ptr(),
-                                 active.data_ptr(), _stream()), count=False)
-    passes = [d for d, a in enumerate(active.tolist()) if a]
+    # through src_idx the histogram pass writes the gathered image less
+    # its shard's least (lo) in row order, which the first pass reads
+    staged = lo = None
+    if src_idx is not None:
+        staged = torch.empty((N, cap), dtype=kdt, device=dev)
+        lo = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    _check("radix_sort", hist_fn(
+        col.data_ptr(), kind, src, N, cap, ndig, hist.data_ptr(),
+        bases.data_ptr(), active.data_ptr(),
+        None if staged is None else staged.data_ptr(),
+        None if lo is None else lo.data_ptr(), _stream()), count=False)
+    flags = torch.empty((ndig,), dtype=torch.int32, pin_memory=True)
+    flags.copy_(active, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    # while the histogram pass runs: the look-back's status words, then
+    # one tile counter a pass (zeroed once, tagged by pass), and the
+    # permutation (0.5 + 4 B a row)
+    status = torch.zeros((N * -(-cap // _K5_MIN_TILE) * 256 + ndig,),
+                         dtype=torch.int64, device=dev)
+    out = torch.empty((N, cap), dtype=torch.int32, device=dev)
+    ready.synchronize()
+    passes, width = radix_plan(flags.tolist())
     LAUNCHES["radix_sort"] += 1
     if not passes:
         if src_idx is not None:
             return src_idx.clone()
         return torch.arange(cap, dtype=torch.int32, device=dev).expand(
             N, cap).contiguous()
-    out = torch.empty((N, cap), dtype=torch.int32, device=dev)
-    blockcnt = torch.empty((N, 256, -(-cap // 8192)), dtype=torch.int32,
-                           device=dev)
-    kbuf = [torch.empty((N, cap), dtype=torch.int64, device=dev)
-            for _ in range(min(2, len(passes) - 1))]
-    ibuf = [torch.empty((N, cap), dtype=torch.int32, device=dev)
-            for _ in range(min(2, len(passes) - 1))]
-    kin = iin = None
-    for j, d in enumerate(passes):
-        last = j == len(passes) - 1
-        kout = None if last else kbuf[j % 2]
-        iout = out if last else ibuf[j % 2]
-        rc = pass_fn(col.data_ptr(), kind, src,
-                     None if kin is None else kin.data_ptr(),
-                     None if iin is None else iin.data_ptr(), N, cap, ndig,
-                     d, bases.data_ptr(), blockcnt.data_ptr(),
-                     None if kout is None else kout.data_ptr(),
-                     iout.data_ptr(), _stream())
-        _check("radix_sort", rc, count=False)
-        kin, iin = kout, iout
+    npass = len(passes)
+    # the last pass writes `out` and the earlier ones alternate between
+    # it and one more index buffer, the images between two buffers of
+    # `width` bytes, the staged image the second
+    other = out if npass == 1 else torch.empty_like(out)
+    ibuf = [other, out] if (npass - 1) % 2 else [out, other]
+    wdt = torch.int32 if width == 4 else torch.int64
+    kbuf = [torch.empty((N, cap), dtype=wdt, device=dev)
+            if npass > 1 else None,
+            staged if staged is not None or npass < 3
+            else torch.empty((N, cap), dtype=wdt, device=dev)]
+    _check("radix_sort", passes_fn(
+        col.data_ptr(), kind, src,
+        None if staged is None else staged.data_ptr(),
+        *[None if b is None else b.data_ptr() for b in kbuf],
+        ibuf[0].data_ptr(), ibuf[1].data_ptr(), out.data_ptr(),
+        (ctypes.c_int * npass)(*passes), npass, width, N, cap, ndig,
+        bases.data_ptr(), status.data_ptr(), _stream()), count=False)
     return out
 
 

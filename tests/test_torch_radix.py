@@ -141,6 +141,117 @@ def test_radix_sort_refuses_other_dtypes():
                            torch.zeros((2, 4), dtype=torch.int64))
 
 
+@pytest.mark.parametrize("flags,want", [
+    ([True] * 8, (list(range(8)), 8)),
+    ([True, True] + [False] * 6, ([0, 1], 4)),
+    ([False] * 3 + [True] + [False] * 4, ([3], 4)),
+    ([False] * 4 + [True] + [False] * 3, ([4], 8)),
+    ([True] + [False] * 6 + [True], ([0, 7], 8)),
+    ([False] * 8, ([], 4)),
+    ([True] * 4, ([0, 1, 2, 3], 4)),           # an int32 key
+    ([False, False, True, False], ([2], 4)),
+])
+def test_radix_plan_skips_digits_and_narrows_the_image(flags, want):
+    assert kernels.radix_plan(flags) == want
+
+
+def _plan_of(x):
+    img, ndig = kernels.radix_key_image(_t(x))
+    return kernels.radix_plan(
+        [bool(((kernels.shard_bincount(kernels._digit(img, d), 256) > 0)
+               .sum(1) > 1).any()) for d in range(ndig)])
+
+
+def _low_digits(rng):
+    """int64 keys whose active digits lie in the low four bytes: a large
+    constant high part, negative in one shard."""
+    x = rng.randint(0, 1 << 20, (N, CAP)).astype(np.int64) + (1 << 40)
+    x[2] -= 3 << 40
+    return x
+
+
+def _one_high_digit(rng):
+    return rng.randint(-128, 128, (N, CAP)).astype(np.int64) << 56
+
+
+def _one_row_differs(rng):
+    """every row shares every digit but one row of one shard, in one
+    digit"""
+    x = np.full((N, CAP), 0x0102030405060708, np.int64)
+    x[1, 123] += 5 << 16
+    return x
+
+
+def _cap_one(rng):
+    return rng.randint(-9, 9, (N, 1)).astype(np.int64)
+
+
+def _ragged_cap(rng):
+    """a cap that is not a multiple of any tile (the plain version's 64
+    rows, the kernel's 2,048 to 6,144), every digit active"""
+    return rng.randint(-2 ** 63, 2 ** 63 - 1, (N, 4097), dtype=np.int64)
+
+
+@pytest.mark.parametrize("with_src", [False, True])
+@pytest.mark.parametrize("make,plan", [
+    (_low_digits, ([0, 1, 2], 4)),
+    (_one_high_digit, ([7], 8)),
+    (_one_row_differs, ([2], 4)),
+    (_cap_one, ([], 4)),
+    (_ragged_cap, (list(range(8)), 8)),
+])
+def test_radix_sort_plain_plan_cases(make, plan, with_src):
+    """The image width and digit skipping of radix_plan on the cases that
+    choose them, and radix_sort_plain (through radix_sort on the CPU) held
+    to jnp.argsort(stable=True) and torch.sort(stable=True)."""
+    rng = np.random.RandomState(40)
+    x = make(rng)
+    n, cap = x.shape
+    src = (np.stack([rng.permutation(cap) for _ in range(n)]).astype(
+        np.int32) if with_src else None)
+    cur = x if src is None else np.take_along_axis(x, src, 1)
+    assert _plan_of(cur) == plan
+    got = kernels.radix_sort(_t(x), None if src is None else _t(src))
+    plain = kernels.radix_sort_plain(_t(x), None if src is None
+                                     else _t(src))
+    assert torch.equal(got, plain)
+    for s in range(n):
+        ident = np.arange(cap) if src is None else src[s]
+        want_j = ident[np.asarray(jnp.argsort(jnp.asarray(cur[s]),
+                                              stable=True))]
+        want_t = ident[torch.sort(_t(cur[s]), stable=True).indices.numpy()]
+        assert np.array_equal(got[s].numpy(), want_j)
+        assert np.array_equal(got[s].numpy(), want_t)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float64])
+def test_radix_sort_plain_relative_image_through_src(dtype):
+    """Through src_idx the image is taken less each shard's least: keys in
+    [-1000, 1000) straddle zero and need every digit as they are, but two
+    digits relative; the order is jnp.argsort's and torch.sort's."""
+    rng = np.random.RandomState(41)
+    x = rng.randint(-1000, 1000, (N, CAP)).astype(dtype)
+    if dtype == np.float64:
+        x = x / 8.0
+    x[1, ::3] = x[1, 0]
+    src = np.stack([rng.permutation(CAP) for _ in range(N)]).astype(
+        np.int32)
+    cur = np.take_along_axis(x, src, 1)
+    ndig = 4 if dtype == np.int32 else 8
+    assert kernels.radix_sorted_image(_t(cur), False)[1] == (
+        list(range(ndig)), ndig)
+    if dtype != np.float64:
+        assert kernels.radix_sorted_image(_t(cur), True)[1] == ([0, 1], 4)
+    got = kernels.radix_sort(_t(x), _t(src))
+    assert torch.equal(got, kernels.radix_sort_plain(_t(x), _t(src)))
+    for s in range(N):
+        want_j = src[s][np.asarray(jnp.argsort(jnp.asarray(cur[s]),
+                                               stable=True))]
+        want_t = src[s][torch.sort(_t(cur[s]), stable=True).indices.numpy()]
+        assert np.array_equal(got[s].numpy(), want_j)
+        assert np.array_equal(got[s].numpy(), want_t)
+
+
 @pytest.mark.parametrize("nb0", [None, 3])
 def test_lex_sort_matches_reference_mixed_key_types(nb0):
     """The port's _lex_sort (K5 passes, K2 last with nb0) against the
