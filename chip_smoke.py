@@ -3,7 +3,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the fifteen CUDA
+1. prints the card's name and power limit, builds the sixteen CUDA
    kernel libraries from csrc/ (one nvcc each, all started together) and
    prints the build time, and fails unless the native host library
    (dpark_tpu_torch/native, g++) built and loaded;
@@ -26,9 +26,10 @@ NVIDIA GPU.
    gpu, checked exactly against numpy, with top(10, key=lambda kv: kv[1]
    * 65536 + kv[0]) on the device through the ranged-int probe (K15);
 4. drives the sort path: 64Mi (random int64 key, row index) pairs ->
-   sortByKey (both directions) -> count / top / collect on gpu:8 (range
-   shuffle) and gpu (one in-place sort), collect checked row for row
-   against numpy's stable argsort; then partitionBy / groupByKey /
+   sortByKey (both directions) -> count / top on gpu:8 (range shuffle)
+   and gpu (one in-place sort), and the first 32Mi pairs -> sortByKey ->
+   collect checked row for row against numpy's stable argsort; then
+   partitionBy / groupByKey /
    distinct counts over bench.py's data, checked against numpy;
 5. drives the grouped paths on gpu:8: groupByKey(8).mapValues(sum of
    squares) -> count / collect over bench.py's data (65,536 groups of
@@ -80,11 +81,26 @@ NVIDIA GPU.
    partitions over the 64Mi pairs in waves of 2^21 rows a shard (K1's
    rid, B12, K4, K5 + K3, spilled runs, the host fold; the tuple merge
    through K14, no plain scan); sortByKey(
-   numSplits=32) -> collect and groupByKey(8) -> count over 2^23 random
-   int64 keys in waves of 2^18 rows (K6's rid, K13, K2, K4, K5, runs,
+   numSplits=32) -> collect and groupByKey(8) -> count over 2^22 random
+   int64 keys in waves of 2^17 rows (K6's rid, K13, K2, K4, K5, runs,
    premerge, export); then the out-of-memory ladder on the emulated
    ceiling at a small size;
-10. every stage of every checked job must take the tensor path (a reduce
+10. holds K16 (the union's concatenation, B16) against its plain version
+   (12 branches over 8 shards of 2^20 rows, ragged counts, an empty
+   shard and an empty branch; then 2 branches of 8 x 4,194,304) and K8's
+   state gather at one tick of the decayed counter, then drives the
+   union path on gpu:8 (bench.py's pairs in two halves: a.union(b)
+   .reduceByKey -> count / collect, and the union of the two reduced
+   halves -> reduceByKey -> collect, exactly numpy's, K16 in every
+   action) and BASELINE.json config 5 on gpu:8: a queue stream of 40
+   batches of 8,388,608 Zipf word ids, 1 s each, with
+   reduceByKeyAndWindow(add, 30, 10) with and without invFunc=sub and
+   updateStateByKey as a running sum, each output checked every tick
+   against numpy's counts; then the decayed counter 0.9 * prev + sum(vs)
+   over the first 3 batches (the state mode, within 1e-12 relative),
+   printing each output's wall, the device memory allocated and the
+   executor's store count;
+11. every stage of every checked job must take the tensor path (a reduce
    stage over spilled runs reads them on the host by design, and no
    streamed path's stage may record a fallback or degrade reason), and every
    kernel of a path must launch during that path's run (counts reset
@@ -92,7 +108,7 @@ NVIDIA GPU.
    the path itself: one K9 launch a superstep, one K10 launch a
    superstep with mail, or a class with mail) asks where a path must
    launch a kernel more than once;
-11. profiles the first action of each gpu:8 path and one PageRank
+12. profiles the first action of each gpu:8 path and one PageRank
    superstep of each Pregel, times the top path's K5 + K2 composition,
    prints one JSON line describing every kernel, then the result line.
 
@@ -103,8 +119,9 @@ the wave stream's phases and paths (9), printing no result line;
 narrowing timings and the wordcount (no result line); `--sort-only` runs
 only K5's and K6's phases, B7's composed top, B6's merge, the sort and
 reduceByKey gpu:8 paths and the sortByKey count's profile (no result
-line).  Every run prints K5's tiles and ptxas's registers and spills for
-radix_sort.cu.
+line); `--union-only` runs only K16's and the state gather's phases and
+the union and window paths (no result line).  Every run prints K5's
+tiles and ptxas's registers and spills for radix_sort.cu.
 """
 
 import collections
@@ -169,6 +186,11 @@ SOURCES = {
         "dpark_tpu/backend/tpu/collectives.py:303"),
     "column_ranges": ("dpark_tpu_torch/backend/cuda/csrc/column_ranges.cu",
                       "dpark_tpu/backend/tpu/executor.py:960"),
+    "union_concat": ("dpark_tpu_torch/backend/cuda/csrc/union_concat.cu",
+                     "dpark_tpu/backend/tpu/executor.py:2137"),
+    "bucket_gather_state": (
+        "dpark_tpu_torch/backend/cuda/csrc/bucket_groups.cu",
+        "dpark_tpu/backend/tpu/fuse.py:803"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
@@ -244,6 +266,19 @@ PATH_KERNELS = {
     "sort spilled gpu:8": ["range_dst_hist", "hash_dst_hist", "rid_fold",
                            "stable_partition", "shard_exchange",
                            "radix_sort"],
+    # each half's ingest and the union's K16, then the combining write
+    # (K1, K5, K2, K3) and its merge (K4, K5, K3); the union of reduced
+    # halves reads both halves' merges first
+    "union gpu:8": ["union_concat", "hash_dst_hist", "stable_partition",
+                    "reduce_by_key_compact", "shard_exchange", "radix_sort"],
+    # the windows' pane builds and union-reduces (K16 and the combining
+    # shuffle), the running sum's union-reduce; the decayed counter's
+    # groupByKey (K1, K2, K4, K5), K7, K2's class members, K8's state
+    # gather and scatter
+    "window gpu:8": ["union_concat", "hash_dst_hist", "stable_partition",
+                     "reduce_by_key_compact", "shard_exchange", "radix_sort",
+                     "segment_table", "bucket_gather_state",
+                     "bucket_scatter"],
 }
 SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
               "mean": lambda vs: sum(vs) / len(vs)}
@@ -276,7 +311,9 @@ LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "join_ranges": "join gpu:8", "join_expand": "join gpu:8",
              "rid_fold": "reduceByKey spilled gpu:8",
              "segmented_merge": "tpch q1 gpu:8",
-             "column_ranges": "wordcount gpu:8"}
+             "column_ranges": "wordcount gpu:8",
+             "union_concat": "union gpu:8",
+             "bucket_gather_state": "window gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 # Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
@@ -305,11 +342,14 @@ K14_FLOAT_RTOL = 1e-8              # float sums in another association
 # the wave stream: bench.py's pairs at 2^30 (16 GiB of columns, several
 # waves at the auto threshold); the spilled paths at pinned wave sizes
 WAVE_PAIRS = 1 << 30
+# the sortByKey collects read the first half of the sort path's pairs
+# (cut from 64Mi for the smoke's time)
+SORT_COLLECT_PAIRS = PAIRS // 2
 SPILL_PARTS = 64                   # reduceByKey's logical partitions
 SPILL_CHUNK = 1 << 21              # rows a shard a wave: 4 waves
-SORT_SPILL_PAIRS = 1 << 23
+SORT_SPILL_PAIRS = 1 << 22           # cut from 2^23 for the smoke's time
 SORT_SPILL_PARTS = 32
-SORT_SPILL_CHUNK = 1 << 18         # 4 waves
+SORT_SPILL_CHUNK = 1 << 17         # 4 waves
 # HiBench's WordCount `large` profile (hibench.wordcount.large.datasize):
 # 3.2e9 bytes of text.  Its generator (RandomTextWriter) draws from a fixed
 # 1,000-word list; here words come from a seeded vocabulary of 2^20
@@ -952,9 +992,10 @@ def check_sorted(what, got, keys, order):
 
 
 def sort_path(master, keys, vals):
-    """sortByKey on one master, checked against numpy: count, top and a
-    full collect row for row (equal keys in input order) in both
-    directions on gpu:8, ascending on gpu."""
+    """sortByKey on one master, checked against numpy: count and top over
+    the 64Mi pairs, and a full collect row for row (equal keys in input
+    order) of the first SORT_COLLECT_PAIRS, in both directions on gpu:8,
+    ascending on gpu."""
     from dpark_tpu_torch import Columns, DparkContext
     ctx = DparkContext(master)
     P = ctx.default_parallelism
@@ -975,14 +1016,17 @@ def sort_path(master, keys, vals):
     big = np.argsort(keys, kind="stable")[::-1][:10]
     if top != [(int(keys[i]), int(vals[i])) for i in big]:
         fail("%s sortByKey top differs from numpy: %s" % (master, top))
+    ck, cv = keys[:SORT_COLLECT_PAIRS], vals[:SORT_COLLECT_PAIRS]
+    rc = ctx.parallelize(Columns(ck, cv), P)
     for ascending in directions:
         label = "%s sortByKey(ascending=%s) collect" % (master, ascending)
-        got = act(label, made[ascending].collect)
+        got = act(label, rc.sortByKey(ascending=ascending,
+                                      numSplits=P).collect)
         check_stages(ctx, label)
         # descending: an ascending stable sort of the reversed key keeps
         # equal keys in input order, as Python's sorted(reverse=True)
-        order = np.argsort(keys if ascending else -1 - keys, kind="stable")
-        check_sorted(label, got, keys, order)
+        order = np.argsort(ck if ascending else -1 - ck, kind="stable")
+        check_sorted(label, got, ck, order)
         del got
     ctx.stop()
 
@@ -2841,6 +2885,409 @@ def check_launches(path, fn, *args):
     return got
 
 
+# ---------------------------------------------------------------------
+# the device union source (B16, K16) and DStream windows and state (A14)
+# ---------------------------------------------------------------------
+UNION_CAP = 1 << 20                # rows a shard a branch, k = 12 phase
+UNION_BRANCHES = 12                # the reference's MAX_UNION_SOURCES
+UNION_PATH_ROWS = PAIRS // 2 // N_SHARDS     # 4,194,304: a half a shard
+# the Spark Streaming Programming Guide's "Window Operations" example:
+# reduceByKeyAndWindow(_ + _, _ - _, Seconds(30), Seconds(10)) over
+# batches of 1 s of the manual clock
+WINDOW_LEN = 30.0
+WINDOW_SLIDE = 10.0
+WINDOW_BATCHES = 40
+WINDOW_ROWS = 1 << 20              # (word id, 1) pairs a shard a batch
+DECAY_BATCHES = 3                  # the decayed counter's depth cut
+DECAY = 0.9                        # 0.9 * prev + sum(vs)
+DECAY_RTOL = 1e-12
+STREAM_T0 = 1000.0
+
+
+def union_case(K, branches, label):
+    """K16 on `branches` against its plain version (bit-equal); library:
+    none (no one torch call packs ragged per-shard prefixes); the torch
+    composite (torch.cat of every shard's slices, after the same host
+    read) is timed beside it."""
+    a = K.union_concat(branches)
+    b = K.union_concat_plain(branches)
+    err = max_err([("K16 %s leaf %d" % (label, i), x, y)
+                   for i, (x, y) in enumerate(zip(a[0], b[0]))]
+                  + [("K16 %s totals" % label, a[1], b[1])])
+    counts = torch.stack([n for _, n in branches]).cpu().tolist()
+    rows = sum(sum(c) for c in counts)
+    row_bytes = sum(leaf.element_size() for leaf in branches[0][0])
+    N, cap_out = a[0][0].shape[:2]
+    nl = len(branches[0][0])
+
+    def composite():
+        hc = torch.stack([n for _, n in branches]).cpu().tolist()
+        return [torch.cat([lv[li][s, :hc[j][s]]
+                           for j, (lv, _) in enumerate(branches)])
+                for li in range(nl) for s in range(N)]
+    return {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.union_concat(branches)),
+        "plain_ms": timed(lambda: K.union_concat_plain(branches), reps=3),
+        # every valid row read once, every output row (tails included)
+        # written once, the counts read and the totals written
+        "bound_ms": bound_ms(rows * row_bytes + N * cap_out * row_bytes
+                             + 4 * N * (len(branches) + 1)),
+        "library_ms": None,
+        "notes": {"k": len(branches), "rows": rows, "cap_out": cap_out,
+                  "torch_cat_ms": "%.4f" % timed(composite, reps=3)},
+    }
+
+
+def union_kernel_phases(K, dev):
+    """K16 against its plain version: k = 12 branches over 8 shards of
+    cap 2^20 with ragged counts, shard 3 empty in every branch and branch
+    5 empty, int64/int64/float64 leaves; then k = 2 at 8 x 4,194,304
+    rows, the union path's shape (bench.py's halves, full counts)."""
+    rng = np.random.default_rng(20261031)
+    counts = rng.integers(0, UNION_CAP + 1, (UNION_BRANCHES, N_SHARDS))
+    counts[:, 3] = 0
+    counts[5, :] = 0
+    branches = []
+    for j in range(UNION_BRANCHES):
+        lv = [torch.from_numpy(rng.integers(0, KEYS, (N_SHARDS, UNION_CAP),
+                                            dtype=np.int64)).to(dev),
+              torch.from_numpy(rng.integers(0, 1 << 16,
+                                            (N_SHARDS, UNION_CAP),
+                                            dtype=np.int64)).to(dev),
+              torch.from_numpy(rng.standard_normal(
+                  (N_SHARDS, UNION_CAP))).to(dev)]
+        branches.append((lv, torch.from_numpy(
+            counts[j].astype(np.int32)).to(dev)))
+    out = {}
+    rec = union_case(K, branches, "k=12")
+    print_phase("union_concat k=12", rec)
+    del branches
+    torch.cuda.empty_cache()
+    keys, vals = (torch.from_numpy(c.reshape(2, N_SHARDS, UNION_PATH_ROWS))
+                  .to(dev) for c in bench_data())
+    n = torch.full((N_SHARDS,), UNION_PATH_ROWS, dtype=torch.int32,
+                   device=dev)
+    branches = [([keys[h].contiguous(), vals[h].contiguous()], n)
+                for h in range(2)]
+    del keys, vals
+    out["union_concat"] = union_case(K, branches, "k=2")
+    print_phase("union_concat", out["union_concat"])
+    del branches
+    torch.cuda.empty_cache()
+    return out
+
+
+def zipf_ids(n, seed):
+    """n word ids of the wordcount vocabulary drawn under Zipf's law
+    (corpus_chunk's rule: rank floor((V + 1)^u) - 1, u uniform)."""
+    rng = np.random.default_rng(seed)
+    ids = np.floor(np.exp(rng.random(n) * math.log(VOCAB_WORDS + 1)))
+    return np.clip(ids.astype(np.int64) - 1, 0, VOCAB_WORDS - 1)
+
+
+def window_batches(count):
+    """The stream's batches: `count` x 8 x 1,048,576 word ids."""
+    return [zipf_ids(N_SHARDS * WINDOW_ROWS, [20261030, b])
+            for b in range(count)]
+
+
+def state_gather_phase(K, dev):
+    """K8's state gather against its plain version at one tick of the
+    decayed counter: batch 2's 8,388,608 new values (flag 0) and the
+    state of batch 1's distinct words (flag 1), split over 8 shards by
+    key and key-sorted (K7 and K2 give the table and the class members),
+    every non-empty size class in the "zero" pad; times summed over the
+    classes.  The "edge" pad is held on the widest class."""
+    from dpark_tpu_torch.backend.cuda import collectives as C
+    from dpark_tpu_torch.backend.cuda.layout import round_capacity
+    b0, b1 = window_batches(2)
+    state_keys, state_counts = np.unique(b0, return_counts=True)
+    keys = np.concatenate([b1, state_keys])
+    flags = np.concatenate([np.zeros(len(b1), np.int64),
+                            np.ones(len(state_keys), np.int64)])
+    vals = np.concatenate([np.ones(len(b1)),
+                           0.9 * state_counts.astype(np.float64)])
+    shard = keys % N_SHARDS
+    order = np.lexsort((keys, shard))
+    per = np.bincount(shard, minlength=N_SHARDS)
+    cap = round_capacity(int(per.max()))
+    kt = np.full((N_SHARDS, cap), INT64_MAX, np.int64)
+    ft = np.zeros((N_SHARDS, cap), np.int64)
+    vt = np.zeros((N_SHARDS, cap), np.float64)
+    at = 0
+    for s in range(N_SHARDS):
+        idx = order[at:at + per[s]]
+        kt[s, :per[s]], ft[s, :per[s]], vt[s, :per[s]] = \
+            keys[idx], flags[idx], vals[idx]
+        at += per[s]
+    kt, ft, vt = (torch.from_numpy(a).to(dev) for a in (kt, ft, vt))
+    n = torch.from_numpy(per.astype(np.int32)).to(dev)
+    start_rows, sizes, bucket, _, hist, _ = K.segment_table([kt], n,
+                                                            want_keys=False)
+    members, counts, offsets = C.bucket_members(bucket)
+    gmax = hist.cpu().numpy().max(0)
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": None}
+    lanes = classes = 0
+    widest = None
+    for b in np.flatnonzero(gmax).tolist():
+        G, B = round_capacity(int(gmax[b])), 1 << b
+        boff, bcnt = offsets[:, b].contiguous(), counts[:, b].contiguous()
+        args = (start_rows, sizes, members, boff, bcnt, G, B, vt, ft)
+        x = K.bucket_gather_state(*args, "zero")
+        y = K.bucket_gather_state_plain(*args, "zero")
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_err(
+            [("K8 state class %d out" % b, x[0], y[0]),
+             ("K8 state class %d prev" % b, x[1], y[1]),
+             ("K8 state class %d has_prev" % b, x[2], y[2])]))
+        rec["ms"] += timed(lambda: K.bucket_gather_state(*args, "zero"),
+                           reps=3)
+        rec["plain_ms"] += timed(
+            lambda: K.bucket_gather_state_plain(*args, "zero"), reps=1)
+        live = int(bcnt.sum().item())
+        rows = int(sizes.gather(1, members.long()).masked_fill(
+            ~valid_lanes(members, boff, bcnt), 0).sum().item())
+        # each group's values and flags read once, member id, start row
+        # and size per lane; the padded matrix, prev and has_prev written
+        rec["bound_ms"] += bound_ms(rows * (8 + 8) + live * 12
+                                    + nbytes(*x) + nbytes(boff, bcnt))
+        lanes += live
+        classes += 1
+        widest = args
+    x = K.bucket_gather_state(*widest, "edge")
+    y = K.bucket_gather_state_plain(*widest, "edge")
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err(
+        [("K8 state edge out", x[0], y[0]), ("K8 state edge prev", x[1],
+                                             y[1])]))
+    rec["notes"] = {"rows": len(keys), "groups": int(len(np.unique(keys))),
+                    "classes": classes, "lanes": lanes,
+                    "widest_B": widest[6]}
+    print_phase("bucket_gather_state", rec)
+    del kt, ft, vt, start_rows, sizes, bucket, members, x, y
+    torch.cuda.empty_cache()
+    return {"bucket_gather_state": rec}
+
+
+def union_path(keys, vals):
+    """The device union on gpu:8 over bench.py's pairs split in two halves
+    of 32Mi: a.union(b).reduceByKey(add, 8) -> count, then (fresh) ->
+    collect, and a.reduceByKey(add, 8).union(b.reduceByKey(add, 8))
+    .reduceByKey(add, 8) -> collect, each exactly numpy's, every stage on
+    the tensor path, each action launching K16."""
+    from dpark_tpu_torch import Columns, DparkContext
+    from dpark_tpu_torch.backend.cuda import kernels as K
+    half = PAIRS // 2
+    sums = np.bincount(keys, weights=vals, minlength=KEYS).astype(np.int64)
+    ctx = DparkContext("gpu:8")
+
+    def halves():
+        return (ctx.parallelize(Columns(keys[:half], vals[:half]),
+                                N_SHARDS),
+                ctx.parallelize(Columns(keys[half:], vals[half:]),
+                                N_SHARDS))
+
+    def run(label, fn):
+        before = K.LAUNCHES["union_concat"]
+        res = act(label, fn)
+        check_stages(ctx, label)
+        if K.LAUNCHES["union_concat"] <= before:
+            fail("%s launched no K16" % label)
+        return res
+
+    def check(label, got):
+        gk = np.array([k for k, _ in got], np.int64)
+        gv = np.array([v for _, v in got], np.int64)
+        if len(got) != KEYS or len(np.unique(gk)) != KEYS \
+                or not np.array_equal(sums[gk], gv):
+            fail("%s differs from numpy" % label)
+    a, b = halves()
+    if run("union gpu:8 count", a.union(b).reduceByKey(
+            operator.add, N_SHARDS).count) != KEYS:
+        fail("union count")
+    a, b = halves()
+    check("union gpu:8 collect", run("union gpu:8 collect", a.union(
+        b).reduceByKey(operator.add, N_SHARDS).collect))
+    a, b = halves()
+    r = a.reduceByKey(operator.add, N_SHARDS).union(
+        b.reduceByKey(operator.add, N_SHARDS)).reduceByKey(operator.add,
+                                                           N_SHARDS)
+    check("union of reduced gpu:8 collect",
+          run("union of reduced gpu:8 collect", r.collect))
+    ctx.stop()
+
+
+def decayed_update(vs, prev):
+    base = 0.0 if prev is None else prev
+    return DECAY * base + sum(vs)
+
+
+def running_sum(vs, prev):
+    return (prev or 0) + sum(vs)
+
+
+def window_want(counts, lo, hi):
+    """Per word, the occurrences over batches lo..hi-1."""
+    return counts[hi] - counts[lo]
+
+
+def check_counts(label, got, want, zeros_ok):
+    """got ((word, count) rows) equals want's non-zero words exactly; with
+    zeros_ok, extra rows of count 0 (the invertible window's keys whose
+    count fell to zero) are allowed."""
+    gk = np.fromiter((kv[0] for kv in got), np.int64, len(got))
+    gv = np.fromiter((kv[1] for kv in got), np.int64, len(got))
+    nz = np.flatnonzero(want)
+    if len(np.unique(gk)) != len(gk) or not np.array_equal(want[gk], gv) \
+            or not np.isin(nz, gk).all() \
+            or (not zeros_ok and len(gk) != len(nz)):
+        fail("%s differs from numpy (%d rows, want %d non-zero)"
+             % (label, len(got), len(nz)))
+
+
+def stream_output(ctx, name, check, union_ticks, state=False):
+    """A foreachRDD function collecting one output each tick: its wall,
+    the launches of K16 and K8's state gather in it, the device memory
+    and the executor's store count; every stage on the tensor path, K16
+    on every union tick, the state gather on every tick of the state
+    mode."""
+    from dpark_tpu_torch.backend.cuda import kernels as K
+
+    def out(rdd, t):
+        tick = int(round(t - STREAM_T0))
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = rdd.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        check_stages(ctx, "window %s t=%d" % (name, tick))
+        if union_ticks(tick) and not launched["union_concat"]:
+            fail("window %s t=%d: no K16 launch" % (name, tick))
+        if state and not launched["bucket_gather_state"]:
+            fail("window %s t=%d: no state gather launch" % (name, tick))
+        check(tick, got)
+        print("window %s t=%d: wall_s=%.3f rows=%d k16=%d state_gather=%d "
+              "hbm_allocated_gib=%.3f stores=%d" % (
+                  name, tick, wall, len(got), launched["union_concat"],
+                  launched["bucket_gather_state"],
+                  torch.cuda.memory_allocated() / 2 ** 30,
+                  len(ctx.scheduler.executor.shuffle_store)), flush=True)
+    return out
+
+
+def window_path(batches):
+    """BASELINE.json config 5 on gpu:8: a queue stream of Columns batches
+    of 8,388,608 (word id, 1) pairs, 1 s of the manual clock each, with
+    reduceByKeyAndWindow(add, 30, 10, invFunc=sub) (the pane plane's
+    union-reduce: prev + new pane - expired pane), the same without
+    invFunc (the flat pane union below STREAM_PANE_TREE_MIN), and
+    updateStateByKey as a running sum (the union-reduce rewrite) over
+    WINDOW_BATCHES batches; then the decayed counter 0.9 * prev + sum(vs)
+    (the state mode) over the first DECAY_BATCHES, on a fresh context.
+    Every output is checked each tick against numpy (counts exactly,
+    the decayed counter within DECAY_RTOL relative)."""
+    from dpark_tpu_torch import Columns, DparkContext
+    from dpark_tpu_torch.dstream import StreamingContext
+    ones = np.ones(N_SHARDS * WINDOW_ROWS, np.int64)
+    cum = np.zeros((len(batches) + 1, VOCAB_WORDS), np.int64)
+    for i, ids in enumerate(batches):
+        cum[i + 1] = cum[i] + np.bincount(ids, minlength=VOCAB_WORDS)
+    slide, win = int(WINDOW_SLIDE), int(WINDOW_LEN)
+
+    def emits(tick):
+        return tick % slide == 0
+
+    ctx = DparkContext("gpu:8")
+    ssc = StreamingContext(ctx, 1.0)
+    q = ssc.queueStream([ctx.parallelize(Columns(ids, ones), N_SHARDS)
+                         for ids in batches])
+
+    def check_window(zeros_ok):
+        def check(tick, got):
+            check_counts("window t=%d" % tick, got,
+                         window_want(cum, max(0, tick - win), tick),
+                         zeros_ok)
+        return check
+    q.reduceByKeyAndWindow(operator.add, WINDOW_LEN, WINDOW_SLIDE,
+                           numSplits=N_SHARDS, invFunc=operator.sub) \
+        .foreachRDD(stream_output(ctx, "inv", check_window(True), emits))
+    q.reduceByKeyAndWindow(operator.add, WINDOW_LEN, WINDOW_SLIDE,
+                           numSplits=N_SHARDS) \
+        .foreachRDD(stream_output(ctx, "noninv", check_window(False),
+                                  emits))
+    q.updateStateByKey(running_sum, numSplits=N_SHARDS).foreachRDD(
+        stream_output(ctx, "running sum", lambda tick, got: check_counts(
+            "running sum t=%d" % tick, got, cum[tick], False),
+            lambda tick: tick > 1))
+    ctx.start()
+    ssc.zero_time = STREAM_T0
+    for k in range(1, len(batches) + 1):
+        t0 = time.perf_counter()
+        ssc.run_batch(STREAM_T0 + k)
+        print("window tick %d: %.3f s" % (k, time.perf_counter() - t0),
+              flush=True)
+    ssc.stop()
+    ctx.stop()
+    torch.cuda.empty_cache()
+
+    decay = np.zeros(VOCAB_WORDS)
+
+    def check_decay(tick, got):
+        nonlocal decay
+        decay = DECAY * decay + (cum[tick] - cum[tick - 1])
+        gk = np.fromiter((kv[0] for kv in got), np.int64, len(got))
+        gv = np.fromiter((kv[1] for kv in got), np.float64, len(got))
+        seen = np.flatnonzero(cum[tick])
+        if len(gk) != len(seen) or not np.array_equal(np.sort(gk), seen) \
+                or not np.allclose(gv, decay[gk], rtol=DECAY_RTOL, atol=0):
+            fail("decayed counter t=%d differs from numpy" % tick)
+    ctx = DparkContext("gpu:8")
+    ssc = StreamingContext(ctx, 1.0)
+    q = ssc.queueStream([ctx.parallelize(Columns(ids, ones), N_SHARDS)
+                         for ids in batches[:DECAY_BATCHES]])
+    q.updateStateByKey(decayed_update, numSplits=N_SHARDS).foreachRDD(
+        stream_output(ctx, "decayed", check_decay, lambda tick: tick > 1,
+                      state=True))
+    ctx.start()
+    ssc.zero_time = STREAM_T0
+    for k in range(1, DECAY_BATCHES + 1):
+        t0 = time.perf_counter()
+        ssc.run_batch(STREAM_T0 + k)
+        print("decay tick %d: %.3f s" % (k, time.perf_counter() - t0),
+              flush=True)
+    ssc.stop()
+    ctx.stop()
+    torch.cuda.empty_cache()
+
+
+def union_paths(drive, K, dev):
+    """K16's and the state gather's phases, then the union and window
+    paths, each driven with its own launch counts, and a profile of the
+    union count."""
+    from dpark_tpu_torch import Columns
+    out = union_kernel_phases(K, dev)
+    out.update(state_gather_phase(K, dev))
+    keys, vals = bench_data()
+    drive("union gpu:8", union_path, keys, vals)
+    half = PAIRS // 2
+    profile_first_action(
+        "gpu:8 union count", lambda ctx: ctx.parallelize(
+            Columns(keys[:half], vals[:half]), N_SHARDS).union(
+                ctx.parallelize(Columns(keys[half:], vals[half:]),
+                                N_SHARDS)).reduceByKey(operator.add,
+                                                       N_SHARDS).count)
+    del keys, vals
+    t0 = time.perf_counter()
+    batches = window_batches(WINDOW_BATCHES)
+    print("window: %d batches of %d word ids generated in %.1f s" % (
+        len(batches), len(batches[0]), time.perf_counter() - t0),
+        flush=True)
+    drive("window gpu:8", window_path, batches)
+    return out
+
+
 def sort_only(K, dev):
     """K5's and K6's phases, B7's composed top, B6's merge, the
     sort and reduceByKey gpu:8 paths and the sortByKey count's profile
@@ -2894,6 +3341,12 @@ def main():
         # alone (no result line)
         text_paths(lambda path, fn, *a: check_launches(path, fn, *a), K,
                    dev)
+        return
+    if sys.argv[1:] == ["--union-only"]:
+        # K16's and the state gather's phases, the union and window paths
+        # alone (no result line)
+        union_paths(lambda path, fn, *a: check_launches(path, fn, *a), K,
+                    dev)
         return
     if sys.argv[1:]:
         fail("unknown arguments %s" % sys.argv[1:])
@@ -2989,6 +3442,7 @@ def main():
     phases.update(spill_kernel_phases(K, dev))
     merge_phase(K, dev)
     stream_paths(drive)
+    phases.update(union_paths(drive, K, dev))
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

@@ -12,6 +12,10 @@
     wc = (ctx.textFile(path).flatMap(lambda line: line.split())
           .map(lambda w: (w, 1)).reduceByKey(add))
     wc.top(10, key=lambda kv: kv[1])     # words encoded to ids on the card
+    a.union(b).reduceByKey(add, 8)       # K16 packs the branches
+    ssc = StreamingContext(ctx, 1.0)     # DStreams: windows and state
+    ssc.queueStream(batches).reduceByKeyAndWindow(add, 30, 10,
+                                                  invFunc=sub)
 
 The package imports torch, never jax, and nothing of dpark_tpu.
 """
@@ -19,7 +23,9 @@ The package imports torch, never jax, and nothing of dpark_tpu.
 from dpark_tpu_torch.bagel import (Bagel, BasicCombiner, Edge, Message,
                                    Vertex, run_pregel)
 from dpark_tpu_torch.context import DparkContext
+from dpark_tpu_torch.dstream import StreamingContext
 from dpark_tpu_torch.rdd import Columns
 
 __all__ = ["DparkContext", "Columns", "run_pregel", "Bagel",
-           "BasicCombiner", "Edge", "Message", "Vertex"]
+           "BasicCombiner", "Edge", "Message", "Vertex",
+           "StreamingContext"]

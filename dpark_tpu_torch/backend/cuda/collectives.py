@@ -345,6 +345,18 @@ def gather_bucket_groups(start_rows, sizes, members, offsets, counts, b, G,
                                  val_col.contiguous(), pad)
 
 
+def gather_bucket_state(start_rows, sizes, members, offsets, counts, b, G,
+                        B, val_col, flag_col, pad):
+    """K8's state gather for size class b: (the (N, G, B) matrix of each
+    group's new values compacted to the front and padded, the carried
+    value (N, G), has_prev (N, G)) -- see kernels.bucket_gather_state."""
+    return kernels.bucket_gather_state(start_rows, sizes, members,
+                                       offsets[:, b].contiguous(),
+                                       counts[:, b].contiguous(), G, B,
+                                       val_col.contiguous(),
+                                       flag_col.contiguous(), pad)
+
+
 def scatter_bucket_groups(outs, results, members, offsets, counts, b):
     """K8: each valid lane's (N, G) results written into the (N, cap)
     `outs` at its segment id, in place."""

@@ -13,7 +13,11 @@ destination and K2 partition, and its reduce side only sorts by key (K5).
 A groupByKey().mapValues(f) reduce side then runs SegAggOp (K3) or, for
 SegMapOp, K7's segment table first (_run_seg_map).  An a.join(b) source
 exchanges and sorts both no-combine sides, then K12 finds each A row's
-range of equal B keys and expands the pairs (device_join_batch).
+range of equal B keys and expands the pairs (device_join_batch).  A
+"union" source (B16) materializes each branch sub-plan (its source and
+narrow ops, through the same _source_batch), packs the branches' rows
+per shard with K16 (_union_batch), then runs the stage's ops and write
+over the union.
 
 A "text" source runs the stage's narrow chain over a text file on the
 host a split at a time (the C++ tokenizer for the verified canonical
@@ -444,22 +448,49 @@ class TorchExecutor:
             # admission streams only an input above the wave threshold,
             # with the same predicate: a safety net, not a route
             raise ValueError("logical_spill plan without streaming")
-        if plan.source[0] == "ingest":
-            batch = self._ingest(plan)
-        elif plan.source[0] == "text":
-            batch = self._ingest_text(plan)
-        elif plan.source[0] == "join":
-            batch = self.device_join_batch(*plan.source[1])
-        elif plan.ops and isinstance(plan.ops[0], fuse.SegMapOp):
-            # segmented apply: sort the rows, read the size-class
-            # histogram, set the op's bucket layout
-            batch = self._run_seg_map(plan)
-        else:
-            batch = self._exchange_and_reduce(plan)
+        batch = self._source_batch(plan, plan.epilogue is not None)
         outs = self._run_narrow(plan, batch)
         return self._finish_stage(plan, outs)
 
-    def _ingest(self, plan):
+    def _source_batch(self, plan, keyed):
+        """The plan's source as a Batch, before its narrow ops (a whole
+        stage's, or a union branch's sub-plan).  `keyed`: the stage
+        writes a shuffle, so an ingested key equal to the sentinel takes
+        the host path."""
+        kind = plan.source[0]
+        if kind == "ingest":
+            return self._ingest(plan, keyed)
+        if kind == "text":
+            return self._ingest_text(plan)
+        if kind == "join":
+            return self.device_join_batch(*plan.source[1])
+        if kind == "union":
+            return self._union_batch(plan, keyed)
+        if plan.ops and isinstance(plan.ops[0], fuse.SegMapOp):
+            # segmented apply: sort the rows, read the size-class
+            # histogram, set the op's bucket layout
+            return self._run_seg_map(plan)
+        return self._exchange_and_reduce(plan)
+
+    def _union_batch(self, plan, keyed):
+        """B16: each branch's source and narrow ops, then K16 packs the
+        branches' valid rows per shard, branch after branch (one host
+        read of every branch's counts sizes the union).  The tail past
+        each shard's total holds the key sentinel in leaf 0 when leaf 0
+        is a key column, zeros elsewhere."""
+        branches = []
+        for sub in plan.source[1]:
+            lv, n = self._apply_ops(sub, self._source_batch(sub, keyed))
+            branches.append(([leaf.contiguous() for leaf in lv],
+                             n.to(torch.int32)))
+        k0 = branches[0][0][0]
+        key_leaf = (0 if k0.dim() == 2 and k0.dtype in (
+            torch.int64, torch.int32, torch.float64) else None)
+        fill = collectives._sentinel(k0.dtype) if key_leaf == 0 else 0
+        leaves, totals = kernels.union_concat(branches, key_leaf, fill)
+        return layout.Batch(plan.in_treedef, leaves, totals)
+
+    def _ingest(self, plan, keyed):
         slices = plan.source[1]._slices
         if plan.reslice:
             slices = _reslice_parts(slices, self.ndev)
@@ -467,7 +498,7 @@ class TorchExecutor:
         # it must take the host path (HostPath, before any device work)
         return layout.ingest(self.ndev, self.device, slices,
                              plan.in_treedef, plan.in_specs,
-                             key_leaf=0 if plan.epilogue else None)
+                             key_leaf=0 if keyed else None)
 
     def _exchange_and_reduce(self, plan):
         """Reduce side: K4 exchange of the stored map output, then the
@@ -1314,9 +1345,11 @@ class TorchExecutor:
                 "leaves": leaves,            # (N, cap, ...) dst-sorted
                 "counts": cnts,              # (N, N) [src, dst]
                 "offsets": offs,             # (N, N)
-                # text and re-sliced ingest spread rows evenly: a shard
-                # is no map partition, the bridge reads through map 0
-                "single_map": plan.reslice or plan.source[0] == "text",
+                # text, union and re-sliced ingest spread rows over the
+                # shards: a shard is no map partition, the bridge reads
+                # the whole shuffle through map 0
+                "single_map": (plan.reslice
+                               or plan.source[0] in ("text", "union")),
             })
         batch = outs[1]
         store = (self.shuffle_store.get(plan.source[1].shuffle_id, {})

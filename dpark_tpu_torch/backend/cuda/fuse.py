@@ -30,7 +30,21 @@ A groupByKey consumed by mapValues(f) stays on the device two ways, as
 in the reference: a provable aggregate (sum/len/min/max/mean) as
 SegAggOp (K3 over the key-sorted rows), any traceable padding-invariant
 per-group f as SegMapOp (K7 segment table, K2 size-class members, K8
-padded gather and scatter, f vmapped over each size class).
+padded gather and scatter, f vmapped over each size class).  In its
+state mode (updateStateByKey's general update(values, prev) over (k, (v,
+flag)) rows, dstream._SegStateApply) K8's state gather compacts each
+group's new values and picks its carried state row.
+
+A shuffle stage over a.union(b, ...) is a "union" source (B16): each
+branch is a sub-plan without an epilogue (an input, or a shuffle output
+kept on the device, with or without its combine or a segment op), the
+executor materializes the branches and K16 packs their rows per shard,
+and the stage's narrow ops and shuffle write run over the union.
+
+A cached RDD whose narrow chain reads a shuffle output kept on the device
+(and whose partitions the host cache does not hold) is read through: the
+port has no device result cache yet (ROADMAP A19), and the store holds
+its data.  A cached RDD over anything else keeps the host path.
 """
 
 import contextlib
@@ -76,7 +90,12 @@ WIDE_REASON = ("more logical partitions (%d) than shards (%d): only an "
 HOST_RUNS_READ = "spilled runs: the host export folds them"
 CACHE_REASON = ("cached %s: the device result cache is not yet ported; "
                 "its partitions cache on the host")
-UNION_REASON = "union source: the device union is not yet ported"
+# the union source's declines (the reference records none: C19)
+UNION_RESULT_REASON = ("union read by a result stage: its tasks index the "
+                       "union's splits")
+UNION_WIDE_REASON = "union of %d branches (the device takes 1..%d)"
+UNION_BRANCH_REASON = "union branch %d: %s"
+UNION_SPECS_REASON = "union branches disagree on the record type"
 # why a.join(b) is not a device join source
 JOIN_NARROW_REASON = ("join side %d is already partitioned like the join "
                       "(e.g. a reduceByKey output) and read narrowly: the "
@@ -592,6 +611,22 @@ def _seg_row_fn(f):
     return fn
 
 
+def _seg_state_row_fns(update):
+    """The user's update(values, prev) as two leaf functions: one traced
+    with a prev scalar, one with the literal None (so ``if prev is None``
+    branches as on the host path)."""
+    def with_prev(vs, p):
+        leaves, treedef = layout.tree_flatten(update(vs, p))
+        with_prev.out_treedef = treedef
+        return tuple(_as_leaf(x, vs.device) for x in leaves)
+
+    def without_prev(vs):
+        leaves, treedef = layout.tree_flatten(update(vs, None))
+        without_prev.out_treedef = treedef
+        return tuple(_as_leaf(x, vs.device) for x in leaves)
+    return with_prev, without_prev
+
+
 def _seg_pad_cases(vdt, rng):
     """Deterministic sample value vectors for the padding-invariance
     check: small/large, all-negative, all-positive, zeros — the shapes
@@ -647,9 +682,11 @@ _SEG_CLASS_CACHE = {}
 SEG_PAD_STRATEGIES = ("zero", "edge")
 
 
-def classify_seg_map(f, vdt):
+def classify_seg_map(f, vdt, state=False):
     """Admission for the device segmented apply: is `f` a traceable,
-    padding-invariant per-group function?
+    padding-invariant per-group function?  With `state`, f is
+    updateStateByKey's update(values, prev), traced and checked with a
+    prev scalar and with None, and must return one scalar.
 
     Returns (pad, out_vdef, out_specs) — pad in SEG_PAD_STRATEGIES,
     out_vdef the output value treedef, out_specs its scalar leaf specs —
@@ -666,26 +703,39 @@ def classify_seg_map(f, vdt):
         check.  Sum-like functions pass "zero", order statistics
         (max - min) pass "edge" (repeat-last); anything needing the true
         group length fails both and keeps the host path."""
-    ck = (id(f), str(np.dtype(vdt)))
+    ck = (id(f), bool(state), str(np.dtype(vdt)))
     hit = _SEG_CLASS_CACHE.get(ck)
     if hit is not None and hit[0] is f:
         return hit[1]
-    out = _classify_seg_map(f, np.dtype(vdt))
+    out = _classify_seg_map(f, np.dtype(vdt), state)
     if len(_SEG_CLASS_CACHE) >= 512:
         _SEG_CLASS_CACHE.pop(next(iter(_SEG_CLASS_CACHE)))
     _SEG_CLASS_CACHE[ck] = (f, out)
     return out
 
 
-def _classify_seg_map(f, vdt):
+def _out_specs(outs):
+    return [(layout.numpy_dtype(o.dtype), tuple(o.shape[1:])) for o in outs]
+
+
+def _classify_seg_map(f, vdt, state=False):
     tdt = layout.torch_dtype(vdt)
 
     def specs_at(width):
+        vs = torch.ones((2, width), dtype=tdt)
+        if state:
+            fn_p, fn_n = _seg_state_row_fns(f)
+            with python_float_semantics():
+                sp = _out_specs(vmap(fn_p)(vs, torch.ones((2,), dtype=tdt)))
+                sn = _out_specs(vmap(fn_n)(vs))
+            if sp != sn or fn_p.out_treedef != fn_n.out_treedef:
+                raise TypeError("update(values, prev) and update(values, "
+                                "None) disagree on the output spec")
+            return sp, fn_p.out_treedef
         fn = _seg_row_fn(f)
         with python_float_semantics():
-            outs = vmap(fn)(torch.ones((2, width), dtype=tdt))
-        return ([(layout.numpy_dtype(o.dtype), tuple(o.shape[1:]))
-                 for o in outs], fn.out_treedef)
+            outs = vmap(fn)(vs)
+        return _out_specs(outs), fn.out_treedef
 
     try:
         s4, vdef4 = specs_at(4)
@@ -702,31 +752,53 @@ def _classify_seg_map(f, vdt):
         if shape != () or dt.kind not in "if":
             return (None, "per-group function output is not a pytree "
                     "of numeric scalars", None)
+    if state and len(s4) != 1:
+        return (None, "state update must produce one scalar state leaf",
+                None)
 
     # -- concrete padding-invariance verification -------------------
     cases = _seg_pad_cases(vdt, np.random.RandomState(0x5E90))
+    # the host path passes prev as the Python number its update returned
+    prevs = [None]
+    if state:
+        prevs = [None, np.dtype(vdt).type(3).item(),
+                 np.dtype(vdt).type(-7).item()]
 
-    def call(vs, as_list):
+    def call(vs, prev, as_list):
         arg = (list(np.asarray(vs).tolist()) if as_list
                else torch.as_tensor(vs))
         with python_float_semantics():
-            return layout.tree_flatten(f(arg))
+            if not state:
+                return layout.tree_flatten(f(arg))
+            if prev is not None and not as_list:
+                prev = torch.tensor(prev, dtype=tdt)
+            return layout.tree_flatten(f(arg, prev))
 
     for pad in SEG_PAD_STRATEGIES:
         try:
             ok = True
             for v in cases:
-                base, bdef = call(v, as_list=True)
-                if bdef != vdef4:
-                    ok = False
-                    break
                 b = 1 << max(0, int(len(v) - 1).bit_length())
-                if not all(_seg_leaves_close(
-                        base, call(_pad_vec(v, pad, width, vdt),
-                                   as_list=False)[0])
-                           for width in (b, 2 * b)):
-                    ok = False
+                for prev in prevs:
+                    base, bdef = call(v, prev, as_list=True)
+                    if bdef != vdef4 or not all(_seg_leaves_close(
+                            base, call(_pad_vec(v, pad, width, vdt), prev,
+                                       as_list=False)[0])
+                            for width in (b, 2 * b)):
+                        ok = False
+                        break
+                if not ok:
                     break
+            if ok and state:
+                # a key held only in the carried state: the host calls
+                # update([], prev), the device sees an all-fill row
+                for prev in prevs[1:]:
+                    base, _ = call(np.zeros(0, vdt), prev, as_list=True)
+                    if not all(_seg_leaves_close(base, call(
+                            np.zeros(width, vdt), prev, as_list=False)[0])
+                            for width in (1, 2, 4)):
+                        ok = False
+                        break
         except Exception:    # user code
             ok = False
         if ok:
@@ -751,7 +823,16 @@ class SegMapOp:
     REQUIRES key-sorted valid-prefix input, like SegAggOp: the executor's
     _run_seg_map feeds it the exchange-sorted batch and sets `table` (K7's
     output for that batch) and `layout` ((class, width, G) per non-empty
-    class, from K7's histogram) before the ops run."""
+    class, from K7's histogram) before the ops run.
+
+    state_mode (updateStateByKey's general update): the records are (k,
+    (v, flag)), flag 1 the carried state row (at most one a key), flag 0
+    a new value; `f` is the user's update(values, prev), traced twice
+    (with a prev scalar, and with None), and K8's state gather hands it
+    each group's new values compacted to the front, the carried value and
+    whether there is one."""
+
+    state_mode = False
 
     def __init__(self, f, pad):
         self.f = f
@@ -762,18 +843,26 @@ class SegMapOp:
 
     def probe(self, treedef, specs):
         nk = layout.key_width(treedef, specs, kinds="if")
-        if nk is None or len(specs) != nk + 1:
+        nv = 2 if self.state_mode else 1
+        if nk is None or len(specs) != nk + nv:
             raise TypeError("seg_map needs flat (k, v) records (scalar "
                             "or flat-tuple key, one scalar value)")
         self.nk = nk
         vdt, vshape = specs[nk]
         if vshape != () or vdt.kind not in "if":
             raise TypeError("seg_map needs a scalar numeric value")
-        pad, vdef_or_reason, out_specs = classify_seg_map(self.f, vdt)
+        if self.state_mode and tuple(specs[nk + 1]) != (
+                np.dtype(np.int64), ()):
+            raise TypeError("state mode needs an int64 scalar flag")
+        pad, vdef_or_reason, out_specs = classify_seg_map(
+            self.f, vdt, state=self.state_mode)
         if pad is None:
             raise TypeError(vdef_or_reason)
         self.pad = pad
-        self._fn = _seg_row_fn(self.f)
+        if self.state_mode:
+            self._fns = _seg_state_row_fns(self.f)
+        else:
+            self._fn = _seg_row_fn(self.f)
         self._out_dtypes = [layout.torch_dtype(dt) for dt, _ in out_specs]
         out_treedef = (treedef[0], layout._renumber(vdef_or_reason, nk))
         return out_treedef, list(specs[:nk]) + list(out_specs)
@@ -790,18 +879,46 @@ class SegMapOp:
         N, cap = vcol.shape
         outs = [torch.zeros((N, cap), dtype=dt, device=vcol.device)
                 for dt in self._out_dtypes]
-        vfn = vmap(self._fn)
         for b, width, G in self.layout:
-            vals = collectives.gather_bucket_groups(
-                start_rows, sizes, members, offsets, counts, b, G, width,
-                vcol, self.pad)
-            with python_float_semantics():
-                res = vfn(vals.view(N * G, width))
+            if self.state_mode:
+                lanes = (torch.arange(G, device=vcol.device)[None, :]
+                         < counts[:, b][:, None])
+                res = self._apply_state(collectives.gather_bucket_state(
+                    start_rows, sizes, members, offsets, counts, b, G,
+                    width, vcol, leaves[nk + 1], self.pad), lanes, width)
+            else:
+                vals = collectives.gather_bucket_groups(
+                    start_rows, sizes, members, offsets, counts, b, G,
+                    width, vcol, self.pad)
+                with python_float_semantics():
+                    res = vmap(self._fn)(vals.view(N * G, width))
             res = [r.reshape(N, G).to(dt)
                    for r, dt in zip(res, self._out_dtypes)]
             collectives.scatter_bucket_groups(outs, res, members, offsets,
                                               counts, b)
         return list(keys) + outs, n_seg
+
+    def _apply_state(self, gathered, lanes, width):
+        """update(new values, prev) where the group has a carried row,
+        update(new values, None) where it has none; a trace no valid
+        lane (`lanes`, (N, G) bool) needs is skipped (one host read a
+        class)."""
+        vals, prev, has_prev = gathered
+        fn_p, fn_n = self._fns
+        n = lanes.numel()
+        vals = vals.view(n, width)
+        has = has_prev.view(n)
+        need_p, need_n = torch.stack([(has_prev & lanes).any(),
+                                      (~has_prev & lanes).any()]).tolist()
+        with python_float_semantics():
+            with_p = vmap(fn_p)(vals, prev.view(n)) if need_p else None
+            without = vmap(fn_n)(vals) if need_n or not need_p else None
+        if with_p is None:
+            return list(without)
+        if without is None:
+            return list(with_p)
+        return [torch.where(has, p, q.to(p.dtype))
+                for p, q in zip(with_p, without)]
 
 
 def _try_seg_map(f0, meta):
@@ -810,19 +927,40 @@ def _try_seg_map(f0, meta):
     shape, traceability + padding invariance (classify_seg_map).  The
     port runs eagerly, so it has no per-bucket compile cost to guard as
     the reference's DPARK_SEG_MIN_ROWS_PER_TRACE does."""
+    # dstream's updateStateByKey rewrite marks its per-group consumer
+    state_update = getattr(f0, "__dpark_seg_state__", None)
     if not conf.SEG_MAP:
         return None, "grouped consumer stays on host: DPARK_SEG_MAP=0"
     treedef, specs = meta["out_treedef"], meta["out_specs"]
     nk = layout.key_width(treedef, specs, kinds="if")
-    if nk is None or len(specs) != nk + 1 or specs[nk][1] != () \
+    nv = 2 if state_update is not None else 1
+    if nk is None or len(specs) != nk + nv or specs[nk][1] != () \
             or np.dtype(specs[nk][0]).kind not in "if":
         return None, ("unsupported value pytree for grouped "
                       "consumption (seg_map needs a single scalar "
                       "numeric value per record)")
-    pad, reason_or_vdef, _ = classify_seg_map(f0, specs[nk][0])
+    fn = state_update if state_update is not None else f0
+    pad, reason_or_vdef, _ = classify_seg_map(
+        fn, specs[nk][0], state=state_update is not None)
     if pad is None:
         return None, reason_or_vdef
-    return SegMapOp(f0, pad), None
+    op = SegMapOp(fn, pad)
+    op.state_mode = state_update is not None
+    return op, None
+
+
+def _seg_op(ops, meta):
+    """(segment op, None) when ops[0] is a mapValues the device runs over
+    the key-sorted rows of a no-combine shuffle (`meta`): a provable
+    aggregate (SegAggOp) or a traceable, padding-invariant function
+    (SegMapOp); else (None, the reason or None)."""
+    f0 = getattr(ops[0], "mapvalue_f", None) if ops else None
+    if f0 is None:
+        return None, None
+    kind = _monoid.classify_segagg(f0)
+    if kind is not None:
+        return SegAggOp(kind), None
+    return _try_seg_map(f0, meta)
 
 
 class StagePlan:
@@ -832,7 +970,8 @@ class StagePlan:
                  out_treedef, out_specs, stage):
         self.source = source        # ("ingest", pc) | ("hbm", dep) |
         #                             ("join", (dep_a, dep_b)) |
-        #                             ("text", text_rdd)
+        #                             ("text", text_rdd) |
+        #                             ("union", (branch sub-plans))
         self.ops = ops
         self.epilogue = epilogue    # None | ("shuffle_write", dep)
         self.in_treedef = in_treedef
@@ -884,18 +1023,41 @@ def is_join(rdd):
             and isinstance(rdd.prev, CoGroupedRDD) and len(rdd.prev.rdds) == 2)
 
 
-def extract_chain(top):
+def _device_cached(rdd, store):
+    """Whether the tensor path reads through the cached `rdd`: the host
+    cache does not hold its partitions, and its narrow chain ends at a
+    shuffle output kept on the device (`store`), which holds its data
+    (the device result cache, ROADMAP A19, is not ported)."""
+    if store is None or rdd.ctx.cache.holds(rdd.id, len(rdd.splits)):
+        return False
+    cur = rdd
+    while not isinstance(cur, ShuffledRDD):
+        if isinstance(cur, (MappedValuesRDD, KeyedRDD, MappedRDD,
+                            FilteredRDD)) or (
+                isinstance(cur, FlatMappedValuesRDD)
+                and cur.f is _identity) or (
+                isinstance(cur, MapPartitionsRDD)
+                and isinstance(cur.f, _SortPartFn)):
+            cur = cur.prev
+        else:
+            return False
+    return cur.dep.shuffle_id in store
+
+
+def extract_chain(top, store=None):
     """Walk narrow one-parent links from the stage's top RDD to its
     source.  Returns (source_rdd, ops root->top, passthrough); the
     source is where the walk stopped: an input, a shuffle, an a.join(b),
-    a cached RDD, or an RDD with no op form (analyze_stage decides).
-    passthrough: partitionBy's flatMapValue(identity) over a no-combine
-    shuffle, whose rows then pass through flat."""
+    a cached RDD the device does not read through (_device_cached over
+    the shuffle `store`), or an RDD with no op form (analyze_stage
+    decides).  passthrough: partitionBy's flatMapValue(identity) over a
+    no-combine shuffle, whose rows then pass through flat."""
     ops = []
     cur = top
     passthrough = False
     while True:
-        if cur.should_cache or is_join(cur):
+        if is_join(cur) or (cur.should_cache
+                            and not _device_cached(cur, store)):
             ops.reverse()
             return cur, ops, passthrough
         if (isinstance(cur, FlatMappedValuesRDD) and cur.f is _identity
@@ -1184,17 +1346,119 @@ def analyze_text_stage(stage, ndev):
     return plan, None
 
 
+def _analyze_union_parent(parent, ndev, executor, stage):
+    """(sub-plan, None) turning one union branch into a device Batch of
+    its post-ops rows (a plan without an epilogue), or (None, reason).
+    A branch is an input below the wave threshold, or a shuffle output
+    kept on the device: combining (its reduce side merges), no-combine
+    read through partitionBy's passthrough, or consumed by a segment op
+    (SegAggOp / SegMapOp, e.g. updateStateByKey's carried state, which
+    the reference reads from its device result cache)."""
+    store = executor.shuffle_store
+    src_rdd, ops, passthrough = extract_chain(parent, store)
+    src_merge = None
+    src_nk = 1
+    reslice = False
+    if src_rdd.should_cache and not _device_cached(src_rdd, store):
+        return None, CACHE_REASON % type(src_rdd).__name__
+    if isinstance(src_rdd, ParallelCollection):
+        reslice = len(src_rdd._slices) != ndev
+        wave = _wave_rows(src_rdd, executor.device, ndev, reslice)
+        if wave is not None:
+            # a branch materializes whole: only a shuffle input streams
+            return None, ("columnar input above the wave threshold (%d "
+                          "rows per shard)" % wave)
+        sample = _sample_record(src_rdd)
+        if sample is None:
+            return None, "empty input"
+        try:
+            treedef, specs = layout.record_spec(sample)
+        except TypeError as e:
+            return None, "record has no tensor form (%s)" % e
+        source = ("ingest", src_rdd)
+    elif isinstance(src_rdd, ShuffledRDD):
+        dep = src_rdd.dep
+        if dep.shuffle_id not in store:
+            return None, "parent shuffle output lives on the host"
+        if dep.partitioner.num_partitions > ndev:
+            return None, WIDE_REASON % (dep.partitioner.num_partitions,
+                                        ndev)
+        meta = store[dep.shuffle_id]
+        if "host_runs" in meta:
+            return None, HOST_RUNS_READ
+        if meta.get("encoded_keys"):
+            return None, ENCODED_REASON
+        treedef, specs = meta["out_treedef"], meta["out_specs"]
+        src_nk = meta["key_cols"]
+        if meta["no_combine"]:
+            if not passthrough:
+                seg, reason = _seg_op(ops, meta)
+                if seg is None:
+                    return None, reason or GROUP_REASON
+                ops[0] = seg
+        else:
+            src_merge = probe_merge(dep.aggregator.merge_combiners, treedef,
+                                    specs, src_nk)
+            if src_merge is None:
+                return None, ("merge_combiners not traceable by "
+                              "torch.func.vmap; object path")
+        source = ("hbm", dep)
+    else:
+        return None, ("%s has no tensor form as a union branch"
+                      % type(src_rdd).__name__)
+    cur_treedef, cur_specs = treedef, specs
+    try:
+        for op in ops:
+            cur_treedef, cur_specs = op.probe(cur_treedef, cur_specs)
+    except Exception as e:   # user code: any failure means host path
+        return None, ("user function not traceable by torch.func.vmap "
+                      "(%s: %s)" % (type(e).__name__, str(e)[:120]))
+    sub = StagePlan(source, ops, None, treedef, specs, cur_treedef,
+                    cur_specs, stage)
+    sub.src_nk = src_nk
+    sub.src_merge = src_merge
+    sub.reslice = reslice
+    return sub, None
+
+
+def _analyze_union(union_rdd, ndev, executor, stage):
+    """((treedef, specs, sub-plans), None) for a union of 1..12 branches
+    that all have a device form and agree on the record type, else (None,
+    reason)."""
+    if not stage.is_shuffle_map:
+        return None, UNION_RESULT_REASON
+    parents = union_rdd.rdds
+    if not 1 <= len(parents) <= kernels.MAX_UNION_BRANCHES:
+        return None, UNION_WIDE_REASON % (len(parents),
+                                          kernels.MAX_UNION_BRANCHES)
+    subs = []
+    for i, p in enumerate(parents):
+        sub, reason = _analyze_union_parent(p, ndev, executor, stage)
+        if sub is None:
+            return None, UNION_BRANCH_REASON % (i, reason)
+        subs.append(sub)
+    t0 = subs[0].out_treedef
+    s0 = [(str(np.dtype(dt)), tuple(shape)) for dt, shape in
+          subs[0].out_specs]
+    for sub in subs[1:]:
+        if sub.out_treedef != t0 or s0 != [
+                (str(np.dtype(dt)), tuple(shape))
+                for dt, shape in sub.out_specs]:
+            return None, UNION_SPECS_REASON
+    return (t0, list(subs[0].out_specs), tuple(subs)), None
+
+
 def analyze_stage(stage, ndev, executor):
     """(StagePlan, None) when `stage` can run on the tensor path, else
     (None, reason)."""
-    source_rdd, ops, passthrough = extract_chain(stage.rdd)
     store = executor.shuffle_store
+    source_rdd, ops, passthrough = extract_chain(stage.rdd, store)
     src_nk = 1
     src_merge = None
     group_output = False
     reslice = False
     wave = None
-    if source_rdd.should_cache:
+    if source_rdd.should_cache and not _device_cached(source_rdd, store):
         return None, CACHE_REASON % type(source_rdd).__name__
     if isinstance(source_rdd, ParallelCollection):
         if not stage.is_shuffle_map and not ops:
@@ -1223,7 +1487,11 @@ def analyze_stage(stage, ndev, executor):
         treedef, specs, deps = joined
         source = ("join", deps)
     elif isinstance(source_rdd, UnionRDD):
-        return None, UNION_REASON
+        union, reason = _analyze_union(source_rdd, ndev, executor, stage)
+        if union is None:
+            return None, reason
+        treedef, specs, subs = union
+        source = ("union", subs)
     elif not isinstance(source_rdd, ShuffledRDD):
         plan, reason = analyze_text_stage(stage, ndev)
         if plan is not None:
@@ -1256,14 +1524,7 @@ def analyze_stage(stage, ndev, executor):
             # key-sorted rows when f is a provable aggregate (SegAggOp)
             # or traceable and padding-invariant (SegMapOp)
             if not passthrough:
-                seg = seg_reason = None
-                f0 = getattr(ops[0], "mapvalue_f", None) if ops else None
-                if f0 is not None:
-                    kind = _monoid.classify_segagg(f0)
-                    if kind is not None:
-                        seg = SegAggOp(kind)
-                    else:
-                        seg, seg_reason = _try_seg_map(f0, meta)
+                seg, seg_reason = _seg_op(ops, meta)
                 if seg is not None:
                     ops[0] = seg
                 elif ops or stage.is_shuffle_map:

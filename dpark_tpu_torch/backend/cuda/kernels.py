@@ -19,6 +19,10 @@ Kernels (sources under csrc/, one shared library each):
   K14 segmented_merge       csrc/segmented_merge.cu (a traced merge's
                             register program, merge_program.py)
   K15 column_ranges         csrc/column_ranges.cu
+  K16 union_concat          csrc/union_concat.cu
+
+K8's library also holds bucket_gather_state, the state mode's gather of
+the segmented apply (updateStateByKey's update(values, prev)).
 
 Build: at first use, one `nvcc -gencode arch=compute_90a,code=sm_90a
 -shared` per source, all started together, into
@@ -61,17 +65,21 @@ SOURCES = {
     "rid_fold": "rid_fold.cu",
     "segmented_merge": "segmented_merge.cu",
     "column_ranges": "column_ranges.cu",
+    "union_concat": "union_concat.cu",
 }
-# launch counters: one per entry point (K8's and K12's libraries hold two)
+# launch counters: one per entry point (K8's library holds three, K12's
+# two)
 LAUNCHES = {name: 0 for name in SOURCES
             if name not in ("bucket_groups", "join_expand")}
-LAUNCHES.update(bucket_gather=0, bucket_scatter=0, join_ranges=0,
-                join_expand=0)
+LAUNCHES.update(bucket_gather=0, bucket_scatter=0, bucket_gather_state=0,
+                join_ranges=0, join_expand=0)
 SIZE_CLASSES = 32
 KEY_SENTINEL = 2 ** 63 - 1
 OPS = {"add": 0, "min": 1, "max": 2, "mul": 3, "last": 4}
 MAX_LEAVES = 16
 MAX_KEYS = 6
+# the reference's MAX_UNION_SOURCES (backend/tpu/fuse.py:1354)
+MAX_UNION_BRANCHES = 12
 
 _libs = {}
 _build_lock = threading.Lock()
@@ -197,7 +205,14 @@ def _bind(name, lib):
         scatter = lib.dpk_bucket_scatter
         scatter.argtypes = [_P, _P, _P, _I, _L, _I, _P, _P, _P, _I, _P]
         scatter.restype = ctypes.c_int
-        return gather, scatter
+        state = lib.dpk_bucket_gather_state
+        state.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _L, _P,
+                          _P, _P, _P, _I, _P]
+        state.restype = ctypes.c_int
+        return gather, scatter, state
+    elif name == "union_concat":
+        fn = lib.dpk_union_concat
+        fn.argtypes = [_P, _I, _L, _P, _P, _P, _I, _I, ctypes.c_uint64, _P]
     elif name == "edge_gather":
         fn = lib.dpk_edge_gather
         fn.argtypes = [_P, _P, _I, _L, _L, _P, _P, _P, _I, _P, _P, _P]
@@ -1021,7 +1036,7 @@ def bucket_gather(start_rows, sizes, members, boff, bcnt, G, B, vals, pad):
     if not _on_cuda([start_rows, sizes, members, boff, bcnt, vals]):
         return bucket_gather_plain(start_rows, sizes, members, boff, bcnt,
                                    G, B, vals, pad)
-    gather_fn, _ = _kernel("bucket_groups")
+    gather_fn = _kernel("bucket_groups")[0]
     out = torch.empty((N, G, B), dtype=vals.dtype, device=vals.device)
     rc = gather_fn(start_rows.data_ptr(), sizes.data_ptr(),
                    members.data_ptr(), boff.data_ptr(), bcnt.data_ptr(), N,
@@ -1060,7 +1075,7 @@ def bucket_scatter(outs, results, members, boff, bcnt):
           "members int32 (N, cap), boff/bcnt contiguous (N,) int32")
     if not _on_cuda(outs + results + [members, boff, bcnt]):
         return bucket_scatter_plain(outs, results, members, boff, bcnt)
-    _, scatter_fn = _kernel("bucket_groups")
+    scatter_fn = _kernel("bucket_groups")[1]
     rc = scatter_fn(members.data_ptr(), boff.data_ptr(), bcnt.data_ptr(), N,
                     cap, int(G), _ptrs(results), _ptrs(outs),
                     (ctypes.c_int64 * len(outs))(
@@ -1068,6 +1083,84 @@ def bucket_scatter(outs, results, members, boff, bcnt):
                     len(outs), _stream())
     _check("bucket_scatter", rc)
     return outs
+
+
+def bucket_gather_state_plain(start_rows, sizes, members, boff, bcnt, G,
+                              B, vals, flags, pad):
+    N, cap = vals.shape
+    seg, valid = _lanes_of(members, boff, bcnt, G)
+    st = torch.gather(start_rows.long(), 1, seg)
+    sz = torch.gather(sizes.long(), 1, seg)
+    o = torch.arange(B, device=vals.device)
+    in_range = valid[:, :, None] & (o[None, None, :] < sz[:, :, None])
+    rows = torch.clamp(st[:, :, None] + o[None, None, :], 0,
+                       max(cap - 1, 0)).reshape(N, G * B)
+    v = torch.gather(vals, 1, rows).view(N, G, B)
+    fl = torch.where(in_range, torch.gather(flags, 1, rows).view(N, G, B),
+                     2)
+    zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    new = fl == 0
+    # the new values to the front in row order: a stable sort of ~new
+    order = torch.sort((~new).to(torch.int8), dim=2, stable=True).indices
+    vs = torch.gather(torch.where(new, v, zero), 2, order)
+    n_new = new.sum(2, keepdim=True)
+    keep = o[None, None, :] < n_new
+    if pad == "edge":
+        last = torch.gather(vs, 2, torch.clamp(n_new - 1, min=0))
+        fill = torch.where(n_new > 0, last, zero)
+    else:
+        fill = zero
+    out = torch.where(keep, vs, fill)
+    old = fl == 1
+    has_prev = old.any(2)
+    at = old.to(torch.int8).argmax(2, keepdim=True)
+    prev = torch.where(has_prev, torch.gather(v, 2, at)[:, :, 0], zero)
+    return out, prev, has_prev
+
+
+def bucket_gather_state(start_rows, sizes, members, boff, bcnt, G, B, vals,
+                        flags, pad):
+    """The state mode's padded matrix of one size class: for lane g of
+    shard s (group members[s, boff[s] + g], valid when g < bcnt[s]) over
+    its rows start_rows[seg] .. + sizes[seg] of `vals` and `flags` ((N,
+    cap); flags int64, 1 the carried state row, at most one a group, 0 a
+    new value): the new values compacted to the front of B columns in
+    row order, padded with 0 ("zero") or the last new value ("edge", 0
+    without one); `prev`, the flag-1 row's value copied (0 without one);
+    `has_prev`.  B must be a power of two.  Invalid lanes are all 0.
+    Returns (out (N, G, B), prev (N, G), has_prev (N, G) bool).
+
+    The reference takes prev as a masked sum of the group's row; the copy
+    keeps a carried -0.0 as the host path's update sees it."""
+    N, cap = vals.shape[:2]
+    _check_cols([start_rows, sizes, members, vals, flags], N, cap,
+                "segment table, values and flags")
+    _need(all(t.dtype == torch.int32 for t in
+              (start_rows, sizes, members, boff, bcnt))
+          and boff.shape == (N,) and bcnt.shape == (N,)
+          and boff.is_contiguous() and bcnt.is_contiguous(),
+          "segment table int32 (N, cap), boff/bcnt contiguous (N,) int32")
+    _need(vals.dim() == 2 and flags.dim() == 2
+          and flags.dtype == torch.int64,
+          "vals must be a (N, cap) column and flags (N, cap) int64")
+    _need(pad in ("zero", "edge"), "pad must be 'zero' or 'edge'")
+    _need(G >= 1 and B >= 1 and B & (B - 1) == 0,
+          "G must be positive and B a power of two")
+    if not _on_cuda([start_rows, sizes, members, boff, bcnt, vals, flags]):
+        return bucket_gather_state_plain(start_rows, sizes, members, boff,
+                                         bcnt, G, B, vals, flags, pad)
+    state_fn = _kernel("bucket_groups")[2]
+    dev = vals.device
+    out = torch.empty((N, G, B), dtype=vals.dtype, device=dev)
+    prev = torch.empty((N, G), dtype=vals.dtype, device=dev)
+    has_prev = torch.empty((N, G), dtype=torch.bool, device=dev)
+    rc = state_fn(start_rows.data_ptr(), sizes.data_ptr(),
+                  members.data_ptr(), boff.data_ptr(), bcnt.data_ptr(), N,
+                  cap, int(G), int(B), vals.data_ptr(), vals.element_size(),
+                  flags.data_ptr(), out.data_ptr(), prev.data_ptr(),
+                  has_prev.data_ptr(), int(pad == "edge"), _stream())
+    _check("bucket_gather_state", rc)
+    return out, prev, has_prev
 
 
 # ---------------------------------------------------------------------
@@ -1691,3 +1784,115 @@ def column_ranges(cols, n):
                 out[g:].data_ptr(), _stream())
         _check("column_ranges", rc)
     return out
+
+
+# ---------------------------------------------------------------------
+# K16 union_concat
+# ---------------------------------------------------------------------
+def _union_sizes(counts):
+    """(host (k, N) int64 counts, per-shard totals, cap_out) from ONE
+    host read of all k count vectors."""
+    from dpark_tpu_torch.backend.cuda.layout import round_capacity
+    host = torch.stack([c.to(torch.int64) for c in counts]).cpu()
+    totals = host.sum(0)
+    return host, totals, round_capacity(int(totals.max().item()) or 1)
+
+
+def union_concat_plain(branches, key_leaf=0, key_fill=KEY_SENTINEL):
+    host, totals, cap_out = _union_sizes([n for _, n in branches])
+    lv0 = branches[0][0]
+    N = lv0[0].shape[0]
+    dev = lv0[0].device
+    counts = host.to(dev)
+    caps = [lv[0].shape[1] for lv, _ in branches]
+    # output row i of shard s reads branch j = #(branch ends <= i), row
+    # i - start_j, at column base_j + that row of the branches side by side
+    ends = torch.cumsum(counts, 0)                          # (k, N)
+    starts = ends - counts
+    base = torch.tensor([0] + caps[:-1], device=dev).cumsum(0)
+    i = torch.arange(cap_out, device=dev)
+    j = torch.searchsorted(ends.t().contiguous(),
+                           i.expand(N, cap_out).contiguous(), right=True)
+    valid = i[None, :] < totals.to(dev)[:, None]
+    jc = torch.clamp(j, max=len(branches) - 1)
+    col = (base[jc] + i[None, :]
+           - torch.gather(starts.t(), 1, jc))
+    col = torch.where(valid, col, 0)
+    out = []
+    for li in range(len(lv0)):
+        fill = key_fill if li == key_leaf else 0
+        side = torch.cat([lv[li] for lv, _ in branches], 1)
+        idx = col.view(col.shape + (1,) * (side.dim() - 2)).expand(
+            (N, cap_out) + tuple(side.shape[2:]))
+        g = torch.gather(side, 1, idx)
+        vmask = valid.view(valid.shape + (1,) * (g.dim() - 2))
+        out.append(torch.where(vmask, g, torch.full(
+            (), fill, dtype=g.dtype, device=dev)))
+    return out, totals.to(torch.int32).to(dev)
+
+
+def union_concat(branches, key_leaf=0, key_fill=KEY_SENTINEL):
+    """The device union's concatenation.  `branches` is a list of k (<=
+    MAX_UNION_BRANCHES) (leaves, n) pairs with the same leaves (dtypes and
+    trailing shapes); each leaf is a contiguous (N, cap_j, ...) tensor and
+    n the (N,) int32 counts.  Per shard, branch 0's first n rows, then
+    branch 1's, ... are packed to the front of (N, cap_out, ...) leaves,
+    cap_out the power-of-two class of the largest total (one host read of
+    all k count vectors); past each shard's total the key leaf holds
+    `key_fill` (the sentinel, as K4's receive padding; key_leaf None: no
+    key leaf) and the other leaves 0.  Returns (leaves, totals (N,)
+    int32)."""
+    branches = [(list(lv), n) for lv, n in branches]
+    _need(1 <= len(branches) <= MAX_UNION_BRANCHES,
+          "1..%d union branches" % MAX_UNION_BRANCHES)
+    lv0 = branches[0][0]
+    N = lv0[0].shape[0]
+    nl = len(lv0)
+    _need(1 <= nl <= MAX_LEAVES, "1..%d leaves" % MAX_LEAVES)
+    spec = [(leaf.dtype, tuple(leaf.shape[2:])) for leaf in lv0]
+    tensors = []
+    for lv, n in branches:
+        _need(len(lv) == nl and all(
+            (leaf.dtype, tuple(leaf.shape[2:])) == sp
+            for leaf, sp in zip(lv, spec)),
+            "every branch must carry the first branch's leaves")
+        _check_cols(lv, N, lv[0].shape[1], "branch leaves")
+        _need(n.dtype == torch.int32 and n.shape == (N,),
+              "branch counts must be (N,) int32")
+        tensors += lv + [n]
+    _need(key_leaf is None or (lv0[key_leaf].dim() == 2 and lv0[
+        key_leaf].dtype in (torch.int64, torch.int32, torch.float64)),
+          "the key leaf must be an int32/int64/float64 (N, cap) column")
+    if not _on_cuda(tensors):
+        return union_concat_plain(branches, key_leaf, key_fill)
+    fn = _kernel("union_concat")
+    host, totals, cap_out = _union_sizes([n for _, n in branches])
+    dev = lv0[0].device
+    out = [torch.empty((N, cap_out) + shp, dtype=dt, device=dev)
+           for dt, shp in spec]
+    rows, longest = [], 0
+    hc = host.tolist()
+    tot = totals.tolist()
+    for s in range(N):
+        at = 0
+        for j, (lv, _) in enumerate(branches):
+            c = hc[j][s]
+            if c:
+                rows += [j, s * lv[0].shape[1], s * cap_out + at, c]
+                longest = max(longest, c)
+                at += c
+        if cap_out > tot[s]:
+            rows += [-1, 0, s * cap_out + tot[s], cap_out - tot[s]]
+            longest = max(longest, cap_out - tot[s])
+    desc = torch.tensor(rows, dtype=torch.int64).to(dev)
+    srcp = torch.tensor([leaf.data_ptr() for lv, _ in branches
+                         for leaf in lv], dtype=torch.int64).to(dev)
+    fill_bits = 0
+    if key_leaf is not None:
+        fill_bits = _elem_bits(key_fill, lv0[key_leaf].dtype)[0]
+    rc = fn(desc.data_ptr(), len(rows) // 4, longest, srcp.data_ptr(),
+            _ptrs(out), (ctypes.c_int64 * nl)(*[_row_bytes(o) for o in out]),
+            nl, -1 if key_leaf is None else int(key_leaf), fill_bits,
+            _stream())
+    _check("union_concat", rc)
+    return out, totals.to(torch.int32).to(dev)

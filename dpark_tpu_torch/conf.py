@@ -93,3 +93,25 @@ NARROW_EXCHANGE = os.environ.get("DPARK_NARROW_EXCHANGE", "1") != "0"
 # min/max-probed and cross as int32 when every valid value fits.  Tests
 # shrink it to exercise the path at toy sizes.
 EGEST_NARROW_MIN_BYTES = 8 << 20
+
+# the pane plane of windowed DStreams (dstream.py, panes.py): the window
+# is sliced into slide-sized panes whose partial aggregates persist
+# across ticks as cached reduced RDDs (their shuffle outputs stay on the
+# device).  Invertible reduceByKeyAndWindow updates the window from a
+# constant number of panes per slide (prev + new pane - expired pane);
+# a non-invertible window merges O(log w) cached dyadic tree nodes.
+# "0" disables: every windowed op takes the whole-window paths.  Pane
+# mode needs window % slide == 0 and slide % batch == 0.
+STREAM_PANES = os.environ.get("DPARK_STREAM_PANES", "1") != "0"
+
+# non-invertible pane windows below this many panes union their panes
+# flat each tick instead of through the merge tree (the reference's
+# adaptive split point is ROADMAP A21; this default decides here)
+STREAM_PANE_TREE_MIN = int(os.environ.get(
+    "DPARK_STREAM_PANE_TREE_MIN", "8") or 0)
+
+# general traceable updateStateByKey on the device: the state and each
+# batch union as (k, (v, flag)) rows and the user's update(values, prev)
+# runs as a state-mode SegMapOp (K7, K2, K8's state gather).  "0" keeps
+# the host cogroup path.
+SEG_STATE = os.environ.get("DPARK_SEG_STATE", "1") != "0"

@@ -6,7 +6,8 @@ submit_tasks(); the gpu master runs whole stages on the device.
 Each job leaves a record in `history` whose `stage_info` list carries
 one dict per stage: `kind` ("object", or "array..." when the device ran
 it), `fallback_reason` when the device path declined it, `combine` on a
-shuffle-map stage (whether its write pre-aggregates), and timings.
+shuffle-map stage (whether its write pre-aggregates), `stream` (the
+pane-plane tag of a windowed DStream's RDD), and timings.
 """
 
 import itertools
@@ -151,6 +152,11 @@ class DAGScheduler:
         info.update({"rdd": type(stage.rdd).__name__,
                      "parts": stage.num_partitions,
                      "shuffle": stage.is_shuffle_map})
+        # windowed DStreams tag the RDDs they build ({stream, role,
+        # pane}): a stage's record says which pane-plane role it served
+        stream_tag = getattr(stage.rdd, "_stream_tag", None)
+        if stream_tag:
+            info["stream"] = dict(stream_tag)
         if stage.is_shuffle_map:
             # a combining write pre-aggregates map-side; groupByKey /
             # partitionBy / sortByKey repartition only

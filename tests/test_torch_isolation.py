@@ -1,6 +1,7 @@
 """The port stands alone: importing dpark_tpu_torch and running a job (a
 reduceByKey, a textFile wordcount through dpark_tpu_torch.native, a
-Pregel, an object Bagel) loads neither jax nor the JAX package, and the
+windowed DStream, a Pregel, an object Bagel) loads neither jax nor the
+JAX package, and the
 gpu master refuses to start without CUDA unless the caller asks for the
 CPU."""
 
@@ -30,11 +31,26 @@ words = dict(c.textFile(path).flatMap(lambda line: line.split())
              .map(lambda w: (w, 1)).reduceByKey(lambda a, b: a + b, 2)
              .collect())
 text = c.scheduler.history[-1]["stage_info"][0]["text"]
+# a windowed stream: dstream, panes and the device union source
+from dpark_tpu_torch import StreamingContext
+ssc = StreamingContext(c, 1.0)
+wins = []
+ssc.queueStream([[(i % 3, 1) for i in range(30)] for _ in range(4)]) \
+    .reduceByKeyAndWindow(lambda a, b: a + b, 2.0, numSplits=2,
+                          invFunc=lambda a, b: a - b) \
+    .collect_batches(wins)
+ssc.zero_time = 0.0
+for t in (1.0, 2.0, 3.0, 4.0):
+    ssc.run_batch(t)
+stream_kinds = sorted({s["kind"] for s in
+                       c.scheduler.history[-1]["stage_info"]})
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "dpark_tpu" or m.startswith("dpark_tpu."))
 print(json.dumps({"sum": sum(got.values()), "kinds": kinds, "mods": mods,
                   "words": words, "canonical": text["canonical"],
+                  "window": sorted(wins[-1][1]), "stream_kinds": stream_kinds,
+                  "stream": "dpark_tpu_torch.panes" in sys.modules,
                   "native": "dpark_tpu_torch.native" in sys.modules}))
 """
 
@@ -49,6 +65,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert res["kinds"] == ["array", "array"]
     assert res["words"] == {"a": 150, "b": 100, "c": 50}
     assert res["canonical"] is True and res["native"] is True
+    assert res["window"] == [[0, 20], [1, 20], [2, 20]]
+    assert res["stream_kinds"] == ["array"] and res["stream"] is True
     assert res["mods"] == []
 
 

@@ -235,7 +235,8 @@ def test_union_flatmap(pctx, lctx):
     assert len(u.rdds) == 3 and len(u.splits) == 6
     assert pctx.union([b, a]).collect() == [3, 4, 1, 2]
     if _on_gpu(pctx):
-        assert _stages(pctx)[-1]["fallback_reason"] == fuse.UNION_REASON
+        assert _stages(pctx)[-1]["fallback_reason"] == \
+            fuse.UNION_RESULT_REASON
     r = pctx.parallelize(range(10), 4)
     assert r.flatMap(lambda x: [x, -x]).count() == 20
     assert r.flatMap(lambda x: [x] * (x % 3)).collect() == \
