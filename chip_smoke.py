@@ -3,15 +3,19 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the sixteen CUDA
+1. prints the card's name and power limit, builds the seventeen CUDA
    kernel libraries from csrc/ (one nvcc each, all started together) and
    prints the build time, and fails unless the native host library
    (dpark_tpu_torch/native, g++) built and loaded;
 2. holds each kernel (K1-K14) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows; K12 at
    the join path's), and times kernel, plain version, bound and library
-   call; times the plain segmented scan of a vmapped merge and the
-   per-shard monoid reduction (B9) at the main shape; holds K14 (B8, a
+   call; times the plain segmented scan of a vmapped merge at the main
+   shape; holds K17 (B9's masked monoid reductions) against its plain
+   version at 8 x 8,388,608 rows (bench values: int64 add, min, max;
+   float64 and float32 adds; a bool count; ragged shards with an empty
+   one) and its distinct-key count over keys sorted per shard (nk = 1
+   and 2), with the library calls beside it; holds K14 (B8, a
    traced merge's register program over each run) against its plain
    version in five cases (bench runs with a (v, 1) add, one run a shard,
    TPC-H Q1's six leaves over its four runs, an argmax, an empty
@@ -30,7 +34,13 @@ NVIDIA GPU.
    and gpu (one in-place sort), and the first 32Mi pairs -> sortByKey ->
    collect checked row for row against numpy's stable argsort; then
    partitionBy / groupByKey /
-   distinct counts over bench.py's data, checked against numpy;
+   distinct counts over bench.py's data, checked against numpy (the
+   groupByKey count through K17's distinct keys); then the evict path:
+   four partitionBy(8) counts of 32Mi bench pairs each (a 0.5 GiB store
+   each) under a pinned 1 GiB shuffle budget, the device-resident bytes
+   at or under it after each job, each spill's ms and GB/s, the spilled
+   stores' memory freed, and the first (spilled) shuffle's collect,
+   read from its host runs, exactly numpy's rows;
 5. drives the grouped paths on gpu:8: groupByKey(8).mapValues(sum of
    squares) -> count / collect over bench.py's data (65,536 groups of
    1,024) and over 67,107,840 power-law rows (16,384 groups, group g of
@@ -98,8 +108,10 @@ NVIDIA GPU.
    updateStateByKey as a running sum, each output checked every tick
    against numpy's counts; then the decayed counter 0.9 * prev + sum(vs)
    over the first 3 batches (the state mode, within 1e-12 relative),
-   printing each output's wall, the device memory allocated and the
-   executor's store count;
+   printing each output's wall, the device memory allocated, the
+   executor's store count and its device-resident store bytes, which
+   must stay under the shuffle budget (conf.SHUFFLE_HBM_BUDGET, a
+   quarter of the card) after every tick;
 11. every stage of every checked job must take the tensor path (a reduce
    stage over spilled runs reads them on the host by design, and no
    streamed path's stage may record a fallback or degrade reason), and every
@@ -120,13 +132,16 @@ narrowing timings and the wordcount (no result line); `--sort-only` runs
 only K5's and K6's phases, B7's composed top, B6's merge, the sort and
 reduceByKey gpu:8 paths and the sortByKey count's profile (no result
 line); `--union-only` runs only K16's and the state gather's phases and
-the union and window paths (no result line).  Every run prints K5's
+the union and window paths (no result line); `--evict-only` runs only
+K17's phases and the reduceByKey gpu:8, partition/group/distinct and
+evict paths (no result line).  Every run prints K5's
 tiles and ptxas's registers and spills for radix_sort.cu.
 """
 
 import collections
 import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import operator
@@ -191,19 +206,25 @@ SOURCES = {
     "bucket_gather_state": (
         "dpark_tpu_torch/backend/cuda/csrc/bucket_groups.cu",
         "dpark_tpu/backend/tpu/fuse.py:803"),
+    "monoid_reduce": ("dpark_tpu_torch/backend/cuda/csrc/monoid_reduce.cu",
+                      "dpark_tpu/backend/tpu/executor.py:1799"),
+    "distinct_key_counts": (
+        "dpark_tpu_torch/backend/cuda/csrc/monoid_reduce.cu",
+        "dpark_tpu/backend/tpu/executor.py:1827"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
                   "bucket_scatter"]
 # the kernels each driven path must launch
 PATH_KERNELS = {
-    # the ranged-int top reads K15's per-column ranges
+    # the ranged-int top reads K15's per-column ranges; the reduce
+    # action's per-shard reduction is K17
     "reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
                           "reduce_by_key_compact", "shard_exchange",
-                          "radix_sort", "column_ranges"],
+                          "radix_sort", "column_ranges", "monoid_reduce"],
     "reduceByKey gpu": ["hash_dst_hist", "stable_partition",
                         "reduce_by_key_compact", "radix_sort",
-                        "column_ranges"],
+                        "column_ranges", "monoid_reduce"],
     # each text wave: K1, K5, K2, K3 combine, K4, K5 + K3 into the state;
     # the collect's egest narrows through K15
     "wordcount gpu:8": ["hash_dst_hist", "stable_partition",
@@ -212,9 +233,10 @@ PATH_KERNELS = {
     "sort gpu:8": ["range_dst_hist", "stable_partition", "shard_exchange",
                    "radix_sort"],
     "sort gpu": ["stable_partition", "radix_sort"],
+    # a bare groupByKey's count: K17's distinct keys of each shard
     "partition/group/distinct gpu:8": [
         "hash_dst_hist", "stable_partition", "reduce_by_key_compact",
-        "shard_exchange", "radix_sort"],
+        "shard_exchange", "radix_sort", "distinct_key_counts"],
     "groupByKey gpu:8 segmap": SEGMAP_KERNELS,
     "groupByKey gpu:8 segmap power-law": SEGMAP_KERNELS,
     # SegAggOp merges with K3 alone: no K7, no K8
@@ -226,15 +248,17 @@ PATH_KERNELS = {
         "hash_dst_hist", "stable_partition", "reduce_by_key_compact",
         "shard_exchange", "radix_sort"],
     # a superstep: K9 gather and send, K2 pack, K1 + K5 + K2 + K3
-    # pre-combine, K4 exchange, K5 + K3 combine, K10 delivery
+    # pre-combine, K4 exchange, K5 + K3 combine, K10 delivery, K17's
+    # active count
     "pregel gpu:8": ["hash_dst_hist", "stable_partition",
                      "reduce_by_key_compact", "shard_exchange", "radix_sort",
-                     "edge_gather", "pregel_deliver"],
+                     "edge_gather", "pregel_deliver", "monoid_reduce"],
     # an object superstep: K10 per class, the vmapped compute, K11 pack,
-    # K1 + K5 + K2 + K3 pre-combine, K4 exchange, K5 + K3 combine
+    # K1 + K5 + K2 + K3 pre-combine, K4 exchange, K5 + K3 combine, K17's
+    # active count per class
     "bagel gpu:8": ["hash_dst_hist", "stable_partition",
                     "reduce_by_key_compact", "shard_exchange", "radix_sort",
-                    "pregel_deliver", "obj_emit_pack"],
+                    "pregel_deliver", "obj_emit_pack", "monoid_reduce"],
     # the traced tuple merge: K1 + K5 + K2, K14, K3 "last"; K4; K5, K14,
     # K3 "last"
     "tuple reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
@@ -279,6 +303,9 @@ PATH_KERNELS = {
                      "reduce_by_key_compact", "shard_exchange", "radix_sort",
                      "segment_table", "bucket_gather_state",
                      "bucket_scatter"],
+    # each partitionBy(8) count: K1, K2, then K4 and K5 on the reduce side
+    "evict gpu:8": ["hash_dst_hist", "stable_partition", "shard_exchange",
+                    "radix_sort"],
 }
 SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
               "mean": lambda vs: sum(vs) / len(vs)}
@@ -286,12 +313,15 @@ SEGAGG_FNS = {"sum": sum, "len": len, "min": min, "max": max,
 # job (its no-combine shuffle launches no K3 of its own)
 PATH_MIN_LAUNCHES = {
     "groupByKey gpu:8 segagg": {"reduce_by_key_compact": len(SEGAGG_FNS)},
-    # one K9 a superstep, one K10 a superstep with mail: PageRank's 21
-    # and 20 at least (pregel_path returns the exact counts of both runs)
-    "pregel gpu:8": {"edge_gather": 21, "pregel_deliver": 20},
+    # one K9 and one K17 (the active count) a superstep, one K10 a
+    # superstep with mail: PageRank's 21 and 20 at least (pregel_path
+    # returns the exact counts of both runs)
+    "pregel gpu:8": {"edge_gather": 21, "pregel_deliver": 20,
+                     "monoid_reduce": 21},
     # one K11 a superstep that emits (PageRank's first 20); K10 once per
-    # class a superstep with mail (bagel_path returns 20 x the classes)
-    "bagel gpu:8": {"obj_emit_pack": 20},
+    # class a superstep with mail (bagel_path returns 20 x the classes);
+    # K17 once per class a superstep
+    "bagel gpu:8": {"obj_emit_pack": 20, "monoid_reduce": 21},
     # one K12 ranges and one expansion a join action (count, revenue)
     "join gpu:8": {"join_ranges": 2, "join_expand": 2},
     # K14 wherever the plain scan ran before: the map side's pre-combine
@@ -313,7 +343,8 @@ LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "segmented_merge": "tpch q1 gpu:8",
              "column_ranges": "wordcount gpu:8",
              "union_concat": "union gpu:8",
-             "bucket_gather_state": "window gpu:8"}
+             "bucket_gather_state": "window gpu:8",
+             "distinct_key_counts": "partition/group/distinct gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 # Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
@@ -339,6 +370,9 @@ Q1_ORDER_LAST = 2405               # 1998-08-02: ENDDATE - 151 days
 Q1_CURRENT = 1263                  # 1995-06-17: CURRENTDATE
 Q1_SHIP_CUTOFF = 2436              # 1998-09-02: 1998-12-01 - 90 days
 K14_FLOAT_RTOL = 1e-8              # float sums in another association
+# K17's float add against its plain version: it accumulates in double in
+# another order (float32: the plain version sums in float32)
+K17_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # the wave stream: bench.py's pairs at 2^30 (16 GiB of columns, several
 # waves at the auto threshold); the spilled paths at pinned wave sizes
 WAVE_PAIRS = 1 << 30
@@ -1436,7 +1470,8 @@ def pregel_path(graph, weights):
           % (int(np.isfinite(ref).sum()), ref[np.isfinite(ref)].max()),
           flush=True)
     ctx.stop()
-    return {"edge_gather": steps, "pregel_deliver": delivered}
+    return {"edge_gather": steps, "pregel_deliver": delivered,
+            "monoid_reduce": steps}
 
 
 def urand_graph(scale, edge_factor, seed=20261023):
@@ -1609,7 +1644,8 @@ def bagel_path(graph):
     print("bagel object PageRank: max rel err vs numpy %.3g (rtol %g)" % (
         np.max(np.abs(ranks - want[ids]) / want[ids]), PR_RTOL), flush=True)
     ctx.stop()
-    return {"pregel_deliver": st["delivered"] * st["classes"]}
+    return {"pregel_deliver": st["delivered"] * st["classes"],
+            "monoid_reduce": st["supersteps"] * st["classes"]}
 
 
 def _bagel_run(ctx, rows, compute, combiner):
@@ -1640,15 +1676,11 @@ def _pair_sum(x, y):
 
 
 def plain_phases(dev):
-    """B8 and B9, plain torch, at the main path's shape (8 x 8,388,608
-    rows): the segmented scan of a traced tuple merge
+    """B8, plain torch, at the main path's shape (8 x 8,388,608 rows):
+    the segmented scan of a traced tuple merge
     (collectives.segmented_combine, log2(CAP) vmapped merge steps) over
-    bench keys sorted per shard and (value, 1) pairs; and the per-shard
-    monoid reduction of a reduce action (executor._monoid_reduce: the
-    masked sum, min and max of one int64 column)."""
+    bench keys sorted per shard and (value, 1) pairs."""
     from dpark_tpu_torch.backend.cuda import collectives, fuse
-    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
-    from dpark_tpu_torch.backend.cuda.layout import Batch
     keys, vals = bench_data()
     order = np.argsort(keys.reshape(N_SHARDS, CAP), axis=1, kind="stable")
     k = torch.from_numpy(np.take_along_axis(
@@ -1684,23 +1716,115 @@ def plain_phases(dev):
     print("phase segmented_combine (B8, plain torch): ms=%.4f bound_ms=%.4f "
           "library_ms=none merge_steps=%d" % (b8["ms"], b8["bound_ms"],
                                               b8["steps"]), flush=True)
-    del got, want_sum, want_len, last, seg, rows
-    ex = TorchExecutor(N_SHARDS, dev)
-    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
-    batch = Batch(0, [v], n)
-    red = ex._monoid_reduce(batch, "add")
-    if int(red[0].sum().item()) != int(v.sum().item()):
-        fail("_monoid_reduce: the shard sums differ from torch.sum")
-    b9 = {"ms": timed(lambda: ex._monoid_reduce(batch, "add")),
-          # one int64 column and the counts read once, three (N,) results
-          "bound_ms": bound_ms(nbytes(v, n) + 3 * 8 * N_SHARDS)}
-    print("phase _monoid_reduce (B9, plain torch): ms=%.4f bound_ms=%.4f "
-          "library_ms=%.4f" % (b9["ms"], b9["bound_ms"],
-                               timed(lambda: (v.sum(1), v.amin(1),
-                                              v.amax(1)))), flush=True)
-    del k, v, ones, starts, batch, red
+    del got, want_sum, want_len, last, seg, rows, k, v, ones, starts
     torch.cuda.empty_cache()
-    return b8, b9
+    return b8
+
+
+def k17_case(K, label, col, n, op, library=None):
+    """K17's monoid_reduce against its plain version on one (N, cap)
+    column: the reduction, min and max exactly, a float add within
+    K17_RTOL; prints ms, bound_ms (the valid elements and the counts read
+    once, three (N,) results written once), plain_ms and the library
+    calls over the same (full) shards: sum + amin + amax, and aminmax +
+    sum (None where the shards are ragged: no call masks them)."""
+    got = K.monoid_reduce(col, n, op)
+    want = K.monoid_reduce_plain(col, n, op)
+    err = 0.0
+    for g, w, which in zip(got, want, (op, "min", "max")):
+        if g.dtype != w.dtype:
+            fail("monoid_reduce %s: %s dtype %s, plain %s"
+                 % (label, which, g.dtype, w.dtype))
+        if g.dtype.is_floating_point and which in ("add", "mul"):
+            ok = torch.allclose(g, w, rtol=K17_RTOL[g.dtype], atol=0)
+        else:
+            ok = torch.equal(g, w)
+        if not ok:
+            fail("monoid_reduce %s differs from its plain version (%s): "
+                 "%s vs %s" % (label, which, g.tolist(), w.tolist()))
+        if g.dtype.is_floating_point:
+            d = torch.where(g == w, 0.0, (g.double() - w.double()).abs())
+            err = max(err, float(d.max().item()))
+    valid = int(n.long().sum().item()) * col.element_size()
+    rec = {"ms": timed(lambda: K.monoid_reduce(col, n, op)),
+           "plain_ms": timed(lambda: K.monoid_reduce_plain(col, n, op),
+                             reps=3),
+           "bound_ms": bound_ms(valid + nbytes(n) + 3 * 8 * N_SHARDS),
+           "max_abs_err": err, "library_ms": None}
+    aminmax = None
+    if library == "minmax":
+        rec["library_ms"] = timed(lambda: (col.sum(1), col.amin(1),
+                                           col.amax(1)))
+        aminmax = timed(lambda: (torch.aminmax(col, dim=1), col.sum(1)))
+    elif library == "count":
+        rec["library_ms"] = timed(lambda: col.sum(1))
+    print("phase monoid_reduce %s: ms=%.4f bound_ms=%.4f plain_ms=%.4f "
+          "library_ms=%s aminmax_sum_ms=%s max_abs_err=%g" % (
+              label, rec["ms"], rec["bound_ms"], rec["plain_ms"],
+              "%.4f" % rec["library_ms"] if rec["library_ms"] else "null",
+              "%.4f" % aminmax if aminmax else "null", err), flush=True)
+    return rec
+
+
+def distinct_case(K, label, keys, n):
+    """K17's distinct_key_counts against its plain version (exact); no
+    single PyTorch call counts per shard (library null)."""
+    got = K.distinct_key_counts(keys, n)
+    if not torch.equal(got, K.distinct_key_counts_plain(keys, n)):
+        fail("distinct_key_counts %s differs from its plain version"
+             % label)
+    valid = int(n.long().sum().item()) * 8 * len(keys)
+    rec = {"ms": timed(lambda: K.distinct_key_counts(keys, n)),
+           "plain_ms": timed(lambda: K.distinct_key_counts_plain(keys, n),
+                             reps=3),
+           "bound_ms": bound_ms(valid + nbytes(n) + 8 * N_SHARDS),
+           "max_abs_err": 0.0, "library_ms": None}
+    print("phase distinct_key_counts %s: ms=%.4f bound_ms=%.4f "
+          "plain_ms=%.4f library_ms=null keys=%d" % (
+              label, rec["ms"], rec["bound_ms"], rec["plain_ms"],
+              int(got.sum().item())), flush=True)
+    return rec
+
+
+def monoid_reduce_phases(K, dev):
+    """K17 (B9) at the main path's shape, 8 x 8,388,608 rows: bench
+    values (int64) add / min / max with full shards (the reduce action's
+    input), float64 and float32 adds, a bool count (the Pregel active
+    count's form), ragged shards with an empty one; distinct_key_counts
+    over bench keys sorted per shard (nk = 1, a bare groupByKey count's
+    input) and over (key, value) pairs sorted per shard (nk = 2)."""
+    keys, vals = bench_data()
+    rng = np.random.default_rng(20261028)
+    v = torch.from_numpy(vals.reshape(N_SHARDS, CAP)).to(dev)
+    full = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    out = {"monoid_reduce": k17_case(K, "int64 add (bench values)", v, full,
+                                     "add", "minmax")}
+    for op in ("min", "max"):
+        k17_case(K, "int64 %s (bench values)" % op, v, full, op, "minmax")
+    ragged = rng.integers(CAP // 2, CAP + 1, N_SHARDS).astype(np.int32)
+    ragged[3] = 0
+    k17_case(K, "int64 add (ragged, shard 3 empty)", v,
+             torch.from_numpy(ragged).to(dev), "add")
+    for dt in (torch.float64, torch.float32):
+        f = torch.from_numpy(rng.standard_normal((N_SHARDS, CAP))).to(
+            dev).to(dt)
+        k17_case(K, "%s add" % str(dt).split(".")[1], f, full, "add",
+                 "minmax")
+        del f
+    b = torch.from_numpy(rng.random((N_SHARDS, CAP)) < 0.5).to(dev)
+    k17_case(K, "bool count", b, full, "add", "count")
+    del b
+    k = torch.from_numpy(keys.reshape(N_SHARDS, CAP)).to(dev)
+    out["distinct_key_counts"] = distinct_case(
+        K, "nk=1 (bench keys sorted per shard)",
+        [torch.sort(k, dim=1).values.contiguous()], full)
+    pair = torch.sort(k * 65536 + v, dim=1).values
+    distinct_case(K, "nk=2 ((key, value) sorted per shard)",
+                  [(pair >> 16).contiguous(), (pair & 0xFFFF).contiguous()],
+                  full)
+    del k, v, pair
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -3168,13 +3292,34 @@ def stream_output(ctx, name, check, union_ticks, state=False):
         if state and not launched["bucket_gather_state"]:
             fail("window %s t=%d: no state gather launch" % (name, tick))
         check(tick, got)
+        ex = ctx.scheduler.executor
         print("window %s t=%d: wall_s=%.3f rows=%d k16=%d state_gather=%d "
-              "hbm_allocated_gib=%.3f stores=%d" % (
+              "hbm_allocated_gib=%.3f stores=%d resident_gib=%.3f "
+              "on_device=%d spilled=%d" % (
                   name, tick, wall, len(got), launched["union_concat"],
                   launched["bucket_gather_state"],
                   torch.cuda.memory_allocated() / 2 ** 30,
-                  len(ctx.scheduler.executor.shuffle_store)), flush=True)
+                  len(ex.shuffle_store), ex.resident_bytes / 2 ** 30,
+                  *store_split(ex)), flush=True)
     return out
+
+
+def store_split(ex):
+    """(stores on the device, stores spilled to host runs)."""
+    spilled = sum("host_runs" in m for m in ex.shuffle_store.values())
+    return len(ex.shuffle_store) - spilled, spilled
+
+
+def check_budget(ex, what):
+    """The device-resident store bytes are at or under the budget, unless
+    the newest store alone is left on the device."""
+    from dpark_tpu_torch import conf
+    budget = conf.shuffle_hbm_budget(ex.device)
+    on_device, _ = store_split(ex)
+    if ex.resident_bytes > budget and on_device > 1:
+        fail("%s: %d stores hold %d bytes on the device, over the %d-byte "
+             "budget" % (what, on_device, ex.resident_bytes, budget))
+    return budget
 
 
 def window_path(batches):
@@ -3222,11 +3367,17 @@ def window_path(batches):
             "running sum t=%d" % tick, got, cum[tick], False),
             lambda tick: tick > 1))
     ctx.start()
+    ex = ctx.scheduler.executor
     ssc.zero_time = STREAM_T0
     for k in range(1, len(batches) + 1):
         t0 = time.perf_counter()
         ssc.run_batch(STREAM_T0 + k)
-        print("window tick %d: %.3f s" % (k, time.perf_counter() - t0),
+        wall = time.perf_counter() - t0
+        budget = check_budget(ex, "window tick %d" % k)
+        print("window tick %d: %.3f s resident_gib=%.3f budget_gib=%.3f "
+              "on_device=%d spilled=%d spill_s=%.3f" % (
+                  k, wall, ex.resident_bytes / 2 ** 30, budget / 2 ** 30,
+                  *store_split(ex), sum(sp["seconds"] for sp in ex.spills)),
               flush=True)
     ssc.stop()
     ctx.stop()
@@ -3259,6 +3410,95 @@ def window_path(batches):
               flush=True)
     ssc.stop()
     ctx.stop()
+    torch.cuda.empty_cache()
+
+
+EVICT_JOBS = 4
+EVICT_PAIRS = PAIRS // 2           # 32Mi bench pairs a job: a 0.5 GiB store
+EVICT_BUDGET = 1 << 30
+
+
+def evict_data(j):
+    """Job j's bench pairs: rows [j, j + 1) * EVICT_PAIRS of bench.py's
+    formula."""
+    i = np.arange(j * EVICT_PAIRS, (j + 1) * EVICT_PAIRS, dtype=np.int64)
+    return (i * 2654435761) % KEYS, i & 0xFFFF
+
+
+def evict_path():
+    """One budget over the shuffle stores: EVICT_JOBS partitionBy(8)
+    counts of 32Mi bench pairs each on gpu:8 under a pinned budget of 1
+    GiB (two stores).  After each job: the device-resident bytes, the
+    stores spilled (each spill's ms and GB/s) and the memory allocated;
+    the resident bytes stay at or under the budget, and the spilled
+    stores' memory is freed (allocated after the fourth job within 0.25
+    GiB of that after the second).  Then the first (spilled) shuffle's
+    collect, read from its host runs, equals numpy's rows exactly."""
+    from dpark_tpu_torch import Columns, DparkContext, conf
+    old = conf.SHUFFLE_HBM_BUDGET
+    conf.SHUFFLE_HBM_BUDGET = EVICT_BUDGET
+    ctx = DparkContext("gpu:8")
+    try:
+        ctx.start()
+        ex = ctx.scheduler.executor
+        rdds, alloc = [], []
+        for j in range(EVICT_JOBS):
+            k, v = evict_data(j)
+            r = ctx.parallelize(Columns(k, v), N_SHARDS).partitionBy(N_SHARDS)
+            del k, v
+            seen = len(ex.spills)
+            if act("gpu:8 evict partitionBy(8) count, job %d" % (j + 1),
+                   r.count) != EVICT_PAIRS:
+                fail("evict job %d: count" % (j + 1))
+            check_stages(ctx, "evict job %d" % (j + 1))
+            for sp in ex.spills[seen:]:
+                print("evict spill: shuffle %d bytes=%d rows=%d run_bytes=%d "
+                      "ms=%.1f gb_s=%.3f" % (
+                          sp["sid"], sp["bytes"], sp["rows"],
+                          sp["run_bytes"], sp["seconds"] * 1e3,
+                          sp["bytes"] / sp["seconds"] / 1e9), flush=True)
+            torch.cuda.synchronize()
+            alloc.append(torch.cuda.memory_allocated())
+            check_budget(ex, "evict job %d" % (j + 1))
+            print("evict job %d: resident_gib=%.3f budget_gib=%.3f "
+                  "on_device=%d spilled=%d allocated_gib=%.3f" % (
+                      j + 1, ex.resident_bytes / 2 ** 30,
+                      EVICT_BUDGET / 2 ** 30, *store_split(ex),
+                      alloc[-1] / 2 ** 30), flush=True)
+            rdds.append(r)
+        if alloc[3] - alloc[1] >= 2 ** 28:
+            fail("evict: allocated %.3f GiB after job 4, %.3f after job 2: "
+                 "the spilled stores were not freed" % (
+                     alloc[3] / 2 ** 30, alloc[1] / 2 ** 30))
+        sid = rdds[0].prev.dep.shuffle_id
+        if "host_runs" not in ex.shuffle_store[sid]:
+            fail("evict: the first shuffle was not spilled")
+        # the host path builds 32Mi Python rows: the cyclic collector's
+        # passes over them would triple the check's time (the action's
+        # time printed is with it off)
+        gc.disable()
+        try:
+            got = act("gpu:8 evict partitionBy(8) collect (spilled, gc "
+                      "off)", rdds[0].collect)
+        finally:
+            gc.enable()
+        for st in ctx.scheduler.history[-1]["stage_info"]:
+            if "fallback_reason" in st or st.get("reads") != "host_runs":
+                fail("evict collect: a stage that reads no spilled runs: %s"
+                     % st)
+        gk = np.fromiter((kv[0] for kv in got), np.int64, len(got))
+        gv = np.fromiter((kv[1] for kv in got), np.int64, len(got))
+        del got
+        k, v = evict_data(0)
+        go, wo = np.lexsort((gv, gk)), np.lexsort((v, k))
+        if not (np.array_equal(gk[go], k[wo]) and np.array_equal(gv[go],
+                                                                 v[wo])):
+            fail("evict: the spilled shuffle's collect differs from numpy")
+        print("evict: the spilled shuffle's %d rows equal numpy's" % len(gk),
+              flush=True)
+    finally:
+        conf.SHUFFLE_HBM_BUDGET = old
+        ctx.stop()
     torch.cuda.empty_cache()
 
 
@@ -3312,7 +3552,6 @@ def main():
         sys.exit(2)
     from dpark_tpu_torch import Columns
     from dpark_tpu_torch.backend.cuda import kernels as K
-    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3342,6 +3581,17 @@ def main():
         text_paths(lambda path, fn, *a: check_launches(path, fn, *a), K,
                    dev)
         return
+    if sys.argv[1:] == ["--evict-only"]:
+        # K17's phases, the reduceByKey gpu:8, partition/group/distinct
+        # and evict paths alone (no result line)
+        monoid_reduce_phases(K, dev)
+        keys, vals = bench_data()
+        for path, fn, args in (
+                ("reduceByKey gpu:8", main_path, ("gpu:8", keys, vals)),
+                ("partition/group/distinct gpu:8", group_paths,
+                 (keys, vals)), ("evict gpu:8", evict_path, ())):
+            check_launches(path, fn, *args)
+        return
     if sys.argv[1:] == ["--union-only"]:
         # K16's and the state gather's phases, the union and window paths
         # alone (no result line)
@@ -3353,7 +3603,8 @@ def main():
     phases = kernel_phases(K, dev)
     phases.update(sort_kernel_phases(K, dev))
     phases.update(seg_kernel_phases(K, dev))
-    b8, _ = plain_phases(dev)
+    b8 = plain_phases(dev)
+    phases.update(monoid_reduce_phases(K, dev))
     phases.update(k14_phases(K, dev, b8))
     phases.update(column_ranges_phase(K, dev))
 
@@ -3363,13 +3614,10 @@ def main():
         launches[path] = check_launches(path, fn, *args)
 
     keys, vals = bench_data()
-    calls = {}
-    with counting(TorchExecutor, "_monoid_reduce", calls):
-        drive("reduceByKey gpu:8", main_path, "gpu:8", keys, vals)
-    print("calls reduceByKey gpu:8: _monoid_reduce=%d"
-          % calls.get("_monoid_reduce", 0), flush=True)
+    drive("reduceByKey gpu:8", main_path, "gpu:8", keys, vals)
     drive("reduceByKey gpu", main_path, "gpu", keys, vals)
     drive("partition/group/distinct gpu:8", group_paths, keys, vals)
+    drive("evict gpu:8", evict_path)
     profile_first_action(
         "gpu:8 reduceByKey count", lambda ctx: ctx.parallelize(
             Columns(keys, vals), 8).reduceByKey(lambda a, b: a + b, 8).count)

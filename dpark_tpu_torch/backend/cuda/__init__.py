@@ -76,9 +76,22 @@ class GPUScheduler(DAGScheduler):
     def default_parallelism(self):
         return self.ndev
 
+    def _job_started(self, record):
+        """A running job's shuffle stores spill only after every
+        completed job's (executor._evict_hbm)."""
+        self.start()
+        self.executor.live_jobs.add(record["id"])
+
+    def _job_finished(self, record):
+        if self.executor is not None:
+            self.executor.live_jobs.discard(record["id"])
+
     def submit_tasks(self, stage, tasks, report):
         from dpark_tpu_torch.backend.cuda import fuse
         self.start()
+        # the job each new shuffle store belongs to
+        self.executor.current_job = (self.current_record["id"]
+                                     if self.current_record else None)
         if len(tasks) < stage.num_partitions:
             # a partial job (take): the tensor path runs whole stages
             plan, reason = None, ("partial job (%d of %d partitions)"
@@ -114,15 +127,27 @@ class GPUScheduler(DAGScheduler):
                     rdd.should_cache = False
 
     def _run_stage(self, stage, record):
-        # a parent whose device output was dropped recomputes through
-        # its lineage, as after a lost map output
+        # a parent whose device output was dropped (a failed spill)
+        # recomputes through its lineage, as after a lost map output;
+        # running one parent may drop another's, so check again after
+        for _ in range(len(stage.parents) + 1):
+            self._forget_dropped(stage)
+            super()._run_stage(stage, record)
+            if not self._forget_dropped(stage):
+                return
+
+    def _forget_dropped(self, stage):
+        """Mark the parents whose device output is gone unavailable;
+        returns whether there was one."""
+        dropped = False
         for parent in stage.parents:
             if (parent.is_available and self.executor is not None
                     and str(parent.output_locs[0]).startswith("hbm://")
                     and parent.shuffle_dep.shuffle_id
                     not in self.executor.shuffle_store):
                 parent.output_locs = [None] * parent.num_partitions
-        super()._run_stage(stage, record)
+                dropped = True
+        return dropped
 
     def _run_degradable(self, stage, tasks, plan, report):
         """The tensor path with the out-of-memory ladder.  An

@@ -42,9 +42,10 @@ _COMBINE = {"add": torch.add, "min": torch.minimum, "max": torch.maximum,
             "mul": torch.mul}
 
 
-def _local_reduce(kind, x):
-    """Each shard's reduction of an (N, cap, ...) leaf: (N,)."""
-    return _REDUCE[kind](x.reshape(x.shape[0], -1), 1)
+def _local_reduce(kind, x, n):
+    """Each shard's reduction of an (N, cap, ...) leaf over its first
+    n[s] rows and every trailing lane (K17): (N,)."""
+    return kernels.monoid_reduce(x.contiguous(), n, kind)[0]
 
 
 def _axis_reduce(kind, x):
@@ -399,10 +400,8 @@ class DevicePregel:
                                   self.v_tuple)))
             glob = []
             for leaf in a_leaves:
-                leaf = shaped(leaf)
-                masked = torch.where(bcast(valid_v, leaf), leaf,
-                                     kernels.identity(amon, leaf.dtype))
-                glob.append(_axis_reduce(amon, _local_reduce(amon, masked)))
+                glob.append(_axis_reduce(amon, _local_reduce(
+                    amon, shaped(leaf), self.vcnt)))
             ag = rewrap(glob, a_tuple)
 
         if pending is not None:
@@ -432,7 +431,7 @@ class DevicePregel:
                         torch.zeros((), dtype=l.dtype, device=dev))
             for l in (shaped(x) for x in as_leaves(nv_)[0])]
         self.active = new_act
-        return int(new_act.sum())
+        return int(_local_reduce("add", new_act, self.vcnt).sum())
 
     # ------------------------------------------------------------------
     def run(self):

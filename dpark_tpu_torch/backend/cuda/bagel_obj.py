@@ -874,7 +874,8 @@ class DeviceObjectPregel:
                 new_vals.append(torch.where(bc(invoked, pick), pick,
                                             vals[li]).contiguous())
             new_act = invoked & torch.where(has, om[nvl], on[nvl])
-            n_active = n_active + new_act.sum()
+            n_active = n_active + kernels.monoid_reduce(
+                new_act.contiguous(), t["vcnt"], "add")[0].sum()
             # the mail call's messages from invoked rows with mail, the
             # no-mail call's from invoked rows without
             for blk, gate, cell in ((om, invoked & has, cm),

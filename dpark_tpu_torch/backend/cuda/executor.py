@@ -38,6 +38,12 @@ folds it onto a shard) and a usable merge pre-reduces each wave on both
 sides (B12: K13 + K5 + K3, then K5 + K3).  The host export premerges a
 partition's runs and folds equal keys with the user's merge.
 
+The shuffle stores share one budget (conf.SHUFFLE_HBM_BUDGET, the
+reference's): after every write registers, _evict_hbm spills the least
+recently fetched stores, completed jobs' first, to the spilled-run form
+(_spill_shuffle_to_host: one pinned read, one key-sorted run a
+partition); the store keeps its id, and every reader serves its runs.
+
 PyTorch runs eagerly: the reference's compiled programs (narrow,
 exchange, reduce) are plain functions here, and there is no program
 cache (nor its sticky capacity classes).  Nothing here catches a CUDA
@@ -47,6 +53,7 @@ retries a stage whose allocation failed).
 
 import concurrent.futures
 import itertools
+import logging
 import os
 import pickle
 import queue
@@ -64,7 +71,8 @@ from dpark_tpu_torch import conf
 from dpark_tpu_torch.backend.cuda import collectives, fuse, kernels, layout
 from dpark_tpu_torch.rdd import TextFileRDD, _ColumnarSlice, _fst
 from dpark_tpu_torch.shuffle import SpillCorruption, spill_crc
-from dpark_tpu_torch.utils.monoid import local_reduce, monoid_identity
+
+logger = logging.getLogger("dpark_tpu_torch.executor")
 
 
 def _even_ranges(n, parts):
@@ -420,6 +428,19 @@ class TorchExecutor:
         self.ndev = layout.make_mesh(ndev)
         self.device = torch.device(device)
         self.shuffle_store = {}       # sid -> stored map output
+        # one budget over the device-resident shuffle stores
+        # (conf.SHUFFLE_HBM_BUDGET, _evict_hbm): their bytes, the bytes
+        # of the device result cache (its tier, ROADMAP A19, is not
+        # ported: always 0), and an LRU clock a fetch advances
+        self._store_bytes = 0
+        self._result_bytes = 0
+        self._hbm_seq = 0
+        # jobs running on the owning scheduler: their stores spill only
+        # after every completed job's; current_job stamps new stores
+        self.live_jobs = set()
+        self.current_job = None
+        self._pinned = set()          # stores the running stage reads
+        self.spills = []              # one record a store spilled
         self.last_stream_stats = None
         self.last_wave_budget = None
         self._spool_seq = 0
@@ -438,6 +459,27 @@ class TorchExecutor:
         self.last_stream_stats = None
         self.last_wave_budget = None
         self.last_text_stats = None
+        # the stores this stage reads stay on the device until it has
+        # read them (_fetch_store)
+        self._pinned = self._plan_reads(plan)
+        try:
+            return self._run_stage_plan(plan, wave_budget)
+        finally:
+            self._pinned = set()
+
+    @classmethod
+    def _plan_reads(cls, plan):
+        """The shuffle ids of the stores a plan's source reads."""
+        kind, arg = plan.source[0], plan.source[1]
+        if kind == "hbm":
+            return {arg.shuffle_id}
+        if kind == "join":
+            return {dep.shuffle_id for dep in arg}
+        if kind == "union":
+            return set().union(*(cls._plan_reads(sub) for sub in arg))
+        return set()
+
+    def _run_stage_plan(self, plan, wave_budget):
         mode = self._stream_mode(plan, wave_budget)
         if mode is not None:
             kind, waves = mode
@@ -504,7 +546,7 @@ class TorchExecutor:
         """Reduce side: K4 exchange of the stored map output, then the
         key sort and, unless the shuffle repartitions only, K3 merge."""
         dep = plan.source[1]
-        store = self.shuffle_store[dep.shuffle_id]
+        store = self._fetch_store(dep.shuffle_id)
         nk = plan.src_nk
         if store.get("pre_reduced"):
             # a streamed combine: shard d holds partition d combined
@@ -539,7 +581,7 @@ class TorchExecutor:
         """One no-combine shuffle's rows, exchanged and key-sorted on the
         device: per-partition (k, v) row lists on the host (a cogroup's
         host merge consumes them), string keys decoded."""
-        store = self.shuffle_store[dep.shuffle_id]
+        store = self._fetch_store(dep.shuffle_id)
         batch = self._exchange_sorted(store, store["key_cols"],
                                       store["out_treedef"])
         return [self._maybe_decode(store, rows)
@@ -562,8 +604,8 @@ class TorchExecutor:
         per-shard totals, one host read of the largest total to size the
         output (layout.round_capacity), and K12's expansion.  Rows come
         in A's key order, equal keys in A's then B's arrival order."""
-        store_a = self.shuffle_store[dep_a.shuffle_id]
-        store_b = self.shuffle_store[dep_b.shuffle_id]
+        store_a = self._fetch_store(dep_a.shuffle_id)
+        store_b = self._fetch_store(dep_b.shuffle_id)
         nk = store_a["key_cols"]
         a = self._exchange_sorted(store_a, nk, store_a["out_treedef"])
         b = self._exchange_sorted(store_b, nk, store_b["out_treedef"])
@@ -587,7 +629,7 @@ class TorchExecutor:
     # ------------------------------------------------------------------
     def _run_seg_map(self, plan):
         op = plan.ops[0]
-        store = self.shuffle_store[plan.source[1].shuffle_id]
+        store = self._fetch_store(plan.source[1].shuffle_id)
         if "host_runs" in store:
             batch = self._seg_batch_from_runs(store)
             table = collectives._segment_table(batch.cols[:op.nk],
@@ -1460,28 +1502,27 @@ class TorchExecutor:
     def _distinct_key_counts(batch, nk):
         """(N,) distinct-key counts of a per-shard key-sorted batch (the
         no-combine reduce's row order): valid rows where any of the nk
-        key columns differs from the row before."""
-        valid = collectives.valid_rows(batch.counts, batch.cap)
-        return (collectives._starts(batch.cols[:nk]) & valid).sum(1)
+        key columns differs from the row before (K17)."""
+        return kernels.distinct_key_counts(
+            [c.contiguous() for c in batch.cols[:nk]],
+            batch.counts.to(torch.int32))
 
-    def _monoid_reduce(self, batch, monoid):
+    @staticmethod
+    def _monoid_reduce(batch, monoid):
         """Per-shard (reduced, min, max) over the valid rows of a
-        single-scalar-leaf batch, each (N,); empty shards yield
+        single-scalar-leaf batch, each (N,) (K17); empty shards yield
         identities."""
-        col = batch.cols[0]
-        dt = layout.numpy_dtype(col.dtype)
-        valid = collectives.valid_rows(batch.counts, batch.cap)
-        ident = {k: np.asarray(monoid_identity(k, dt)).item()
-                 for k in (monoid, "min", "max")}
-        masked = torch.where(valid, col, ident[monoid])
-        lo = torch.where(valid, col, ident["min"]).amin(1)
-        hi = torch.where(valid, col, ident["max"]).amax(1)
-        return local_reduce(monoid, masked, 1), lo, hi
+        return kernels.monoid_reduce(batch.cols[0].contiguous(),
+                                     batch.counts.to(torch.int32), monoid)
 
     # ------------------------------------------------------------------
     # the shuffle store and its host export bridge
     # ------------------------------------------------------------------
     def _register_shuffle(self, plan, store):
+        """Shared bookkeeping of the in-core and streamed writes: the
+        re-run guard, the byte account, the LRU stamp, the owning job and
+        the reduce width (what a spill writes runs for), then the
+        budget's eviction, which never spills the new store."""
         dep = plan.epilogue[1]
         sid = dep.shuffle_id
         self.drop_shuffle(sid)            # a re-run replaces its output
@@ -1490,10 +1531,149 @@ class TorchExecutor:
         store["key_cols"] = plan.epi_nk
         store["no_combine"] = plan.no_combine
         store["encoded_keys"] = plan.encoded_keys
+        # a spilled combining store's export folds with the user's merge
+        store.setdefault("agg", None if plan.no_combine else dep.aggregator)
         store["nbytes"] = sum(int(leaf.numel() * leaf.element_size())
                               for leaf in store["leaves"])
+        store["seq"] = self._next_seq()
+        store["job"] = self.current_job
+        store["n_reduce"] = dep.partitioner.num_partitions
         self.shuffle_store[sid] = store
+        self._store_bytes += store["nbytes"]
+        self._evict_hbm(keep_sid=sid)
         return ("shuffle", sid)
+
+    def _next_seq(self):
+        self._hbm_seq += 1
+        return self._hbm_seq
+
+    def _fetch_store(self, sid):
+        """A store a stage or the export bridge reads, stamped as the
+        most recently fetched (the eviction's LRU order); read, it is no
+        longer pinned for the running stage."""
+        store = self.shuffle_store[sid]
+        store["seq"] = self._next_seq()
+        self._pinned.discard(sid)
+        return store
+
+    @property
+    def resident_bytes(self):
+        """Bytes of the shuffle stores held on the device."""
+        return self._store_bytes
+
+    def _evict_hbm(self, keep_sid=None):
+        """Spill shuffle stores to host runs until the device-resident
+        bytes are under conf.SHUFFLE_HBM_BUDGET (the reference's
+        _evict_hbm): completed jobs' stores first, least recently fetched
+        first; then, with only live jobs' stores left, the job holding
+        the most bytes pays, its least recently fetched store first.
+        Never `keep_sid` (the store just registered), a store the running
+        stage reads, or a store already spilled.  A spill that fails
+        (a full disk) drops the store: its consumers recompute it through
+        its lineage (GPUScheduler._run_stage)."""
+        budget = conf.shuffle_hbm_budget(self.device)
+        while self._store_bytes + self._result_bytes > budget:
+            victim = self._evict_victim(keep_sid)
+            if victim is None:
+                return
+            try:
+                self._spill_shuffle_to_host(victim)
+            except Exception as e:
+                logger.warning("spill of device shuffle %d failed (%s: %s); "
+                               "dropping it: its consumers recompute it",
+                               victim, type(e).__name__, e)
+                self.drop_shuffle(victim)
+
+    def _evict_victim(self, keep_sid):
+        movable = [(meta["seq"], sid, meta)
+                   for sid, meta in self.shuffle_store.items()
+                   if sid != keep_sid and sid not in self._pinned
+                   and "host_runs" not in meta and meta["nbytes"]]
+        done = [(seq, sid) for seq, sid, meta in movable
+                if meta["job"] not in self.live_jobs]
+        if done:
+            return min(done)[1]
+        by_job = {}
+        for seq, sid, meta in movable:
+            by_job.setdefault(meta["job"], []).append(
+                (seq, sid, meta["nbytes"]))
+        if not by_job:
+            return None
+        biggest = max(by_job.values(),
+                      key=lambda ss: sum(b for _, _, b in ss))
+        return min(biggest)[1]
+
+    def _spill_shuffle_to_host(self, sid):
+        """One device-resident store becomes the spilled-run form of the
+        wave stream (`host_runs`): one pinned device-to-host read of its
+        counts, offsets and leaves; each reduce partition's rows gathered
+        from its (src, dst) buckets (a pre_reduced store holds partition
+        d on shard d), key-sorted on the host (stable: equal keys keep
+        their source-major order) and written as one run to a fresh
+        spool.  The store keeps its id and its hbm:// locations; every
+        reader serves the runs (the export bridge, _seg_batch_from_runs,
+        admission's HOST_RUNS_READ).  Raises, leaving the store as it
+        was, when a write fails."""
+        store = self.shuffle_store[sid]
+        t0 = time.perf_counter()
+        pre = bool(store.get("pre_reduced"))
+        tensors = [store["counts"]] + ([] if pre else [store["offsets"]])
+        host, ready = _async_d2h(tensors + list(store["leaves"]))
+        if ready is not None:
+            ready.synchronize()
+        host = [h.numpy() for h in host]
+        counts, leaves = host[0], host[len(tensors):]
+        r = store["n_reduce"]
+        # (shard, first row, rows) of each partition's buckets
+        if pre:
+            spans = [[(d, 0, int(counts[d]))] for d in range(r)]
+        else:
+            offsets = host[1]
+            spans = [[(s, int(offsets[s, d]), int(counts[s, d]))
+                      for s in range(len(counts))] for d in range(r)]
+        parts = [[(s, o, c) for s, o, c in sp if c] for sp in spans]
+        self._spool_seq += 1
+        root = conf.spool_root()
+        os.makedirs(root, exist_ok=True)
+        spool = tempfile.mkdtemp(prefix="%d-%d-spill-" % (sid,
+                                                          self._spool_seq),
+                                 dir=root)
+        nk = store["key_cols"]
+
+        def write(d):
+            if not parts[d]:
+                return [], 0
+            cols = [np.concatenate([leaf[s, o:o + c]
+                                    for s, o, c in parts[d]])
+                    for leaf in leaves]
+            order = _key_order(cols, nk)
+            path = os.path.join(spool, "%d-spill" % d)
+            return [path], _write_run(path, [c[order] for c in cols])
+
+        try:
+            with concurrent.futures.ThreadPoolExecutor(
+                    min(8, max(1, r))) as pool:
+                written = list(pool.map(write, range(r)))
+        except BaseException:
+            shutil.rmtree(spool, ignore_errors=True)
+            raise
+        runs = [paths for paths, _ in written]
+        nbytes = store["nbytes"]
+        store.pop("pre_reduced", None)
+        store.update({
+            "leaves": [], "counts": None, "offsets": None,
+            "host_runs": runs, "spool_dir": spool,
+            "premerge": _RunPremerger(runs, spool, key_cols=nk),
+            "host_combine": not store["no_combine"], "single_map": True,
+            "nbytes": 0})
+        self._store_bytes -= nbytes
+        seconds = time.perf_counter() - t0
+        self.spills.append({
+            "sid": sid, "bytes": nbytes, "seconds": seconds,
+            "rows": sum(c for p in parts for _, _, c in p),
+            "run_bytes": sum(b for _, b in written)})
+        logger.info("spilled device shuffle %d (%d bytes) to host runs in "
+                    "%.3f s", sid, nbytes, seconds)
 
     def export_bucket(self, sid, map_id, reduce_id):
         """Device-resident map output -> host (key, combiner) items of one
@@ -1501,9 +1681,9 @@ class TorchExecutor:
         bridge), string keys decoded.  A no-combine store holds raw
         values: each exports as the list combiner [v] its host merge
         (list extend) expects."""
-        store = self.shuffle_store.get(sid)
-        if store is None:
+        if sid not in self.shuffle_store:
             raise KeyError("no device shuffle %d" % sid)
+        store = self._fetch_store(sid)
         return self._maybe_decode(store, self._export_rows(store, map_id,
                                                            reduce_id))
 
@@ -1593,6 +1773,7 @@ class TorchExecutor:
         store = self.shuffle_store.pop(sid, None)
         if store is None:
             return
+        self._store_bytes -= store["nbytes"]
         if store.get("premerge") is not None:
             # stop the background merge before deleting what it reads
             store["premerge"].stop()

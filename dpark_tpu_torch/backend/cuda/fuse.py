@@ -1026,8 +1026,9 @@ def is_join(rdd):
 def _device_cached(rdd, store):
     """Whether the tensor path reads through the cached `rdd`: the host
     cache does not hold its partitions, and its narrow chain ends at a
-    shuffle output kept on the device (`store`), which holds its data
-    (the device result cache, ROADMAP A19, is not ported)."""
+    shuffle output kept on the device (`store`) and not spilled to host
+    runs, which holds its data (the device result cache, ROADMAP A19, is
+    not ported)."""
     if store is None or rdd.ctx.cache.holds(rdd.id, len(rdd.splits)):
         return False
     cur = rdd
@@ -1041,7 +1042,8 @@ def _device_cached(rdd, store):
             cur = cur.prev
         else:
             return False
-    return cur.dep.shuffle_id in store
+    meta = store.get(cur.dep.shuffle_id)
+    return meta is not None and "host_runs" not in meta
 
 
 def extract_chain(top, store=None):

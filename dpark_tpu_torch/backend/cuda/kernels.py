@@ -20,6 +20,8 @@ Kernels (sources under csrc/, one shared library each):
                             register program, merge_program.py)
   K15 column_ranges         csrc/column_ranges.cu
   K16 union_concat          csrc/union_concat.cu
+  K17 monoid_reduce         csrc/monoid_reduce.cu (with
+                            distinct_key_counts)
 
 K8's library also holds bucket_gather_state, the state mode's gather of
 the segmented apply (updateStateByKey's update(values, prev)).
@@ -66,13 +68,14 @@ SOURCES = {
     "segmented_merge": "segmented_merge.cu",
     "column_ranges": "column_ranges.cu",
     "union_concat": "union_concat.cu",
+    "monoid_reduce": "monoid_reduce.cu",
 }
 # launch counters: one per entry point (K8's library holds three, K12's
-# two)
+# and K17's two)
 LAUNCHES = {name: 0 for name in SOURCES
             if name not in ("bucket_groups", "join_expand")}
 LAUNCHES.update(bucket_gather=0, bucket_scatter=0, bucket_gather_state=0,
-                join_ranges=0, join_expand=0)
+                join_ranges=0, join_expand=0, distinct_key_counts=0)
 SIZE_CLASSES = 32
 KEY_SENTINEL = 2 ** 63 - 1
 OPS = {"add": 0, "min": 1, "max": 2, "mul": 3, "last": 4}
@@ -210,6 +213,14 @@ def _bind(name, lib):
                           _P, _P, _P, _I, _P]
         state.restype = ctypes.c_int
         return gather, scatter, state
+    elif name == "monoid_reduce":
+        fn = lib.dpk_monoid_reduce
+        fn.argtypes = [_P, _I, _L, _P, _I, _L, _I, _P, _P, _P, _P, _I, _P]
+        fn.restype = ctypes.c_int
+        distinct = lib.dpk_distinct_key_counts
+        distinct.argtypes = [_P, _P, _I, _P, _I, _L, _P, _P]
+        distinct.restype = ctypes.c_int
+        return fn, distinct
     elif name == "union_concat":
         fn = lib.dpk_union_concat
         fn.argtypes = [_P, _I, _L, _P, _P, _P, _I, _I, ctypes.c_uint64, _P]
@@ -1896,3 +1907,121 @@ def union_concat(branches, key_leaf=0, key_fill=KEY_SENTINEL):
             _stream())
     _check("union_concat", rc)
     return out, totals.to(torch.int32).to(dev)
+
+
+# ---------------------------------------------------------------------
+# K17 monoid_reduce (with distinct_key_counts)
+# ---------------------------------------------------------------------
+_K17_KINDS = {torch.int64: 0, torch.int32: 1, torch.bool: 2,
+              torch.float64: 3, torch.float32: 4}
+_K17_KEY_KINDS = {torch.int64: 0, torch.int32: 1, torch.float64: 2,
+                  torch.float32: 3}
+# blocks in flight over all shards: 132 SMs x 8 blocks of 256 threads
+_K17_BLOCKS = 1056
+_K17_PART_BYTES = 24          # (reduction, min, max) a block, 8 B each
+_REDUCE = {"add": torch.sum, "min": torch.amin, "max": torch.amax,
+           "mul": torch.prod}
+
+
+def monoid_out_dtype(op, dtype):
+    """The reduction's dtype: int64 for an integer or bool add or mul (a
+    bool add is a count), the column's otherwise (torch's promotion)."""
+    if op in ("add", "mul") and not dtype.is_floating_point:
+        return torch.int64
+    return dtype
+
+
+def monoid_identity_of(op, dtype):
+    """identity() with bools: False (add, max), True (mul, min)."""
+    if dtype == torch.bool:
+        return op in ("mul", "min")
+    return identity(op, dtype)
+
+
+def monoid_reduce_plain(col, n, op):
+    N, cap = col.shape[:2]
+    valid = torch.arange(cap, device=col.device)[None, :] < n[:, None]
+    valid = valid.view(valid.shape + (1,) * (col.dim() - 2))
+
+    def masked(kind):
+        m = torch.where(valid, col, monoid_identity_of(kind, col.dtype))
+        return m.reshape(N, -1)
+    if col[0].numel() == 0:
+        return tuple(torch.full((N,), monoid_identity_of(k, col.dtype),
+                                dtype=dt, device=col.device)
+                     for k, dt in ((op, monoid_out_dtype(op, col.dtype)),
+                                   ("min", col.dtype), ("max", col.dtype)))
+    return (_REDUCE[op](masked(op), 1).to(monoid_out_dtype(op, col.dtype)),
+            masked("min").amin(1), masked("max").amax(1))
+
+
+def monoid_reduce(col, n, op):
+    """B9's masked per-shard monoid reduction: for each shard s of a
+    contiguous (N, cap, ...) column of int64, int32, bool, float64 or
+    float32, over its first n[s] rows and every trailing lane, the
+    reduction by `op` ("add", "min", "max" or "mul"), the min and the
+    max; an empty shard gives the identities (bool: add and max False,
+    mul and min True).  Returns (reduction, min, max), each (N,): the
+    reduction int64 for an integer or bool add or mul (a bool add is a
+    count), the column's dtype otherwise; min and max in the column's
+    dtype.  Rows past n[s] are never read."""
+    _need(op in _REDUCE, "op must be add, min, max or mul, got %r" % (op,))
+    _need(col.dim() >= 2 and col.is_contiguous()
+          and col.dtype in _K17_KINDS,
+          "the column must be a contiguous (N, cap, ...) int64, int32, "
+          "bool, float64 or float32 tensor, got %s %s"
+          % (col.dtype, tuple(col.shape)))
+    N, cap = col.shape[:2]
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    if not _on_cuda([col, n]):
+        return monoid_reduce_plain(col, n, op)
+    fn = _kernel("monoid_reduce")[0]
+    lanes = _lanes(col)
+    dev = col.device
+    red = torch.empty(N, dtype=monoid_out_dtype(op, col.dtype), device=dev)
+    lo = torch.empty(N, dtype=col.dtype, device=dev)
+    hi = torch.empty(N, dtype=col.dtype, device=dev)
+    vecs = -(-cap * lanes * col.element_size() // 16)
+    blocks = max(1, min(-(-vecs // (256 * 4)), _K17_BLOCKS // N))
+    scratch = torch.empty(N * blocks * _K17_PART_BYTES, dtype=torch.uint8,
+                          device=dev)
+    rc = fn(col.data_ptr(), _K17_KINDS[col.dtype], lanes, n.data_ptr(), N,
+            cap, OPS[op], red.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            scratch.data_ptr(), blocks, _stream())
+    _check("monoid_reduce", rc)
+    return red, lo, hi
+
+
+def distinct_key_counts_plain(key_cols, n):
+    N, cap = key_cols[0].shape[:2]
+    dev = key_cols[0].device
+    start = torch.zeros((N, cap), dtype=torch.bool, device=dev)
+    start[:, :1] = True
+    for c in key_cols:
+        start[:, 1:] |= c[:, 1:] != c[:, :-1]
+    valid = torch.arange(cap, device=dev)[None, :] < n[:, None]
+    return (start & valid).sum(1)
+
+
+def distinct_key_counts(key_cols, n):
+    """The distinct keys of each key-sorted shard: the rows j < n[s]
+    where any of the (N, cap) key columns (int64, int32, float64 or
+    float32; at most MAX_KEYS) differs from row j - 1, row 0 counting;
+    (N,) int64."""
+    _need(1 <= len(key_cols) <= MAX_KEYS, "1..%d key columns" % MAX_KEYS)
+    N, cap = key_cols[0].shape[:2]
+    _check_cols(key_cols, N, cap, "key columns")
+    _need(all(c.dim() == 2 and c.dtype in _K17_KEY_KINDS
+              for c in key_cols),
+          "key columns must be (N, cap) int64, int32, float64 or float32")
+    _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    if not _on_cuda(list(key_cols) + [n]):
+        return distinct_key_counts_plain(key_cols, n)
+    fn = _kernel("monoid_reduce")[1]
+    out = torch.zeros(N, dtype=torch.int64, device=n.device)
+    kinds = (ctypes.c_int * len(key_cols))(
+        *[_K17_KEY_KINDS[c.dtype] for c in key_cols])
+    rc = fn(_ptrs(key_cols), kinds, len(key_cols), n.data_ptr(), N, cap,
+            out.data_ptr(), _stream())
+    _check("distinct_key_counts", rc)
+    return out

@@ -27,6 +27,32 @@ EMULATED_WAVE_OOM_ROWS = int(os.environ.get(
     "DPARK_EMULATED_WAVE_OOM_ROWS", "0") or 0)
 
 
+# total bytes of the shuffle stores kept on the device (the reference's
+# conf.SHUFFLE_HBM_BUDGET): after every shuffle registers, the executor
+# spills the least recently fetched stores (completed jobs' first) to
+# host runs until the sum is under it (executor._evict_hbm).  "auto" is
+# a quarter of the card's memory, about 20 GiB on an 80 GB H100: the
+# wave budget (stream_chunk_rows) shares the card with the stores, and
+# the reference's own sizing advice (HARDWARE_CHECKLIST.md section 4)
+# raises its 2 GB toward 8-12 GB of a 16 GB chip.  A windowed stream's
+# live stores (a 30 s window over 1 s batches of 8 x 2^20 pairs: about
+# 30 ticks of 0.55 GiB, 16.5 GiB) then stay on the device.  Where the
+# device reports no memory (the CPU), the reference's 2 GiB.  A number
+# pins it.
+SHUFFLE_HBM_BUDGET = os.environ.get("DPARK_SHUFFLE_HBM_BUDGET", "auto")
+_SHUFFLE_HBM_BUDGET_FALLBACK = 2 << 30
+
+
+def shuffle_hbm_budget(device):
+    """Bytes of shuffle stores the device keeps: a pinned
+    SHUFFLE_HBM_BUDGET wins, "auto" is a quarter of the device's memory
+    (the fixed fallback where it reports none)."""
+    if SHUFFLE_HBM_BUDGET != "auto":
+        return int(SHUFFLE_HBM_BUDGET)
+    limit = device_bytes_limit(device)
+    return limit // 4 if limit else _SHUFFLE_HBM_BUDGET_FALLBACK
+
+
 def spool_root():
     """Root of the spilled-run spools."""
     import tempfile

@@ -105,17 +105,29 @@ class DAGScheduler:
         t0 = time.time()
         final_stage = Stage(final_rdd, None,
                             self.get_parent_stages(final_rdd))
+        self._job_started(record)
         try:
-            self._run_stage(final_stage, record)     # parents first
-            results = self._run_result_stage(final_stage, record, func,
-                                             partitions)
-            record["state"] = "done"
-        except BaseException:
-            record["state"] = "aborted"
-            raise
+            try:
+                self._run_stage(final_stage, record)     # parents first
+                results = self._run_result_stage(final_stage, record, func,
+                                                 partitions)
+                record["state"] = "done"
+            except BaseException:
+                record["state"] = "aborted"
+                raise
+            finally:
+                record["seconds"] = round(time.time() - t0, 6)
+            yield from results
         finally:
-            record["seconds"] = round(time.time() - t0, 6)
-        yield from results
+            # its results consumed, or the job aborted (or its consumer
+            # closed the generator)
+            self._job_finished(record)
+
+    def _job_started(self, record):
+        """A job begins running (the gpu master marks its stores live)."""
+
+    def _job_finished(self, record):
+        """A job's results were consumed, or it aborted."""
 
     def _run_stage(self, stage, record):
         for parent in stage.parents:

@@ -1,8 +1,7 @@
 """EXACT algebraic classification of 2-arg merge callables and of
 1-arg per-group aggregates (port of dpark_tpu/utils/monoid.py), plus
-the monoid identities and the plain reductions the executor's reduce(f)
-path needs (from dpark_tpu/bagel.py monoid_identity and
-backend/tpu/bagel.py _local_reduce).
+the monoid identities (from dpark_tpu/bagel.py monoid_identity); the
+masked reductions themselves are K17 (kernels.monoid_reduce).
 
 A classified monoid unlocks the single-pass segment reduction of K3
 instead of the traced scan of the user's function; a wrong answer here
@@ -152,15 +151,3 @@ def monoid_identity(kind, dtype):
     if dt.kind == "f":
         return dt.type(np.inf if kind == "min" else -np.inf)
     return np.iinfo(dt).max if kind == "min" else np.iinfo(dt).min
-
-
-def local_reduce(kind, x, dim):
-    """Reduce a torch tensor along `dim` with a monoid."""
-    import torch
-    if kind == "add":
-        return torch.sum(x, dim)
-    if kind == "mul":
-        return torch.prod(x, dim)
-    if kind == "min":
-        return torch.amin(x, dim)
-    return torch.amax(x, dim)
