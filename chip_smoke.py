@@ -3,10 +3,10 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, builds the seventeen CUDA
-   kernel libraries from csrc/ (one nvcc each, all started together) and
-   prints the build time, and fails unless the native host library
-   (dpark_tpu_torch/native, g++) built and loaded;
+1. prints the card's name and power limit, builds the CUDA kernel
+   libraries of K1-K18 (K14 in two) from csrc/ (one nvcc each, all
+   started together) and prints the build time, and fails unless the
+   native host library (dpark_tpu_torch/native, g++) built and loaded;
 2. holds each kernel (K1-K14) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows; K12 at
    the join path's), and times kernel, plain version, bound and library
@@ -19,11 +19,12 @@ NVIDIA GPU.
    traced merge's register program over each run) against its plain
    version in five cases (bench runs with a (v, 1) add, one run a shard,
    TPC-H Q1's six leaves over its four runs, an argmax, an empty
-   shard); holds K15 (B14's masked min/max) against its plain version at
-   8 x 8,388,608 int64 rows with ragged counts over key-sentinel padding
-   and an empty shard; and holds the spilled-run combine (B12: K13 + K5
-   + K2 + K3) and the reduce-side merge (B6: K5 + K3) against the same
-   compositions of the plain versions;
+   shard; PR 8's times printed beside); holds K15 (B14's masked
+   min/max) against its plain version at 8 x 8,388,608 int64 rows with
+   ragged counts over key-sentinel padding and an empty shard; and
+   holds the spilled-run combine (B12: K13 + K5 + K2 + K3) and the
+   reduce-side merge (B6: K5 + K3) against the same compositions of the
+   plain versions;
 3. drives the reduceByKey path through the public API: bench.py's data
    (64Mi int64 pairs over 65,536 keys) -> reduceByKey -> count / collect
    / top / reduce, a map+filter chain before the shuffle, on gpu:8 and
@@ -31,7 +32,7 @@ NVIDIA GPU.
    * 65536 + kv[0]) on the device through the ranged-int probe (K15);
 4. drives the sort path: 64Mi (random int64 key, row index) pairs ->
    sortByKey (both directions) -> count / top on gpu:8 (range shuffle)
-   and gpu (one in-place sort), and the first 32Mi pairs -> sortByKey ->
+   and gpu (one in-place sort), and the first 16Mi pairs -> sortByKey ->
    collect checked row for row against numpy's stable argsort; then
    partitionBy / groupByKey /
    distinct counts over bench.py's data, checked against numpy (the
@@ -77,8 +78,8 @@ NVIDIA GPU.
    sums exactly numpy's and sum_disc within 1e-8 relative, K14 on both
    sides and no plain scan; then the reduceByKey gpu:8 count and the Q1
    collect with the host-to-device wire narrowed (conf.NARROW_EXCHANGE)
-   and not, off, on, on, off; then HiBench's wordcount at its `large`
-   size on gpu:8: 3.2e9 bytes of text generated from a seed under
+   and not, off, on, on, off; then HiBench's wordcount at half its
+   `large` size on gpu:8: 1.6e9 bytes of text generated from a seed under
    build/ (2^20 lowercase words under Zipf's law, 8 a line) ->
    textFile -> flatMap(split) -> map((w, 1)) -> reduceByKey(add) ->
    top(10) by count and collect, exactly numpy's counts, through the
@@ -107,7 +108,7 @@ NVIDIA GPU.
    reduceByKeyAndWindow(add, 30, 10) with and without invFunc=sub and
    updateStateByKey as a running sum, each output checked every tick
    against numpy's counts; then the decayed counter 0.9 * prev + sum(vs)
-   over the first 3 batches (the state mode, within 1e-12 relative),
+   over the first 2 batches (the state mode, within 1e-12 relative),
    printing each output's wall, the device memory allocated, the
    executor's store count and its device-resident store bytes, which
    must stay under the shuffle budget (conf.SHUFFLE_HBM_BUDGET, a
@@ -121,15 +122,19 @@ NVIDIA GPU.
    superstep with mail, or a class with mail) asks where a path must
    launch a kernel more than once;
 12. profiles the first action of each gpu:8 path and one PageRank
-   superstep of each Pregel, times the top path's K5 + K2 composition,
-   prints one JSON line describing every kernel, then the result line.
+   superstep of each Pregel, holds K18 (B7, the top path's per-shard
+   top-n) against its plain version at 8 x 8,388,608 rows and times it
+   beside torch.topk and the K5 + K2 route it replaced (every top action
+   of the reduceByKey, sort and wordcount paths must record top_route
+   "K18"), prints one JSON line describing every kernel, then the result
+   line.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.
 `python3 chip_smoke.py --stream-only` builds the kernels and runs only
 the wave stream's phases and paths (9), printing no result line;
 `--text-only` runs only K15's phase, the reduceByKey gpu:8 path, the
 narrowing timings and the wordcount (no result line); `--sort-only` runs
-only K5's and K6's phases, B7's composed top, B6's merge, the sort and
+only K5's and K6's phases, B7's top (K18), B6's merge, the sort and
 reduceByKey gpu:8 paths and the sortByKey count's profile (no result
 line); `--union-only` runs only K16's and the state gather's phases and
 the union and window paths (no result line); `--evict-only` runs only
@@ -211,6 +216,8 @@ SOURCES = {
     "distinct_key_counts": (
         "dpark_tpu_torch/backend/cuda/csrc/monoid_reduce.cu",
         "dpark_tpu/backend/tpu/executor.py:1827"),
+    "topk_select": ("dpark_tpu_torch/backend/cuda/csrc/topk_select.cu",
+                    "dpark_tpu/backend/tpu/executor.py:1746"),
 }
 SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
                   "radix_sort", "segment_table", "bucket_gather",
@@ -218,21 +225,22 @@ SEGMAP_KERNELS = ["hash_dst_hist", "stable_partition", "shard_exchange",
 # the kernels each driven path must launch
 PATH_KERNELS = {
     # the ranged-int top reads K15's per-column ranges; the reduce
-    # action's per-shard reduction is K17
+    # action's per-shard reduction is K17; each top selects with K18
     "reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
                           "reduce_by_key_compact", "shard_exchange",
-                          "radix_sort", "column_ranges", "monoid_reduce"],
+                          "radix_sort", "column_ranges", "monoid_reduce",
+                          "topk_select"],
     "reduceByKey gpu": ["hash_dst_hist", "stable_partition",
                         "reduce_by_key_compact", "radix_sort",
-                        "column_ranges", "monoid_reduce"],
+                        "column_ranges", "monoid_reduce", "topk_select"],
     # each text wave: K1, K5, K2, K3 combine, K4, K5 + K3 into the state;
-    # the collect's egest narrows through K15
+    # the top(10) by count is K18; the collect's egest narrows through K15
     "wordcount gpu:8": ["hash_dst_hist", "stable_partition",
                         "reduce_by_key_compact", "shard_exchange",
-                        "radix_sort", "column_ranges"],
+                        "radix_sort", "column_ranges", "topk_select"],
     "sort gpu:8": ["range_dst_hist", "stable_partition", "shard_exchange",
-                   "radix_sort"],
-    "sort gpu": ["stable_partition", "radix_sort"],
+                   "radix_sort", "topk_select"],
+    "sort gpu": ["stable_partition", "radix_sort", "topk_select"],
     # a bare groupByKey's count: K17's distinct keys of each shard
     "partition/group/distinct gpu:8": [
         "hash_dst_hist", "stable_partition", "reduce_by_key_compact",
@@ -344,7 +352,8 @@ LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "column_ranges": "wordcount gpu:8",
              "union_concat": "union gpu:8",
              "bucket_gather_state": "window gpu:8",
-             "distinct_key_counts": "partition/group/distinct gpu:8"}
+             "distinct_key_counts": "partition/group/distinct gpu:8",
+             "topk_select": "wordcount gpu:8"}
 POWER_GROUPS = 16_384
 POWER_ROWS = (POWER_GROUPS // 16) * (2 ** 16 - 1)      # 67,107,840
 # Graph500's Kronecker graph (the graph500-22 of LDBC Graphalytics)
@@ -370,15 +379,22 @@ Q1_ORDER_LAST = 2405               # 1998-08-02: ENDDATE - 151 days
 Q1_CURRENT = 1263                  # 1995-06-17: CURRENTDATE
 Q1_SHIP_CUTOFF = 2436              # 1998-09-02: 1998-12-01 - 90 days
 K14_FLOAT_RTOL = 1e-8              # float sums in another association
+# K14's times before its redesign (PR 8 run 5, NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's
+K14_PR8_MS = {"a": 1.9869, "b": 1.8372, "c": 8.0821, "d": 2.1805,
+              "e": 1.7918}
+# the top path's K5 + K2 composition before K18 (PR 10 run 20, the same
+# card): top 10 of 8 x 8,388,608 bench values
+TOPK_PR10_MS = 5.4995
 # K17's float add against its plain version: it accumulates in double in
 # another order (float32: the plain version sums in float32)
 K17_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # the wave stream: bench.py's pairs at 2^30 (16 GiB of columns, several
 # waves at the auto threshold); the spilled paths at pinned wave sizes
 WAVE_PAIRS = 1 << 30
-# the sortByKey collects read the first half of the sort path's pairs
-# (cut from 64Mi for the smoke's time)
-SORT_COLLECT_PAIRS = PAIRS // 2
+# the sortByKey collects read the first quarter of the sort path's pairs
+# (cut from 64Mi, then from 32Mi, for the smoke's time)
+SORT_COLLECT_PAIRS = PAIRS // 4
 SPILL_PARTS = 64                   # reduceByKey's logical partitions
 SPILL_CHUNK = 1 << 21              # rows a shard a wave: 4 waves
 SORT_SPILL_PAIRS = 1 << 22           # cut from 2^23 for the smoke's time
@@ -388,8 +404,9 @@ SORT_SPILL_CHUNK = 1 << 17         # 4 waves
 # 3.2e9 bytes of text.  Its generator (RandomTextWriter) draws from a fixed
 # 1,000-word list; here words come from a seeded vocabulary of 2^20
 # lowercase ASCII words under Zipf's law with exponent 1, as in natural
-# text, 8 words a line, so the result has about a million rows
-WORDCOUNT_BYTES = 3_200_000_000
+# text, 8 words a line, so the result has about a million rows.  Cut to
+# half the profile's size for the smoke's time
+WORDCOUNT_BYTES = 1_600_000_000
 VOCAB_WORDS = 1 << 20
 WORDS_PER_LINE = 8
 CORPUS_CHUNK_LINES = 1 << 20       # lines a generator task
@@ -585,6 +602,26 @@ def k5_split(K, col, src=None, reps=3):
             bases_end = None
     parts["gap"] = sum(gaps) / len(gaps) if gaps else None
     return parts
+
+
+def launch_split(fn):
+    """Device ms of one fn() call by kernel name (the first word of each
+    CUDA event's name), under torch.profiler, after a warm-up call (over
+    several calls in one profile the summed events came short of the
+    calls' CUDA-event time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = (ev.name.split("(")[0].split("<")[0].split()
+                    or ["?"])[-1]
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return ",".join("%s:%.4f" % kv for kv in sorted(out.items()))
 
 
 def lsd_bytes(rows, nat, src, passes, width):
@@ -933,6 +970,14 @@ def check_stages(ctx, what):
             fail("%s: stage left the tensor path: %s" % (what, st))
 
 
+def check_top_route(ctx, what):
+    """The last job's top-n ran on the device through K18 (the stage
+    record's top_route)."""
+    st = ctx.scheduler.history[-1]["stage_info"][-1]
+    if st.get("kind") != "array+top" or st.get("top_route") != "K18":
+        fail("%s: the top did not select with K18: %s" % (what, st))
+
+
 def act(label, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -971,6 +1016,7 @@ def main_path(master, keys, vals):
         fail("%s collect differs from numpy" % master)
     top = act(master + " top", lambda: r.top(10, key=lambda kv: kv[1]))
     check_stages(ctx, master + " top")
+    check_top_route(ctx, master + " top")
     order = np.argsort(-sums, kind="stable")[:10]
     if top != [(int(k), int(sums[k])) for k in order]:
         fail("%s top differs from numpy: %s" % (master, top))
@@ -979,6 +1025,7 @@ def main_path(master, keys, vals):
     top = act(master + " top ranged int",
               lambda: r.top(10, key=lambda kv: kv[1] * 65536 + kv[0]))
     kind = ctx.scheduler.history[-1]["stage_info"][-1]["kind"]
+    check_top_route(ctx, master + " top ranged int")
     order = np.argsort(-(sums * 65536 + np.arange(KEYS)), kind="stable")[:10]
     if kind != "array+top" or top != [(int(k), int(sums[k]))
                                       for k in order]:
@@ -1047,6 +1094,7 @@ def sort_path(master, keys, vals):
         check_stages(ctx, label)
     top = act(master + " sortByKey top", lambda: made[True].top(10))
     check_stages(ctx, master + " sortByKey top")
+    check_top_route(ctx, master + " sortByKey top")
     big = np.argsort(keys, kind="stable")[::-1][:10]
     if top != [(int(keys[i]), int(vals[i])) for i in big]:
         fail("%s sortByKey top differs from numpy: %s" % (master, top))
@@ -1376,10 +1424,13 @@ def pregel_kernel_phases(K, dev, graph):
 
 
 def topk_phase(dev):
-    """B7, the top path's per-shard pre-top (executor._device_topk: K5 on
-    the order-reversed key, K2 by validity, keep n rows), at 8 x 8,388,608
-    bench rows, top 10 by value; against torch.sort(stable=True) per shard
-    plus a slice and the rows' gather (library), torch.topk beside it."""
+    """B7, the top path's per-shard pre-top (executor._device_topk), at 8
+    x 8,388,608 bench rows, top 10 by value (bench values i & 0xFFFF:
+    ascending runs of 65,536, 128 ties of the top value a shard): K18
+    against its plain version (bit-equal), timed beside torch.topk
+    (library) and the composites it replaced: torch.sort(stable=True) +
+    slice + gather, and the K5 + K2 route (PR 10 run 20's time kept)."""
+    from dpark_tpu_torch.backend.cuda import kernels as K
     from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
     from dpark_tpu_torch.backend.cuda.layout import Batch
     keys, vals = (torch.from_numpy(c.reshape(N_SHARDS, CAP)).to(dev)
@@ -1388,27 +1439,61 @@ def topk_phase(dev):
     ex, top = TorchExecutor(N_SHARDS, dev), 10
     batch = Batch(None, [keys, vals], n)
 
+    def k18():
+        return K.topk_select([vals], n, top, True, [keys, vals])
+
     def composed():
-        return ex._device_topk(None, batch, ("leaves", [1]), top, False)
+        # the K5 + K2 route of _device_topk, which K18 replaced
+        from dpark_tpu_torch.backend.cuda import collectives
+        inval = (~collectives.valid_rows(n, CAP)).to(torch.int32)
+        packed = collectives._partition_through(
+            inval, 2, [keys, vals], collectives._lex_order([-1 - vals]))
+        return [leaf[:, :top] for leaf in packed[1:-1]]
 
     def library():
         o = torch.sort(-1 - vals, dim=1, stable=True).indices[:, :top]
         return torch.gather(keys, 1, o), torch.gather(vals, 1, o)
-    got, want = composed(), library()
-    err = max_err([("B7 keys", got.cols[0], want[0]),
-                   ("B7 vals", got.cols[1], want[1])])
+    got, got_n = k18()
+    want, want_n = K.topk_select_plain([vals], n, top, True, [keys, vals])
+    lib = library()
+    old = ex._device_topk(None, batch, ("leaves", [1]), top, False)
+    err = max_err([("K18 keys", got[0], want[0]),
+                   ("K18 vals", got[1], want[1]),
+                   ("K18 counts", got_n, want_n),
+                   ("K18 keys vs sort", got[0], lib[0]),
+                   ("K18 vals vs sort", got[1], lib[1]),
+                   ("K18 via _device_topk", old.cols[0], got[0])])
+    split = launch_split(k18)
     rec = {
-        # a composition of two kernels has no plain version of its own
-        "max_abs_err": err, "ms": timed(composed), "plain_ms": None,
+        "max_abs_err": err, "ms": timed(k18),
+        "plain_ms": timed(lambda: K.topk_select_plain(
+            [vals], n, top, True, [keys, vals]), reps=3),
         # the order key read once, the kept rows written once
         "bound_ms": bound_ms(nbytes(vals, n) + N_SHARDS * top * 16),
-        "library_ms": timed(library),
-        "notes": {"topk_ms": "%.4f" % timed(
-            lambda: torch.topk(vals, top, dim=1))},
+        "library_ms": timed(lambda: torch.topk(vals, top, dim=1)),
+        "notes": {"sort_composite_ms": "%.4f" % timed(library),
+                  "k5_k2_ms": "%.4f" % timed(composed),
+                  "pr10_k5_k2_ms": TOPK_PR10_MS,
+                  "library": "torch.topk", "device_ms": split},
     }
-    print_phase("top-n composed of K5 + K2", rec)
-    del keys, vals, batch, got, want
+    print_phase("topk_select (K18), top 10 of bench values", rec)
+    # random int64 keys: the threshold's easy case, beside torch.topk
+    rnd = torch.from_numpy(np.random.default_rng(20261028).integers(
+        INT64_MIN, INT64_MAX, (N_SHARDS, CAP), dtype=np.int64)).to(dev)
+    got, _ = K.topk_select([rnd], n, top, True, [rnd])
+    want = torch.topk(rnd, top, dim=1).values
+    if not torch.equal(got[0], want):
+        fail("K18 top 10 of random int64 differs from torch.topk")
+    print_phase("topk_select (K18), top 10 of random int64", {
+        "max_abs_err": 0.0, "notes": {"device_ms": launch_split(
+            lambda: K.topk_select([rnd], n, top, True, [rnd]))},
+        "ms": timed(lambda: K.topk_select([rnd], n, top, True, [rnd])),
+        "plain_ms": None,
+        "bound_ms": bound_ms(nbytes(rnd, n) + N_SHARDS * top * 8),
+        "library_ms": timed(lambda: torch.topk(rnd, top, dim=1))})
+    del keys, vals, batch, got, want, lib, old, rnd
     torch.cuda.empty_cache()
+    return {"topk_select": rec}
 
 
 def pregel_path(graph, weights):
@@ -1843,15 +1928,16 @@ def no_plain_scan(what):
             what, calls["segmented_combine"]))
 
 
-def check_merge_routes(ctx, what):
-    """Every traced merge of the last job's stages lowered to K14 (the
-    stage records' merge_route), and at least one ran."""
+def check_merge_routes(ctx, what, want="K14 separable"):
+    """Every traced merge of the last job's stages lowered to K14 by the
+    route `want` (the stage records' merge_route: the smoke's merges are
+    sums, lane-separable), and at least one ran."""
     routes = [r for st in ctx.scheduler.history[-1]["stage_info"]
               for r in st.get("merge_route", {}).values()]
     print("merge routes %s: %s" % (what, routes), flush=True)
-    if not routes or any(r != "K14" for r in routes):
-        fail("%s: a traced merge did not lower to K14: %s" % (what,
-                                                             routes))
+    if not routes or any(r != want for r in routes):
+        fail("%s: a traced merge did not lower to %s: %s" % (
+            what, want, routes))
 
 
 def tuple_reduce_path(keys, vals):
@@ -1892,7 +1978,7 @@ def k14_program(merge, dtypes):
     specs = [(np.dtype(np.int64), ())] + [(np.dtype(d), ()) for d in dtypes]
     merge_fn = fuse.probe_merge(merge, (0, tuple(range(1, len(specs)))),
                                 specs, 1)
-    if merge_fn is None or merge_fn.route != "K14":
+    if merge_fn is None or merge_fn.route not in ("K14", "K14 separable"):
         fail("merge %s did not lower: %s" % (
             merge.__name__, merge_fn and merge_fn.route))
     return list(merge_fn.programs.values())[0][0]
@@ -1941,7 +2027,10 @@ def k14_case(K, label, prog, starts, n, leaves, library=True, notes=None):
            # merged leaves written once
            "bound_ms": bound_ms(rows * (1 + row_bytes) + runs * row_bytes),
            "library_ms": None,
-           "notes": dict({"runs": runs, "max_rel_err": "%.3g" % rel},
+           "notes": dict({"runs": runs, "max_rel_err": "%.3g" % rel,
+                          "route": "separable" if prog.separable_ops()
+                          else "interpreter",
+                          "pr8_ms": K14_PR8_MS[label[1]]},
                          **(notes or {}))}
     if library:
         # one PyTorch call a leaf over the same runs, given their lengths
@@ -2842,6 +2931,7 @@ def wordcount_path(path, counts, table):
     nsplits = len(ctx.textFile(path).splits)
     top = act("wordcount gpu:8 top", lambda: r.top(10, key=lambda kv: kv[1]))
     check_stages(ctx, "wordcount top")
+    check_top_route(ctx, "wordcount top")
     st = ctx.scheduler.history[-1]["stage_info"][0]
     text = st.get("text", {})
     pipe = st.get("pipeline", {})
@@ -3022,7 +3112,7 @@ WINDOW_LEN = 30.0
 WINDOW_SLIDE = 10.0
 WINDOW_BATCHES = 40
 WINDOW_ROWS = 1 << 20              # (word id, 1) pairs a shard a batch
-DECAY_BATCHES = 3                  # the decayed counter's depth cut
+DECAY_BATCHES = 2                  # the decayed counter's depth cut
 DECAY = 0.9                        # 0.9 * prev + sum(vs)
 DECAY_RTOL = 1e-12
 STREAM_T0 = 1000.0
@@ -3637,7 +3727,7 @@ def main():
         "gpu:8 sortByKey count", lambda ctx: ctx.parallelize(
             Columns(skeys, svals), 8).sortByKey(numSplits=8).count)
     del skeys, svals
-    topk_phase(dev)
+    phases.update(topk_phase(dev))
 
     t0 = time.perf_counter()
     data = tpch_data()

@@ -6,8 +6,9 @@ A stage the tensor path cannot admit runs the host object path inline,
 and its record carries the reason (`fallback_reason`); a reduce stage
 over spilled runs reads them on the host by design (`reads`, no
 reason).  A stage that merges with a traced user merge records each
-merge's route (`merge_route`: "K14", or why the merge kept the plain
-scan).  Before it runs, a join or cogroup whose inputs are
+merge's route (`merge_route`: "K14", "K14 separable", or why the merge
+kept the plain scan), and a device top-n its route (`top_route`: "K18",
+or why it kept K5 + K2).  Before it runs, a join or cogroup whose inputs are
 device-resident no-combine shuffles is computed on the device and seeds
 the partition cache (`device_precompute` in the record), so only the
 group merge runs in Python.  A text stage's record carries `source:
@@ -280,7 +281,7 @@ class GPUScheduler(DAGScheduler):
         plan.count_only = result_tasks and all(
             t.func is _count_iter for t in tasks)
         # top(k): per-shard pre-top on the device, N*k rows egested
-        plan.top_candidate = None
+        plan.top_candidate = plan.top_route = None
         if (result_tasks and all(isinstance(t.func, _TopN) for t in tasks)
                 and len({(t.func.n, id(t.func.key), t.func.smallest)
                          for t in tasks}) == 1):
@@ -331,6 +332,7 @@ class GPUScheduler(DAGScheduler):
         else:
             if plan.topk_used:
                 note["kind"] = "array+top"      # the pre-top ran
+                note["top_route"] = plan.top_route
             for task in tasks:
                 assert isinstance(task, ResultTask)
                 value = task.func(iter(result[task.partition]))

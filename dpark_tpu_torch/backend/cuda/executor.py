@@ -1472,9 +1472,11 @@ class TorchExecutor:
         return ranges
 
     def _device_topk(self, plan, batch, kspec, n, smallest):
-        """Per-shard top-n by the classified key: a stable sort by
-        (invalid flag, order key columns) keeps n rows per shard (ties
-        resolve by row order)."""
+        """Per-shard top-n by the classified key: the n best valid rows of
+        each shard by (key, row index), so ties resolve by row order.  K18
+        selects them in one read of the key; where it does not take the
+        key or n (kernels.topk_route, written to plan.top_route), a stable
+        sort by (invalid flag, order key columns) keeps n rows (K5 + K2)."""
         lv = batch.cols
         if kspec[0] == "leaves":
             kcols = [lv[i] for i in kspec[1]]
@@ -1484,6 +1486,13 @@ class TorchExecutor:
             with fuse.python_float_semantics():
                 (kcol,) = fuse.vmap(fn)(*flat)
             kcols = [kcol.reshape(nc)]
+        route = kernels.topk_route(kcols, n)
+        if plan is not None:
+            plan.top_route = route
+        if route == "K18":
+            out, new_n = kernels.topk_select(
+                kcols, batch.counts.to(torch.int32), n, not smallest, lv)
+            return layout.Batch(batch.treedef, out, new_n)
         # validity is the primary key: a real key equal to the extreme
         # must never lose to padding.  Largest-first sorts ascending on
         # the order-reversing bijections -1-k (ints) and -k (floats).

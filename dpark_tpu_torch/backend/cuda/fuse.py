@@ -1003,6 +1003,7 @@ class StagePlan:
         self.top_candidate = None
         self.reduce_monoid = None
         self.topk_used = False
+        self.top_route = None
 
 
 def _mapvalue_as_record_fn(f):

@@ -16,12 +16,16 @@ Kernels (sources under csrc/, one shared library each):
   K11 obj_emit_pack         csrc/obj_emit_pack.cu
   K12 join_ranges           csrc/join_expand.cu (with join_expand)
   K13 rid_fold              csrc/rid_fold.cu
-  K14 segmented_merge       csrc/segmented_merge.cu (a traced merge's
-                            register program, merge_program.py)
+  K14 segmented_merge       csrc/segmented_merge.cu and
+                            segmented_merge_wide.cu (up to 6 and up to 16
+                            slots: two libraries that build in parallel,
+                            one device code, segmented_merge.cuh; a traced
+                            merge's register program, merge_program.py)
   K15 column_ranges         csrc/column_ranges.cu
   K16 union_concat          csrc/union_concat.cu
   K17 monoid_reduce         csrc/monoid_reduce.cu (with
                             distinct_key_counts)
+  K18 topk_select           csrc/topk_select.cu
 
 K8's library also holds bucket_gather_state, the state mode's gather of
 the segmented apply (updateStateByKey's update(values, prev)).
@@ -66,14 +70,17 @@ SOURCES = {
     "join_expand": "join_expand.cu",
     "rid_fold": "rid_fold.cu",
     "segmented_merge": "segmented_merge.cu",
+    "segmented_merge_wide": "segmented_merge_wide.cu",
     "column_ranges": "column_ranges.cu",
     "union_concat": "union_concat.cu",
     "monoid_reduce": "monoid_reduce.cu",
+    "topk_select": "topk_select.cu",
 }
 # launch counters: one per entry point (K8's library holds three, K12's
-# and K17's two)
+# and K17's two; K14's two libraries count as one)
 LAUNCHES = {name: 0 for name in SOURCES
-            if name not in ("bucket_groups", "join_expand")}
+            if name not in ("bucket_groups", "join_expand",
+                            "segmented_merge_wide")}
 LAUNCHES.update(bucket_gather=0, bucket_scatter=0, bucket_gather_state=0,
                 join_ranges=0, join_expand=0, distinct_key_counts=0)
 SIZE_CLASSES = 32
@@ -221,6 +228,10 @@ def _bind(name, lib):
         distinct.argtypes = [_P, _P, _I, _P, _I, _L, _P, _P]
         distinct.restype = ctypes.c_int
         return fn, distinct
+    elif name == "topk_select":
+        fn = lib.dpk_topk_select
+        fn.argtypes = [_P, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P,
+                       _P, _P, _P, _I, _P]
     elif name == "union_concat":
         fn = lib.dpk_union_concat
         fn.argtypes = [_P, _I, _L, _P, _P, _P, _I, _I, ctypes.c_uint64, _P]
@@ -245,9 +256,10 @@ def _bind(name, lib):
     elif name == "column_ranges":
         fn = lib.dpk_column_ranges
         fn.argtypes = [_P, _P, _I, _P, _I, _L, _P, _P]
-    elif name == "segmented_merge":
-        fn = lib.dpk_segmented_merge
-        fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _L, _P, _L, _P]
+    elif name in ("segmented_merge", "segmented_merge_wide"):
+        fn = getattr(lib, "dpk_" + name)
+        fn.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _L, _P,
+                       _L, _P]
     elif name == "join_expand":
         ranges = lib.dpk_join_ranges
         ranges.argtypes = [_P, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P,
@@ -1644,7 +1656,8 @@ def rid_fold(rid, n, n_dst):
 # ---------------------------------------------------------------------
 # K14 segmented_merge
 # ---------------------------------------------------------------------
-K14_ROWS_PER_THREAD = 8       # K14_C of csrc/segmented_merge.cu
+K14_TILE = 8192               # K14_TILE of csrc/segmented_merge.cuh
+K14_NARROW_SLOTS = 6          # the slots libsegmented_merge takes
 _K14_TYPES = {torch.int64: 0, torch.int32: 1, torch.float64: 2,
               torch.float32: 3, torch.bool: 4}
 
@@ -1685,13 +1698,11 @@ def segmented_merge_plain(starts, n, leaves, program):
 
 
 def _k14_scratch_bytes(N, cap, S):
-    """dpk_segmented_merge_scratch: each level above the first holds its
-    (N, cap_l, S) int64 slots and (N, cap_l) flags (8-byte aligned)."""
-    total, c = 0, cap
-    while c > K14_ROWS_PER_THREAD:
-        c = -(-c // K14_ROWS_PER_THREAD)
-        total += N * c * S * 8 + -(-N * c // 8) * 8
-    return total
+    """dpk_segmented_merge_scratch: each tile of K14_TILE rows holds 2S + 1
+    int64 words (its last run's fold, its head run's fold and end row) and
+    a flag byte (8-byte aligned)."""
+    nt = N * -(-cap // K14_TILE)
+    return nt * (2 * S + 1) * 8 + -(-nt // 8) * 8
 
 
 def segmented_merge(starts, n, leaves, program):
@@ -1699,7 +1710,11 @@ def segmented_merge(starts, n, leaves, program):
     a start; the first n[s] rows of shard s valid) and the value leaves
     (N, cap, ...) that `program` (merge_program.Program) was lowered for,
     each run's last valid row of the returned leaves holds the run's
-    values merged left to right in row order, in the leaf's dtype.  Other
+    values merged left to right in row order, in the leaf's dtype (the
+    association fixed by the tiling: the same bits every run).  A
+    lane-separable program (Program.separable_ops) folds each slot with
+    its op; any other runs the interpreter, its registers in shared
+    memory.  Other
     rows are unspecified (the plain version fills them with the running
     merge).  Returns the merged leaves."""
     leaves = list(leaves)
@@ -1713,7 +1728,6 @@ def segmented_merge(starts, n, leaves, program):
           "the leaves are not those the program was lowered for")
     if not _on_cuda([starts, n] + leaves):
         return segmented_merge_plain(starts, n, leaves, program)
-    fn = _kernel("segmented_merge")
     dev = starts.device
     outs = [torch.empty_like(v) for v in leaves]
     if cap == 0:
@@ -1727,12 +1741,18 @@ def segmented_merge(starts, n, leaves, program):
             types.append(_K14_TYPES[v.dtype])
             strides.append(w)
     S = len(ins)
+    fn = _kernel("segmented_merge" if S <= K14_NARROW_SLOTS
+                 else "segmented_merge_wide")
+    sep = program.separable_ops()
     nbytes = _k14_scratch_bytes(N, cap, S)
     scratch = torch.empty((max(8, nbytes),), dtype=torch.uint8, device=dev)
     rc = fn((ctypes.c_void_p * S)(*ins), (ctypes.c_void_p * S)(*ptrs),
             (ctypes.c_int * S)(*types), (ctypes.c_int64 * S)(*strides), S,
-            program.device_words(dev).data_ptr(), starts.data_ptr(),
-            n.data_ptr(), N, cap, scratch.data_ptr(), nbytes, _stream())
+            program.device_words(dev).data_ptr(), program.nregs,
+            None if sep is None else (ctypes.c_int * (2 * S))(
+                *[x for op in sep for x in op]),
+            starts.data_ptr(), n.data_ptr(), N, cap,
+            scratch.data_ptr(), nbytes, _stream())
     _check("segmented_merge", rc)
     return outs
 
@@ -2025,3 +2045,141 @@ def distinct_key_counts(key_cols, n):
             out.data_ptr(), _stream())
     _check("distinct_key_counts", rc)
     return out
+
+
+# ---------------------------------------------------------------------
+# K18 topk_select
+# ---------------------------------------------------------------------
+K18_TILE = 131_072            # K18_TILE of csrc/topk_select.cu
+K18_MAX_N = 1024
+K18_MAX_KEYS = 2
+_K18_NONE = 2 ** 31 - 1       # the row of an empty candidate
+_I64_MAX = 2 ** 63 - 1
+
+
+def topk_route(key_cols, n):
+    """"K18" when topk_select takes these key columns and n, else why the
+    top-n keeps K5 + K2 (decided before any launch)."""
+    if n > K18_MAX_N:
+        return "n %d above K18's %d" % (n, K18_MAX_N)
+    if len(key_cols) > K18_MAX_KEYS:
+        return "%d key columns above K18's %d" % (len(key_cols),
+                                                   K18_MAX_KEYS)
+    bad = [c.dtype for c in key_cols if c.dtype not in _RADIX_KINDS]
+    if bad:
+        return "key dtype %s outside K18's" % bad[0]
+    return "K18"
+
+
+def topk_image(col, largest):
+    """K18's image of a key column (int64 bit patterns of the unsigned
+    image): radix_key_image's, every bit inverted for largest-first but a
+    NaN's, so that NaN stays last both ways."""
+    img, _ = radix_key_image(col)
+    if not largest:
+        return img
+    if col.is_floating_point():
+        return torch.where(torch.isnan(col), img, ~img)
+    return ~img
+
+
+def _lex_first(cols, m):
+    """The first m of (..., L) rows by the lexicographic order of `cols`
+    (int64 columns compared signed, the last one a row index that breaks
+    every tie): stable sorts, last column first.  Returns the columns
+    gathered, each (..., m)."""
+    order = None
+    for c in reversed(cols):
+        c = c if order is None else torch.gather(c, -1, order)
+        o = torch.sort(c, dim=-1, stable=True).indices
+        order = o if order is None else torch.gather(order, -1, o)
+    order = order[..., :m]
+    return [torch.gather(c, -1, order) for c in cols]
+
+
+def topk_select_plain(key_cols, counts, n, largest, leaves, tile=K18_TILE):
+    """K18's arithmetic in torch: the images (topk_image, compared as
+    unsigned: flipped to signed order here), each tile's n best (image,
+    row) over its valid rows padded with (all ones, _K18_NONE), then each
+    shard's n best over its tiles' candidates, and the gather.  `tile`:
+    the rows of a tile (K18's; the result is the same for any)."""
+    N, cap = key_cols[0].shape
+    keep = min(n, cap)
+    dev = key_cols[0].device
+    tiles = max(1, -(-cap // tile))
+    span = tiles * tile
+    rows = torch.arange(span, device=dev).expand(N, span)
+    valid = rows < counts.long()[:, None]
+    keys = [topk_image(c, largest) ^ _I64_MIN for c in key_cols]
+    if len(keys) == 1:
+        keys.append(torch.full_like(keys[0], _I64_MIN))
+
+    def tiled(c, fill):
+        out = torch.full((N, span), fill, dtype=torch.int64, device=dev)
+        out[:, :cap] = c
+        return torch.where(valid, out, torch.full_like(out, fill))
+    cols = [tiled(k, _I64_MAX).view(N, tiles, tile) for k in keys]
+    cols.append(torch.where(valid, rows, torch.full_like(rows, _K18_NONE))
+                .reshape(N, tiles, tile))
+    cand = [c.reshape(N, tiles * keep) for c in _lex_first(cols, keep)]
+    sel = _lex_first(cand, keep)[-1]
+    m = torch.clamp(counts.long(), max=keep)
+    live = torch.arange(keep, device=dev)[None, :] < m[:, None]
+    sel = torch.where(live, sel, torch.zeros_like(sel))
+    out = []
+    for leaf in leaves:
+        got = shard_rows(leaf, sel)
+        mask = live.view(live.shape + (1,) * (leaf.dim() - 2))
+        out.append(torch.where(mask, got, torch.zeros_like(got)))
+    return out, torch.clamp(counts, max=n).to(torch.int32)
+
+
+def topk_select(key_cols, counts, n, largest, leaves):
+    """K18: each shard's min(n, count) best valid rows of every leaf, best
+    first, with the new counts min(count, n).  Order: the key columns'
+    images (K5's: -0.0 ties +0.0, NaN last), lexicographic, inverted for
+    `largest` but NaN (still last), ties by row index: bit for bit the
+    rows an ascending stable sort by (invalid flag, the key or its order
+    reversal -1-k / -k) puts first.  Key columns: 1 or 2 contiguous (N,
+    cap) int32 / int64 / float64 (topk_route); counts (N,) int32; n in
+    [1, K18_MAX_N].  Returns ((N, min(n, cap), ...) leaves, their rows
+    past the new count zero; counts (N,) int32)."""
+    key_cols = [c.contiguous() for c in key_cols]
+    leaves = list(leaves)
+    N, cap = key_cols[0].shape
+    _check_cols(key_cols, N, cap, "key columns")
+    _check_cols(leaves, N, cap, "leaves")
+    route = topk_route(key_cols, n)
+    _need(route == "K18", route)
+    _need(n >= 1, "n must be at least 1")
+    _need(counts.dtype == torch.int32 and counts.shape == (N,),
+          "counts must be (N,) int32")
+    _need(cap < _K18_NONE, "cap must be < 2**31 - 1")
+    if not _on_cuda(key_cols + [counts] + leaves):
+        return topk_select_plain(key_cols, counts, n, largest, leaves)
+    fn = _kernel("topk_select")
+    dev = counts.device
+    keep = min(n, cap)
+    out = [torch.empty((N, keep) + tuple(v.shape[2:]), dtype=v.dtype,
+                       device=dev) for v in leaves]
+    new_n = torch.clamp(counts, max=n).to(torch.int32)
+    if keep == 0 or N == 0:
+        return out, new_n
+    tiles = -(-cap // K18_TILE)
+    two = len(key_cols) > 1
+    cand0 = torch.empty((N, tiles, keep), dtype=torch.int64, device=dev)
+    cand1 = torch.empty_like(cand0) if two else None
+    crow = torch.empty((N, tiles, keep), dtype=torch.int32, device=dev)
+    rows = torch.empty((N, keep), dtype=torch.int32, device=dev)
+    vec = cap % 2 == 0 and all(c.data_ptr() % 16 == 0 for c in key_cols)
+    rc = fn(_ptrs(key_cols),
+            (ctypes.c_int * len(key_cols))(
+                *[_RADIX_KINDS[c.dtype] for c in key_cols]),
+            len(key_cols), counts.data_ptr(), N, cap, keep, int(largest),
+            int(vec), cand0.data_ptr(),
+            None if cand1 is None else cand1.data_ptr(), crow.data_ptr(),
+            rows.data_ptr(), _ptrs(leaves), _ptrs(out),
+            (ctypes.c_int64 * max(1, len(leaves)))(
+                *[_row_bytes(v) for v in leaves]), len(leaves), _stream())
+    _check("topk_select", rc)
+    return out, new_n

@@ -61,6 +61,9 @@ COMPARE = (EQ, NE, LT, LE, GT, GE)
 LOGICAL = (LAND, LOR, LXOR, LNOT)
 
 K14 = "K14"
+# a lane-separable program: K14 folds each slot with its op, no interpreter
+K14_SEPARABLE = "K14 separable"
+SEPARABLE = (ADD, MIN, MAX, MUL)
 
 
 class NotLowered(Exception):
@@ -141,6 +144,7 @@ class Program:
                             for _ in range(int(np.prod(shp, dtype=int)))]
         self.nslots = len(self.slot_dtypes)
         self._device_words = {}
+        self._separable = self._lane_ops()
 
     def __repr__(self):
         lines = ["Program(%d slots, %d registers)" % (self.nslots,
@@ -172,6 +176,26 @@ class Program:
             self._device_words[key] = torch.from_numpy(self.words()).to(
                 device)
         return self._device_words[key]
+
+    def separable_ops(self):
+        """[(op, dtype code)] per slot when the program is lane-separable:
+        no constants, and every merged slot j is one instruction op(a_j,
+        b_j) in the slot's own dtype, op in SEPARABLE (K14 then folds each
+        slot with its op, without the interpreter); else None."""
+        return self._separable
+
+    def _lane_ops(self):
+        S = self.nslots
+        if self.consts or len(self.code) != S or len(set(self.out)) != S:
+            return None
+        by_dst = {ins[2]: ins for ins in self.code}
+        ops = []
+        for j, (reg, dt) in enumerate(zip(self.out, self.slot_dtypes)):
+            op, code, _, a, b, _ = by_dst.get(reg, (None,) * 6)
+            if op not in SEPARABLE or code != CODE[dt] or (a, b) != (j, S + j):
+                return None
+            ops.append((op, code))
+        return ops
 
     # ---- the torch evaluator (the plain version's merge) -------------
     def eval_slots(self, a, b):
@@ -643,7 +667,8 @@ def signature(leaves):
 def program_for(merge_leaves, sig):
     """The Program of `merge_leaves` at a leaf signature, lowered once and
     memoised on the function (`programs`: signature -> (Program, reason));
-    the first lowering sets `route` ("K14" or the reason)."""
+    the first lowering sets `route` (K14_SEPARABLE for a lane-separable
+    program, K14 for another, or the reason)."""
     if inspect.ismethod(merge_leaves) or not isinstance(
             getattr(merge_leaves, "__dict__", None), dict):
         raise TypeError("%r holds no programs: wrap it with "
@@ -653,7 +678,9 @@ def program_for(merge_leaves, sig):
         memo[sig] = lower(merge_leaves, sig)
         if getattr(merge_leaves, "route", None) is None:
             prog, reason = memo[sig]
-            merge_leaves.route = K14 if prog is not None else reason
+            merge_leaves.route = (
+                reason if prog is None else K14 if prog.separable_ops()
+                is None else K14_SEPARABLE)
     return memo[sig][0]
 
 

@@ -111,10 +111,15 @@ def _same(got, want):
         assert torch.equal(got, want)
 
 
+# the merges whose every slot is op(a_j, b_j), op in add/min/max/mul
+SEPARABLE_MERGES = {"min max", "nested", "q1", "tuple add"}
+
+
 @pytest.mark.parametrize("name", sorted(MERGES))
 def test_program_equals_vmapped_merge(name):
     merge_fn, specs = _probe(name)
-    assert merge_fn.route == mp.K14
+    assert merge_fn.route == (mp.K14_SEPARABLE if name in SEPARABLE_MERGES
+                              else mp.K14)
     sig = tuple((fuse.layout.torch_dtype(dt), shp) for dt, shp in specs)
     prog, reason = merge_fn.programs[sig]
     assert reason is None and prog.nslots == sum(
@@ -239,7 +244,7 @@ def test_route_is_memoised_per_signature():
     narrow = ((torch.int32, ()), (torch.int32, ()))
     assert mp.program_for(merge_fn, narrow) is not prog
     assert set(merge_fn.programs) == {sig, narrow}
-    assert merge_fn.route == mp.K14
+    assert merge_fn.route == mp.K14_SEPARABLE
     with pytest.raises(TypeError):
         mp.program_for(merge_fn.__call__, sig)
 
@@ -256,3 +261,22 @@ def test_words_layout():
     for reg, code, v in prog.consts:
         assert bits[reg] == mp._const_bits(v, code)
     assert list(w[-S:]) == prog.out
+
+
+@pytest.mark.parametrize("name", sorted(MERGES))
+def test_separable_ops_name_each_slots_op(name):
+    """separable_ops: (op, dtype code) per slot exactly when every merged
+    slot is one add/min/max/mul of a's and b's same slot in its dtype."""
+    merge_fn, specs = _probe(name)
+    prog = list(merge_fn.programs.values())[0][0]
+    ops = prog.separable_ops()
+    assert (ops is not None) == (name in SEPARABLE_MERGES)
+    if ops is not None:
+        S = prog.nslots
+        assert len(ops) == S and not prog.consts
+        by_dst = {ins[2]: ins for ins in prog.code}
+        for j, (op, code) in enumerate(ops):
+            ins = by_dst[prog.out[j]]
+            assert ins[:2] == (op, code) and ins[3:5] == (j, S + j)
+            assert op in mp.SEPARABLE
+            assert code == mp.CODE[prog.slot_dtypes[j]]

@@ -41,6 +41,15 @@ CASES = {
                             a[2] + b[2]), (1, 2, 3), [I32, B, F64],
               lambda va, vb, jnp: [jnp.minimum(va[0], vb[0]),
                                    va[1] | vb[1], va[2] + vb[2]]),
+    # more slots than K14's narrow library takes (6): the wide one's
+    "sum8": (lambda a, b: tuple(x + y for x, y in zip(a, b)),
+             tuple(range(1, 9)), [I64] * 7 + [F64],
+             lambda va, vb, jnp: [x + y for x, y in zip(va, vb)]),
+    "argmax7": (lambda a, b: tuple(torch.where(a[0] >= b[0], x, y)
+                                   for x, y in zip(a, b)),
+                tuple(range(1, 8)), [F64] + [I64] * 6,
+                lambda va, vb, jnp: [jnp.where(va[0] >= vb[0], x, y)
+                                     for x, y in zip(va, vb)]),
 }
 
 
@@ -53,11 +62,16 @@ def jax_ref():
     return jax, jnp, ref
 
 
+# the cases whose every slot is op(a_j, b_j): K14's separable route
+SEPARABLE = {"pair", "q1", "sum8"}
+
+
 def _program(name):
     merge, vdef, dts, _ = CASES[name]
     specs = [(np.dtype(I64), ())] + [(np.dtype(d), ()) for d in dts]
     merge_fn = fuse.probe_merge(merge, (0, vdef), specs, 1)
-    assert merge_fn.route == mp.K14
+    assert merge_fn.route == (mp.K14_SEPARABLE if name in SEPARABLE
+                              else mp.K14)
     return list(merge_fn.programs.values())[0][0]
 
 
@@ -164,18 +178,35 @@ def test_wrapper_checks_the_leaves_against_the_program():
 
 
 def test_scratch_levels():
-    """The wrapper's scratch size mirrors dpk_segmented_merge_scratch:
-    one (N, cap_l, S) int64 block and (N, cap_l) flags (8-byte aligned)
-    for each level above the first, cap_l = ceil(cap_(l-1) / 8), until a
-    level fits one chunk of 8 rows."""
-    assert kernels._k14_scratch_bytes(8, 8, 2) == 0
-    assert kernels._k14_scratch_bytes(8, 9, 2) == 8 * 2 * 2 * 8 + 16
-    cap, N, S = 8_388_608, 8, 2
-    want, c = 0, cap
-    while c > 8:
-        c = -(-c // 8)
-        want += N * c * S * 8 + -(-N * c // 8) * 8
-    assert kernels._k14_scratch_bytes(N, cap, S) == want
+    """The wrapper's scratch size mirrors dpk_segmented_merge_scratch: for
+    each tile of K14_TILE rows (a warp's), 2S + 1 int64 words (its last
+    run's fold, its head run's fold and end row) and a flag byte, 8-byte
+    aligned: one level above the rows, not one every factor of 8."""
+    T = kernels.K14_TILE
+    assert kernels._k14_scratch_bytes(8, 1, 2) == 8 * 5 * 8 + 8
+    assert kernels._k14_scratch_bytes(8, T, 2) == 8 * 5 * 8 + 8
+    assert kernels._k14_scratch_bytes(8, T + 1, 2) == 16 * 5 * 8 + 16
+    cap, N, S = 8_388_608, 8, 6
+    nt = N * (cap // T)
+    assert kernels._k14_scratch_bytes(N, cap, S) == nt * 13 * 8 + nt
+
+
+@pytest.mark.parametrize("name,separable", [("pair", True), ("q1", True),
+                                            ("sum8", True),
+                                            ("argmax", False),
+                                            ("mixed", False),
+                                            ("argmax7", False)])
+def test_routes_of_the_cases(name, separable):
+    """A lane-separable program (the pair, Q1 and 8-leaf sums) takes K14's
+    separable route; argmax (a where over a compare), the mixed merge (a
+    bool or) and the 7-leaf argmax run the interpreter, whose register
+    file (the program's own register count, at least 2S) sizes the
+    kernel's shared memory.  Past 6 slots the wide library runs."""
+    prog = _program(name)
+    assert (prog.separable_ops() is not None) == separable
+    assert prog.nregs >= 2 * prog.nslots
+    assert (prog.nslots > kernels.K14_NARROW_SLOTS) == (
+        name in ("sum8", "argmax7"))
 
 
 @pytest.mark.cuda
@@ -183,7 +214,9 @@ def test_kernel_matches_plain_on_card():
     """K14 launched on the card equals its plain version at every run's
     last valid row (one launch a call): integers and bools bit for bit,
     floats within 1e-12 relative; one run over a whole shard, an empty
-    shard, cap = 1, runs that cross many chunks and levels."""
+    shard, cap = 1, runs that cross many threads' chunks and tiles.  Both
+    routes: the pair and Q1 sums are lane-separable, argmax and the mixed
+    merge run the interpreter; a second call gives identical bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     dev = torch.device("cuda")
@@ -210,3 +243,9 @@ def test_kernel_matches_plain_on_card():
             mask = _run_last(starts, n)
             _check([g.cpu().numpy() for g in got],
                    [w.numpy() for w in want], mask, dts)
+            again = kernels.segmented_merge(
+                args[0].to(dev), args[1].to(dev),
+                [v.to(dev) for v in args[2]], prog)
+            m = torch.from_numpy(mask).to(dev)
+            for g, a in zip(got, again):
+                assert torch.equal(g[m], a[m])

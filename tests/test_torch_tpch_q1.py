@@ -6,7 +6,7 @@ scan) against the JAX package's tpu:4 and local masters and numpy: the
 integer columns exact, the float ones (the averages, sum_disc's mean)
 within 1e-12 relative.  The stage records say every traced merge ran its
 K14 program (`merge_route`): Q1's, a tuple reduceByKey's and a spilled
-tuple merge's."""
+tuple merge's, each lane-separable ("K14 separable": every slot a sum)."""
 
 import importlib.util
 import os
@@ -63,7 +63,8 @@ def test_q1_on_gpu_matches_tpu_local_and_numpy(smoke, data):
     got = _job(smoke, ctx, Columns, data, 4).collect()
     stages = ctx.scheduler.history[-1]["stage_info"]
     assert all(st["kind"].startswith("array") for st in stages), stages
-    assert _routes(ctx) == [{"write": "K14"}, {"read": "K14"}]
+    assert _routes(ctx) == [{"write": "K14 separable"},
+                            {"read": "K14 separable"}]
     ctx.stop()
     # four groups, N-O about half the lines
     assert sorted(dict(got)) == [(65, 70), (78, 70), (78, 79), (82, 70)]
@@ -114,7 +115,8 @@ def test_tuple_merges_route_through_k14(smoke):
         lambda kv: (kv[0], (kv[1], 1)))
     got = dict(src.reduceByKey(smoke._pair_sum, 4).collect())
     assert got == want
-    assert _routes(ctx) == [{"write": "K14"}, {"read": "K14"}]
+    assert _routes(ctx) == [{"write": "K14 separable"},
+                            {"read": "K14 separable"}]
     old = conf.STREAM_CHUNK_ROWS
     conf.STREAM_CHUNK_ROWS = 500
     try:
@@ -125,7 +127,7 @@ def test_tuple_merges_route_through_k14(smoke):
     ctx.stop()
     assert got == want
     assert stages[0]["stream"] == "host_runs"
-    assert stages[0]["merge_route"] == {"write": "K14"}
+    assert stages[0]["merge_route"] == {"write": "K14 separable"}
     assert stages[1].get("reads") == "host_runs"
     assert "fallback_reason" not in stages[0]
     assert len(stages) == 2
