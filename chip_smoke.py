@@ -10,7 +10,13 @@ NVIDIA GPU.
 2. holds each kernel (K1-K14) against its plain PyTorch version on the
    card, at the main paths' shapes (8 shards of 8,388,608 rows; K12 at
    the join path's), and times kernel, plain version, bound and library
-   call; times the plain segmented scan of a vmapped merge at the main
+   call (K2 at the four shapes its callers give it: (a) the map side's
+   destination pass, (b) SortOp's validity partition, (c) compact, (d)
+   bucket_members, each with its per-launch split, and through src_idx
+   the sector bound and torch.gather's time for the same reads; K7 on
+   bench and power-law keys, torch.unique_consecutive beside both; the
+   earlier kernels' times printed beside); times the plain segmented scan
+   of a vmapped merge at the main
    shape; holds K17 (B9's masked monoid reductions) against its plain
    version at 8 x 8,388,608 rows (bench values: int64 add, min, max;
    float64 and float32 adds; a bool count; ragged shards with an empty
@@ -37,8 +43,8 @@ NVIDIA GPU.
    partitionBy / groupByKey /
    distinct counts over bench.py's data, checked against numpy (the
    groupByKey count through K17's distinct keys); then the evict path:
-   four partitionBy(8) counts of 32Mi bench pairs each (a 0.5 GiB store
-   each) under a pinned 1 GiB shuffle budget, the device-resident bytes
+   four partitionBy(8) counts of 16Mi bench pairs each (a 0.25 GiB store
+   each) under a pinned 0.5 GiB shuffle budget, the device-resident bytes
    at or under it after each job, each spill's ms and GB/s, the spilled
    stores' memory freed, and the first (spilled) shuffle's collect,
    read from its host runs, exactly numpy's rows;
@@ -58,8 +64,8 @@ NVIDIA GPU.
    weights, checked exactly against scipy's Dijkstra), after holding K9
    and K10 against their plain versions on that graph;
 7. drives the object Bagel on gpu:8 through Bagel.run over a GAP urand
-   graph at scale 20, edge factor 16 (1,048,576 Vertex objects,
-   16,777,216 Edge objects, both endpoints uniform): PageRank with
+   graph at scale 19, edge factor 16 (524,288 Vertex objects,
+   8,388,608 Edge objects, both endpoints uniform): PageRank with
    Message(target, rank * Edge.value), 20 updates, checked against a
    numpy power iteration (rtol 1e-10), on bucketed degree classes, after
    holding K11 against its plain version on one superstep's emission
@@ -78,8 +84,8 @@ NVIDIA GPU.
    sums exactly numpy's and sum_disc within 1e-8 relative, K14 on both
    sides and no plain scan; then the reduceByKey gpu:8 count and the Q1
    collect with the host-to-device wire narrowed (conf.NARROW_EXCHANGE)
-   and not, off, on, on, off; then HiBench's wordcount at half its
-   `large` size on gpu:8: 1.6e9 bytes of text generated from a seed under
+   and not, off, on, on, off; then HiBench's wordcount at a quarter of
+   its `large` size on gpu:8: 8e8 bytes of text generated from a seed under
    build/ (2^20 lowercase words under Zipf's law, 8 a line) ->
    textFile -> flatMap(split) -> map((w, 1)) -> reduceByKey(add) ->
    top(10) by count and collect, exactly numpy's counts, through the
@@ -92,8 +98,8 @@ NVIDIA GPU.
    partitions over the 64Mi pairs in waves of 2^21 rows a shard (K1's
    rid, B12, K4, K5 + K3, spilled runs, the host fold; the tuple merge
    through K14, no plain scan); sortByKey(
-   numSplits=32) -> collect and groupByKey(8) -> count over 2^22 random
-   int64 keys in waves of 2^17 rows (K6's rid, K13, K2, K4, K5, runs,
+   numSplits=32) -> collect and groupByKey(8) -> count over 2^21 random
+   int64 keys in waves of 2^16 rows (K6's rid, K13, K2, K4, K5, runs,
    premerge, export); then the out-of-memory ladder on the emulated
    ceiling at a small size;
 10. holds K16 (the union's concatenation, B16) against its plain version
@@ -366,8 +372,9 @@ SSSP_MAX_SUPERSTEP = 400
 PR_RTOL = 1e-10                    # float64 sums in another order
 # the GAP Benchmark Suite's urand graph (Beamer, Asanovic, Patterson,
 # arXiv:1508.03619): both endpoints uniform, edge factor 16; scale 27
-# cut to 20, every vertex and edge a Python object on the driver
-URAND_SCALE = 20                   # 1,048,576 vertices
+# cut to 20 (Python objects on the driver), then to 19 for the smoke's
+# time
+URAND_SCALE = 19                   # 524,288 vertices
 URAND_EDGE_FACTOR = 16             # 16,777,216 edges
 # TPC-H (Standard Specification, section 4.2.3) at scale factor 10
 TPCH_SF = 10
@@ -386,6 +393,10 @@ K14_PR8_MS = {"a": 1.9869, "b": 1.8372, "c": 8.0821, "d": 2.1805,
 # the top path's K5 + K2 composition before K18 (PR 10 run 20, the same
 # card): top 10 of 8 x 8,388,608 bench values
 TOPK_PR10_MS = 5.4995
+# K2 at shape (a) and K7 on the bench and power-law keys before their
+# one-sweep redesigns (the same card: NVIDIA H100 80GB HBM3, 700.00 W)
+K2_OLD_MS = 4.59
+K7_OLD_MS = {"bench": 1.225, "power-law": 1.135}
 # K17's float add against its plain version: it accumulates in double in
 # another order (float32: the plain version sums in float32)
 K17_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -397,16 +408,17 @@ WAVE_PAIRS = 1 << 30
 SORT_COLLECT_PAIRS = PAIRS // 4
 SPILL_PARTS = 64                   # reduceByKey's logical partitions
 SPILL_CHUNK = 1 << 21              # rows a shard a wave: 4 waves
-SORT_SPILL_PAIRS = 1 << 22           # cut from 2^23 for the smoke's time
+SORT_SPILL_PAIRS = 1 << 21         # cut from 2^23, then 2^22, for the
+                                   # smoke's time
 SORT_SPILL_PARTS = 32
-SORT_SPILL_CHUNK = 1 << 17         # 4 waves
+SORT_SPILL_CHUNK = 1 << 16         # 4 waves
 # HiBench's WordCount `large` profile (hibench.wordcount.large.datasize):
 # 3.2e9 bytes of text.  Its generator (RandomTextWriter) draws from a fixed
 # 1,000-word list; here words come from a seeded vocabulary of 2^20
 # lowercase ASCII words under Zipf's law with exponent 1, as in natural
 # text, 8 words a line, so the result has about a million rows.  Cut to
-# half the profile's size for the smoke's time
-WORDCOUNT_BYTES = 1_600_000_000
+# half the profile's size, then to a quarter, for the smoke's time
+WORDCOUNT_BYTES = 800_000_000
 VOCAB_WORDS = 1 << 20
 WORDS_PER_LINE = 8
 CORPUS_CHUNK_LINES = 1 << 20       # lines a generator task
@@ -458,12 +470,7 @@ def max_err(pairs):
 
 def kernel_phases(K, dev):
     """K1-K4 against their plain versions at the main path's shapes."""
-    rng = np.random.default_rng(20261017)
-    keys = torch.from_numpy(rng.integers(0, KEYS, (N_SHARDS, CAP),
-                                         dtype=np.int64)).to(dev)
-    vals = torch.from_numpy(rng.integers(0, 1 << 16, (N_SHARDS, CAP),
-                                         dtype=np.int64)).to(dev)
-    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    keys, vals, n = bench_columns(dev)
     out = {}
 
     # K1: hash -> destination -> histogram
@@ -483,31 +490,13 @@ def kernel_phases(K, dev):
             flat_dst, minlength=N_SHARDS * (N_SHARDS + 1))),
     }
 
-    # K2: the destination pass of the map-side sort (rows already in key
-    # order through src_idx), gathering key and value
+    # K2 (a): the destination pass of the map-side sort (rows already in
+    # key order through src_idx), gathering key and value
     order = torch.sort(keys, dim=1, stable=True).indices
     src = order.to(torch.int32)
     bucket = torch.gather(dst, 1, order).contiguous()
-    nb = N_SHARDS + 1
-    a = K.stable_partition(bucket, nb, [keys, vals], src_idx=src)
-    b = K.stable_partition_plain(bucket, nb, [keys, vals], src_idx=src)
-    err = max_err([("K2 key", a[0][0], b[0][0]), ("K2 val", a[0][1], b[0][1]),
-                   ("K2 counts", a[1], b[1]), ("K2 bucket", a[2], b[2])])
-
-    def library_k2():
-        o = torch.sort(bucket, dim=1, stable=True).indices
-        idx = torch.gather(order, 1, o)
-        return torch.gather(keys, 1, idx), torch.gather(vals, 1, idx)
-    out["stable_partition"] = {
-        "max_abs_err": err,
-        "ms": timed(lambda: K.stable_partition(bucket, nb, [keys, vals],
-                                               src_idx=src)),
-        "plain_ms": timed(lambda: K.stable_partition_plain(
-            bucket, nb, [keys, vals], src_idx=src), reps=3),
-        "bound_ms": bound_ms(nbytes(bucket, src, keys, vals)
-                             + nbytes(*a[0], a[1], a[2])),
-        "library_ms": timed(library_k2, reps=3),
-    }
+    a, out["stable_partition"] = partition_case(
+        K, bucket, N_SHARDS + 1, [keys, vals], src, old_ms=K2_OLD_MS)
 
     # K3: merge runs of equal (dst, key) and pack, per destination counts
     sd, sk, sv = a[2], a[0][0], a[0][1]
@@ -554,7 +543,155 @@ def kernel_phases(K, dev):
         print_phase(name, rec)
     del keys, vals, order, src, bucket, a, b, x, y
     torch.cuda.empty_cache()
+    for name, args in (("stable_partition (b) sort validity",
+                        sort_validity_inputs(K, dev)),
+                       ("stable_partition (c) compact",
+                        compact_inputs(dev))):
+        _, rec = partition_case(K, *args)
+        print_phase(name, rec)
+        out[name] = rec
+        del args
+        torch.cuda.empty_cache()
     return out
+
+
+def bench_columns(dev):
+    """The K1-K4 phases' (N, CAP) random int64 keys below KEYS and values,
+    every row valid."""
+    rng = np.random.default_rng(20261017)
+    keys = torch.from_numpy(rng.integers(0, KEYS, (N_SHARDS, CAP),
+                                         dtype=np.int64)).to(dev)
+    vals = torch.from_numpy(rng.integers(0, 1 << 16, (N_SHARDS, CAP),
+                                         dtype=np.int64)).to(dev)
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    return keys, vals, n
+
+
+def destination_inputs(K, dev):
+    """K2's shape (a), as bucketize_combine_keys gives it: K1's hash
+    destination of the bench columns (nb = 9), the rows in key order
+    through src_idx, key and value gathered."""
+    keys, vals, n = bench_columns(dev)
+    dst = K.hash_dst_hist([keys], n, N_SHARDS, N_SHARDS)[0]
+    order = torch.sort(keys, dim=1, stable=True).indices
+    bucket = torch.gather(dst, 1, order).contiguous()
+    return bucket, N_SHARDS + 1, [keys, vals], order.to(torch.int32)
+
+
+def sort_validity_inputs(K, dev):
+    """K2's shape (b), as SortOp gives it: the validity bucket (nb = 2;
+    ragged shards, n[s] = CAP - 37 s) in K5's order of random int64 keys,
+    key and value gathered through that order; the sorted bucket is not
+    kept."""
+    rng = np.random.default_rng(20261031)
+    keys = torch.from_numpy(rng.integers(INT64_MIN, INT64_MAX, (
+        N_SHARDS, CAP), dtype=np.int64)).to(dev)
+    vals = torch.from_numpy(rng.integers(0, 1 << 16, (N_SHARDS, CAP),
+                                         dtype=np.int64)).to(dev)
+    n = CAP - 37 * torch.arange(N_SHARDS, device=dev)
+    inval = (torch.arange(CAP, device=dev)[None, :] >= n[:, None]).to(
+        torch.int32)
+    order = K.radix_sort(keys)
+    bucket = torch.gather(inval, 1, order.long()).contiguous()
+    return bucket, 2, [keys, vals], order, False, None
+
+
+def compact_inputs(dev):
+    """K2's shape (c), as a Pregel superstep's message pack gives it
+    (collectives.compact): a keep mask (half the rows, seeded) over an
+    int64 destination and a float64 message, no src_idx, the two counts
+    from the mask; the sorted bucket is not kept."""
+    rng = np.random.default_rng(20261032)
+    dstk = torch.from_numpy(rng.integers(0, 1 << 22, (N_SHARDS, CAP),
+                                         dtype=np.int64)).to(dev)
+    msg = torch.from_numpy(rng.standard_normal((N_SHARDS, CAP))).to(dev)
+    keep = torch.from_numpy(rng.random((N_SHARDS, CAP)) < 0.5).to(dev)
+    kept = keep.sum(1).to(torch.int32)
+    counts = torch.stack([kept, CAP - kept], 1).to(torch.int32)
+    return (~keep).to(torch.int32), 2, [dstk, msg], None, False, counts
+
+
+def members_inputs(K, table):
+    """K2's shape (d), as bucket_members gives it: the segment ids of a
+    K7 table partitioned by size class (nb = 33), one int32 leaf, the
+    counts from the table's histogram and n_seg; the sorted bucket is
+    not kept."""
+    bucket = table[2]
+    N, cap = bucket.shape
+    ids = torch.arange(cap, dtype=torch.int32, device=bucket.device) \
+        .expand(N, cap).contiguous()
+    counts = torch.cat([table[4], (cap - table[3])[:, None]], 1).to(
+        torch.int32).contiguous()
+    return bucket, K.SIZE_CLASSES + 1, [ids], None, False, counts
+
+
+def partition_bounds(bucket, nb, leaves, src=None, want_bucket=True):
+    """K2's bound_ms (the bucket, src_idx and each leaf read once, each
+    leaf, the counts and the sorted bucket when kept written once) and,
+    through src_idx, its sector bound (each leaf row read as a whole
+    32-byte sector, the card's least read from a gather), else None."""
+    N, cap = bucket.shape
+    rows = N * cap
+    fixed = nbytes(bucket) * (2 if want_bucket else 1) + N * nb * 4 + (
+        nbytes(src) if src is not None else 0)
+    row_bytes = [nbytes(leaf) // max(1, rows) for leaf in leaves]
+    bound = bound_ms(fixed + 2 * rows * sum(row_bytes))
+    if src is None:
+        return bound, None
+    return bound, bound_ms(fixed + rows * sum(
+        b + max(32, b) for b in row_bytes))
+
+
+def partition_case(K, bucket, nb, leaves, src=None, want_bucket=True,
+                   counts=None, old_ms=None):
+    """K2 at one shape against its plain version (with the caller's
+    counts where the path has them); library call: the
+    torch.sort(stable=True) + gathers composite.  Returns (the kernel's
+    outputs, the phase record).  bound_ms counts each leaf row read
+    once; through src_idx the reads are a gather: sector_bound_ms counts
+    each leaf row read as a whole 32-byte sector (the card's least read)
+    instead, and gather_ms times torch.gather of the leaves through
+    src_idx alone, the card's rate for such reads."""
+    a = K.stable_partition(bucket, nb, leaves, src_idx=src,
+                           want_bucket=want_bucket, counts=counts)
+    b = K.stable_partition_plain(bucket, nb, leaves, src_idx=src,
+                                 want_bucket=want_bucket)
+    pairs = [("K2 leaf %d" % i, x, y) for i, (x, y) in enumerate(
+        zip(a[0], b[0]))] + [("K2 counts", a[1], b[1])]
+    if want_bucket:
+        pairs.append(("K2 bucket", a[2], b[2]))
+    err = max_err(pairs)
+
+    def library():
+        o = torch.sort(bucket, dim=1, stable=True).indices
+        idx = o if src is None else torch.gather(src.long(), 1, o)
+        return [torch.gather(leaf, 1, idx) for leaf in leaves] + (
+            [torch.gather(bucket, 1, o)] if want_bucket else [])
+
+    def kernel():
+        return K.stable_partition(bucket, nb, leaves, src_idx=src,
+                                  want_bucket=want_bucket, counts=counts)
+    bound, sector = partition_bounds(bucket, nb, leaves, src, want_bucket)
+    notes = {"nb": nb, "leaves": len(leaves), "src_idx": src is not None,
+             "bucket_out": want_bucket, "callers_counts": counts is not None,
+             "split": launch_split(kernel)}
+    if sector is not None:
+        idx = src.long()
+        notes["sector_bound_ms"] = "%.4f" % sector
+        notes["gather_ms"] = "%.4f" % timed(lambda: [
+            torch.gather(leaf, 1, idx) for leaf in leaves])
+    if old_ms is not None:
+        notes["old_ms"] = old_ms
+    return a, {
+        "max_abs_err": err,
+        "ms": timed(kernel),
+        "plain_ms": timed(lambda: K.stable_partition_plain(
+            bucket, nb, leaves, src_idx=src, want_bucket=want_bucket),
+            reps=3),
+        "bound_ms": bound,
+        "library_ms": timed(library, reps=3),
+        "notes": notes,
+    }
 
 
 def print_phase(name, rec):
@@ -809,37 +946,46 @@ def sort_kernel_phases(K, dev):
     return out
 
 
-def seg_table_case(K, keys, n, library=True):
+def seg_table_bounds(keys, n, table):
+    """K7's bound_ms (keys and n read once; per segment its start row,
+    size, class and key written once, and n_seg and the histogram per
+    shard) and its padded bound (every (N, cap) slot of the outputs
+    written, the fills past n_seg included, as the contract has it)."""
+    n_seg = int(table[3].sum().item())
+    return (bound_ms(nbytes(keys, n, table[3], table[4]) + n_seg * (
+        3 * 4 + keys.element_size())),
+        bound_ms(nbytes(keys, n, *table[:5], *table[5])))
+
+
+def seg_table_case(K, keys, n, old_ms=None):
     """K7 on one (N, CAP) key-sorted column against its plain version;
     library call: torch.unique_consecutive(return_inverse=True,
-    return_counts=True) over the flattened shards (the same segments
-    where no run crosses a shard boundary and every row is valid)."""
+    return_counts=True) over the shards' valid prefixes, concatenated
+    before the timing (the same segments where no run crosses a shard
+    boundary)."""
     a = K.segment_table([keys], n)
     b = K.segment_table_plain([keys], n)
     names = ["start_rows", "sizes", "bucket", "n_seg", "hist"]
     err = max_err([("K7 " + nm, x, y) for nm, x, y in zip(names, a, b)]
                   + [("K7 keys", a[5][0], b[5][0])])
-    n_seg = int(a[3].sum().item())
-    lib = None
-    if library:
-        flat = keys.view(-1)
-        lib = timed(lambda: torch.unique_consecutive(
-            flat, return_inverse=True, return_counts=True))
+    bound, padded = seg_table_bounds(keys, n, a)
+    counts = n.tolist()
+    flat = (keys.view(-1) if all(c == keys.shape[1] for c in counts)
+            else torch.cat([keys[s, :c] for s, c in enumerate(counts)]))
+    notes = {"segments": int(a[3].sum().item()),
+             "bound_padded_ms": "%.4f" % padded,
+             "split": launch_split(lambda: K.segment_table([keys], n))}
+    if old_ms is not None:
+        notes["old_ms"] = old_ms
     return a, {
         "max_abs_err": err,
         "ms": timed(lambda: K.segment_table([keys], n)),
         "plain_ms": timed(lambda: K.segment_table_plain([keys], n),
                           reps=3),
-        # keys and n read once; per segment its start row, size, class
-        # and key written once, and n_seg and the histogram per shard
-        "bound_ms": bound_ms(nbytes(keys, n, a[3], a[4]) + n_seg * (
-            3 * 4 + keys.element_size())),
-        "library_ms": lib,
-        # the kernel also writes the fill of every padded (N, cap) slot:
-        # the bound with those writes counted
-        "notes": {"segments": n_seg,
-                  "bound_padded_ms": "%.4f" % bound_ms(nbytes(
-                      keys, n, *a[:5], a[5][0]))},
+        "bound_ms": bound,
+        "library_ms": timed(lambda: torch.unique_consecutive(
+            flat, return_inverse=True, return_counts=True)),
+        "notes": notes,
     }
 
 
@@ -919,23 +1065,43 @@ def power_law_key(gid):
     return (gid * 2654435761) % (1 << 32)
 
 
+def bench_group_keys(dev):
+    """bench.py's 65,536 keys after groupByKey(8), key-sorted: 8,192
+    groups of 1,024 rows a shard, every row valid."""
+    keys = torch.arange(KEYS, dtype=torch.int64, device=dev) \
+        .repeat_interleave(PAIRS // KEYS).view(N_SHARDS, CAP)
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    return keys, n
+
+
+def power_law_columns(K, dev):
+    """The power-law rows' keys cut into 8 key-sorted shards of
+    POWER_ROWS / 8 valid rows, the key sentinel past them; and n."""
+    gid = np.sort(power_law_key(power_law_groups()))
+    per = POWER_ROWS // N_SHARDS
+    pk = torch.full((N_SHARDS, CAP), K.KEY_SENTINEL, dtype=torch.int64,
+                    device=dev)
+    pk[:, :per] = torch.from_numpy(gid.reshape(N_SHARDS, per)).to(dev)
+    pn = torch.full((N_SHARDS,), per, dtype=torch.int32, device=dev)
+    return pk, pn
+
+
 def seg_kernel_phases(K, dev):
     """K7 and K8 against their plain versions at the grouped paths'
     shapes, 8 x 8,388,608 key-sorted rows.  K7: bench.py's 65,536 keys
     after groupByKey(8) (8,192 groups of 1,024 rows a shard), and the
     power-law rows cut into 8 key-sorted shards.  K8: the bench groups'
     class (width 1,024) in both pads, the power-law's widest class
-    (32,768) zero-padded; scatter of each group's sum."""
+    (32,768) zero-padded; scatter of each group's sum.  K2 at shape (d):
+    bucket_members over the power-law table's size classes."""
     from dpark_tpu_torch.backend.cuda import collectives as C
     out = {}
 
     def add(name, rec):
         out[name] = rec
         print_phase(name, rec)
-    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
-    keys = torch.arange(KEYS, dtype=torch.int64, device=dev) \
-        .repeat_interleave(PAIRS // KEYS).view(N_SHARDS, CAP)
-    table, rec = seg_table_case(K, keys, n)
+    keys, n = bench_group_keys(dev)
+    table, rec = seg_table_case(K, keys, n, K7_OLD_MS["bench"])
     add("segment_table", rec)
     vals = (torch.arange(PAIRS, dtype=torch.int64, device=dev)
             & 0xFFFF).view(N_SHARDS, CAP)
@@ -945,15 +1111,11 @@ def seg_kernel_phases(K, dev):
     add("bucket_gather edge", cases["edge"])
     add("bucket_scatter", cases["scatter"])
     del keys, table, cases
-    gid = np.sort(power_law_key(power_law_groups()))
-    per = POWER_ROWS // N_SHARDS
-    pk = torch.full((N_SHARDS, CAP), K.KEY_SENTINEL, dtype=torch.int64,
-                    device=dev)
-    pk[:, :per] = torch.from_numpy(gid.reshape(N_SHARDS, per)).to(dev)
-    del gid
-    pn = torch.full((N_SHARDS,), per, dtype=torch.int32, device=dev)
-    table, rec = seg_table_case(K, pk, pn, library=False)
+    pk, pn = power_law_columns(K, dev)
+    table, rec = seg_table_case(K, pk, pn, K7_OLD_MS["power-law"])
     add("segment_table power-law", rec)
+    _, rec = partition_case(K, *members_inputs(K, table))
+    add("stable_partition (d) bucket_members power-law", rec)
     widest = int(table[4].sum(0).nonzero().max().item())
     cases = seg_group_cases(K, C, table, vals, widest, ("zero",))
     add("bucket_gather power-law widest class", cases["zero"])
@@ -3504,8 +3666,11 @@ def window_path(batches):
 
 
 EVICT_JOBS = 4
-EVICT_PAIRS = PAIRS // 2           # 32Mi bench pairs a job: a 0.5 GiB store
-EVICT_BUDGET = 1 << 30
+# 16Mi bench pairs a job: a 0.25 GiB store, two under the budget (cut
+# from 32Mi and 1 GiB for the smoke's time)
+EVICT_PAIRS = PAIRS // 4
+EVICT_STORE = EVICT_PAIRS * 16
+EVICT_BUDGET = 2 * EVICT_STORE
 
 
 def evict_data(j):
@@ -3517,12 +3682,12 @@ def evict_data(j):
 
 def evict_path():
     """One budget over the shuffle stores: EVICT_JOBS partitionBy(8)
-    counts of 32Mi bench pairs each on gpu:8 under a pinned budget of 1
-    GiB (two stores).  After each job: the device-resident bytes, the
-    stores spilled (each spill's ms and GB/s) and the memory allocated;
-    the resident bytes stay at or under the budget, and the spilled
-    stores' memory is freed (allocated after the fourth job within 0.25
-    GiB of that after the second).  Then the first (spilled) shuffle's
+    counts of 16Mi bench pairs each on gpu:8 under a pinned budget of two
+    stores.  After each job: the device-resident bytes, the stores
+    spilled (each spill's ms and GB/s) and the memory allocated; the
+    resident bytes stay at or under the budget, and the spilled stores'
+    memory is freed (allocated after the fourth job within half a store
+    of that after the second).  Then the first (spilled) shuffle's
     collect, read from its host runs, equals numpy's rows exactly."""
     from dpark_tpu_torch import Columns, DparkContext, conf
     old = conf.SHUFFLE_HBM_BUDGET
@@ -3556,14 +3721,14 @@ def evict_path():
                       EVICT_BUDGET / 2 ** 30, *store_split(ex),
                       alloc[-1] / 2 ** 30), flush=True)
             rdds.append(r)
-        if alloc[3] - alloc[1] >= 2 ** 28:
+        if alloc[3] - alloc[1] >= EVICT_STORE // 2:
             fail("evict: allocated %.3f GiB after job 4, %.3f after job 2: "
                  "the spilled stores were not freed" % (
                      alloc[3] / 2 ** 30, alloc[1] / 2 ** 30))
         sid = rdds[0].prev.dep.shuffle_id
         if "host_runs" not in ex.shuffle_store[sid]:
             fail("evict: the first shuffle was not spilled")
-        # the host path builds 32Mi Python rows: the cyclic collector's
+        # the host path builds 16Mi Python rows: the cyclic collector's
         # passes over them would triple the check's time (the action's
         # time printed is with it off)
         gc.disable()

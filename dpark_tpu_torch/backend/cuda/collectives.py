@@ -106,48 +106,55 @@ def _lex_order(key_cols):
     return order
 
 
-def _partition_through(bucket, nb, leaves, order):
+def _partition_through(bucket, nb, leaves, order, want_bucket=True,
+                       counts=None):
     """K2 by a small int32 bucket column over rows in `order` (None: the
-    identity), gathering `leaves` through it.  Returns (sorted bucket,
-    *sorted leaves, counts (N, nb))."""
+    identity), gathering `leaves` through it; `counts`, the (N, nb)
+    bucket counts when the caller holds them.  Returns (sorted bucket or
+    None unless want_bucket, *sorted leaves, counts (N, nb))."""
     if order is not None:
         bucket = torch.gather(bucket, 1, order.long())
+    bucket = bucket.contiguous()
     out = []
-    counts = bsorted = None
     for i in range(0, max(1, len(leaves)), kernels.MAX_LEAVES):
-        part, counts, bsorted = kernels.stable_partition(
-            bucket.contiguous(), nb, leaves[i:i + kernels.MAX_LEAVES],
-            src_idx=order)
+        part, counts, b = kernels.stable_partition(
+            bucket, nb, leaves[i:i + kernels.MAX_LEAVES], src_idx=order,
+            want_bucket=want_bucket and i == 0, counts=counts)
+        if i == 0:
+            bsorted = b
         out.extend(part)
     return (bsorted,) + tuple(out) + (counts,)
 
 
-def _lex_sort(ops, num_keys, nb0=None):
+def _lex_sort(ops, num_keys, nb0=None, want_bucket=True, counts=None):
     """Stable lexicographic sort of each shard's rows of `ops` by its
     first num_keys operands.  K5 passes compose one permutation, key
     num_keys-1 first; every operand is gathered once.  With `nb0` the
     first key is a small int32 bucket column in [0, nb0) and the last
-    pass is K2's stable partition, which also does the gather.  Returns
-    the sorted ops (and, with nb0, the (N, nb0) bucket counts as a last
+    pass is K2's stable partition, which also does the gather (the
+    sorted bucket comes back as None unless want_bucket; `counts`, the
+    bucket's (N, nb0) counts when the caller holds them).  Returns the
+    sorted ops (and, with nb0, the (N, nb0) bucket counts as a last
     element)."""
     ops = list(ops)
     if nb0 is None:
         order = _lex_order(ops[:num_keys])
         return tuple(kernels.shard_rows(o, order) for o in ops)
     order = _lex_order(ops[1:num_keys]) if num_keys > 1 else None
-    return _partition_through(ops[0], nb0, ops[1:], order)
+    return _partition_through(ops[0], nb0, ops[1:], order, want_bucket,
+                              counts)
 
 
 def compact(leaves, mask):
     """Move rows where mask is True to the front of each shard (stable):
     a two-bucket K2 partition.  Returns (leaves, new counts)."""
-    bucket = (~mask).to(torch.int32)
-    out = []
-    for i in range(0, len(leaves), kernels.MAX_LEAVES):
-        part, _, _ = kernels.stable_partition(
-            bucket, 2, leaves[i:i + kernels.MAX_LEAVES])
-        out.extend(part)
-    return out, mask.sum(1).to(torch.int32)
+    keep = mask.sum(1).to(torch.int32)
+    if not leaves:
+        return [], keep
+    counts = torch.stack([keep, mask.shape[1] - keep], 1).to(torch.int32)
+    packed = _partition_through((~mask).to(torch.int32), 2, list(leaves),
+                                None, want_bucket=False, counts=counts)
+    return list(packed[1:-1]), keep
 
 
 def _excl_offsets(counts):
@@ -156,8 +163,11 @@ def _excl_offsets(counts):
 
 def bucketize(leaves, n, n_dst, dst, hist):
     """Sort each shard's rows by destination (padding rows, in bucket
-    n_dst, last).  Returns (sorted leaves, counts (N, n_dst), offsets)."""
-    sorted_ops = _lex_sort([dst] + list(leaves), 1, nb0=n_dst + 1)
+    n_dst, last); `hist` is dst's (N, n_dst + 1) histogram over every row
+    (K1, K6 or K13), which K2 reads in place of counting.  Returns
+    (sorted leaves, counts (N, n_dst), offsets)."""
+    sorted_ops = _lex_sort([dst] + list(leaves), 1, nb0=n_dst + 1,
+                           want_bucket=False, counts=hist.contiguous())
     counts = hist[:, :n_dst].contiguous()
     return list(sorted_ops[1:-1]), counts, _excl_offsets(counts)
 
@@ -319,18 +329,24 @@ def _segment_table(key_cols, n, want_keys=False):
                                  want_keys=want_keys)
 
 
-def bucket_members(bucket):
+def bucket_members(bucket, hist=None, n_seg=None):
     """Every size class's segment ids in segment order, at once: K2's
     stable partition of the segment ids by their class ((N, cap) int32,
-    kernels.SIZE_CLASSES past n_seg).  Returns (members (N, cap) int32,
-    counts (N, SIZE_CLASSES + 1), offsets (N, SIZE_CLASSES + 1)):
-    class b's members of shard s are members[s, offsets[s, b]:][:counts[s,
-    b]]."""
+    kernels.SIZE_CLASSES past n_seg).  With the table's class histogram
+    and n_seg (K7's), K2 takes the class counts from them instead of
+    counting.  Returns (members (N, cap) int32, counts (N, SIZE_CLASSES +
+    1), offsets (N, SIZE_CLASSES + 1)): class b's members of shard s are
+    members[s, offsets[s, b]:][:counts[s, b]]."""
     N, cap = bucket.shape
     ids = torch.arange(cap, dtype=torch.int32, device=bucket.device) \
         .expand(N, cap).contiguous()
+    counts = None
+    if hist is not None:
+        counts = torch.cat([hist, (cap - n_seg)[:, None]], 1).to(
+            torch.int32).contiguous()
     (members,), counts, _ = kernels.stable_partition(
-        bucket.contiguous(), kernels.SIZE_CLASSES + 1, [ids])
+        bucket.contiguous(), kernels.SIZE_CLASSES + 1, [ids],
+        want_bucket=False, counts=counts)
     return members, counts, _excl_offsets(counts)
 
 

@@ -75,6 +75,22 @@ __device__ __forceinline__ void store_key(char* p, int w, int64_t idx,
     ((int32_t*)p)[idx] = (int32_t)v;
 }
 
+// the status words of a one-sweep pass's look-back (K2, K5, K7), read
+// and written at the GPU's coherence point
+__device__ __forceinline__ unsigned long long ld_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_status(unsigned long long* p,
+                                          unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
 // Exclusive scan of one int per thread over the whole block (blockDim.x
 // a multiple of 32, <= 1024).  Every thread of the block must call it.
 // `sm` holds >= 32 ints; *total receives the block sum.
@@ -101,44 +117,6 @@ __device__ __forceinline__ int block_excl_scan(int x, int* sm, int* total) {
   *total = sm[nw - 1];
   __syncthreads();  // sm may be reused by the caller right after
   return before + v - x;
-}
-
-// Stable rank of this thread's row among the block's live rows of the
-// same bucket `b` (in [0, nb)) that come before it in thread order: warp
-// peers by __match_any_sync, then the counts of earlier warps from a
-// shared (warp x bucket) table.  `w_sm` holds 32 * nb ints and keeps each
-// warp's per-bucket counts on return (the block's per-bucket totals are
-// its column sums).  Every thread of the block must call it.
-__device__ __forceinline__ int block_stable_rank(bool live, int b, int nb,
-                                                 int* w_sm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = threadIdx.x; k < 32 * nb; k += blockDim.x) w_sm[k] = 0;
-  __syncthreads();
-  const unsigned act = __ballot_sync(DPK_FULL, live);
-  int rank = 0;
-  if (live) {
-    const unsigned peers = __match_any_sync(act, b);
-    rank = __popc(peers & ((1u << lane) - 1u));
-    if (lane == __ffs(peers) - 1) w_sm[warp * nb + b] = __popc(peers);
-  }
-  __syncthreads();
-  if (live)
-    for (int w = 0; w < warp; ++w) rank += w_sm[w * nb + b];
-  return rank;
-}
-
-// Add one to a shared counter per live row, with one atomic per warp when
-// the warp's live rows agree on the bucket (skewed or constant digits
-// would otherwise serialise 32 atomics on one address).  `act` is the
-// ballot of live rows; only live threads call it.
-__device__ __forceinline__ void warp_count(unsigned act, int b, int* ctr) {
-  const int leader = __ffs(act) - 1;
-  const int b0 = __shfl_sync(act, b, leader);
-  if (__all_sync(act, b == b0)) {
-    if ((int)(threadIdx.x & 31) == leader) atomicAdd(&ctr[b], __popc(act));
-  } else {
-    atomicAdd(&ctr[b], 1);
-  }
 }
 
 // Per-shard exclusive scan, in place, of rows a[s*L : (s+1)*L]; one block

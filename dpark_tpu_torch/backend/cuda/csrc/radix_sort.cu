@@ -208,22 +208,6 @@ static __global__ void k5_bases(const int32_t* hist, int ndig,
   if (threadIdx.x == 0 && values > 1) atomicOr(&active[d], 1);
 }
 
-// status words of the look-back: (tag << 32) | count, read and written
-// at the GPU's coherence point
-__device__ __forceinline__ unsigned long long ld_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_status(unsigned long long* p,
-                                          unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
-
 // shared memory of a pass: sorted images, sorted indices, per-warp digit
 // counts, per-digit tile starts and output offsets, sorted digits
 template <int THREADS, int ITEMS, int OUT>

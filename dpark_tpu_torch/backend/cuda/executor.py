@@ -1501,7 +1501,8 @@ class TorchExecutor:
         inval = (~collectives.valid_rows(batch.counts, batch.cap)).to(
             torch.int32)
         packed = collectives._partition_through(
-            inval, 2, list(lv), collectives._lex_order(kcols))
+            inval, 2, list(lv), collectives._lex_order(kcols),
+            want_bucket=False)
         keep = min(n, batch.cap)
         out = [leaf[:, :keep].contiguous() for leaf in packed[1:-1]]
         new_n = torch.clamp(batch.counts, max=n).to(torch.int32)

@@ -311,7 +311,8 @@ class SortOp:
         inval = (~collectives.valid_rows(n, leaves[0].shape[1])).to(
             torch.int32)
         packed = collectives._partition_through(
-            inval, 2, list(leaves), collectives._lex_order(keys))
+            inval, 2, list(leaves), collectives._lex_order(keys),
+            want_bucket=False)
         return list(packed[1:-1]), n
 
 
@@ -873,9 +874,10 @@ class SegMapOp:
             "the executor sets the segment table and layout (_run_seg_map)"
         nk = self.nk
         vcol = leaves[nk]
-        start_rows, sizes, bucket, n_seg, _, keys = self.table
+        start_rows, sizes, bucket, n_seg, hist, keys = self.table
         self.table = None
-        members, counts, offsets = collectives.bucket_members(bucket)
+        members, counts, offsets = collectives.bucket_members(bucket, hist,
+                                                              n_seg)
         N, cap = vcol.shape
         outs = [torch.zeros((N, cap), dtype=dt, device=vcol.device)
                 for dt in self._out_dtypes]

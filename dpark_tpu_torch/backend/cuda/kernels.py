@@ -96,7 +96,7 @@ _build_lock = threading.Lock()
 build_seconds = None
 # libraries built with `-Xptxas -v`: their registers, shared memory and
 # spills per kernel land in build_logs[name] once loaded
-VERBOSE_PTXAS = ("radix_sort",)
+VERBOSE_PTXAS = ("radix_sort", "stable_partition", "segment_table")
 build_logs = {}
 
 
@@ -186,7 +186,8 @@ def _bind(name, lib):
         fn.argtypes = [_P, _P, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P]
     elif name == "stable_partition":
         fn = lib.dpk_stable_partition
-        fn.argtypes = [_P, _P, _I, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P]
+        fn.argtypes = [_P, _P, _I, _L, _I, _P, _P, _P, _I, _P, _I, _P, _P,
+                       _P]
     elif name == "reduce_by_key_compact":
         fn = lib.dpk_reduce_by_key
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
@@ -398,20 +399,30 @@ def hash_dst_hist(key_cols, n, r, n_dst, want_hist=True, want_hash=False):
 # ---------------------------------------------------------------------
 # K2 stable_partition
 # ---------------------------------------------------------------------
-def stable_partition_plain(bucket, nb, leaves, src_idx=None):
+_K2_TILE = 4096       # K2_TILE of csrc/stable_partition.cu: the rows of a
+                      # tile, by which the look-back's status words go
+
+
+def stable_partition_plain(bucket, nb, leaves, src_idx=None,
+                           want_bucket=True, counts=None):
     order = torch.sort(bucket, dim=1, stable=True).indices
     idx = order if src_idx is None else torch.gather(src_idx.long(), 1,
                                                      order)
     out = [shard_rows(leaf, idx) for leaf in leaves]
-    return out, shard_bincount(bucket, nb), torch.gather(bucket, 1, order)
+    return out, shard_bincount(bucket, nb), (
+        torch.gather(bucket, 1, order) if want_bucket else None)
 
 
-def stable_partition(bucket, nb, leaves, src_idx=None):
+def stable_partition(bucket, nb, leaves, src_idx=None, want_bucket=True,
+                     counts=None):
     """Stable counting sort of each shard's rows by `bucket` ((N, cap)
     int32 in [0, nb), nb <= 256).  Row j of the current order reads its
     leaves from row src_idx[s, j] (identity when None), so a prior sort
-    permutation composes without its own gather.  Returns (sorted leaves,
-    counts (N, nb) int32, sorted bucket column)."""
+    permutation composes without its own gather.  `counts`, when the
+    caller already holds them (K1's histogram), are the (N, nb) int32
+    per-shard bucket counts, which the kernel then reads instead of
+    counting (the plain version counts).  Returns (sorted leaves, counts
+    (N, nb) int32, sorted bucket column, or None unless want_bucket)."""
     leaves = list(leaves)
     N, cap = bucket.shape
     _need(bucket.dtype == torch.int32 and bucket.is_contiguous(),
@@ -419,29 +430,36 @@ def stable_partition(bucket, nb, leaves, src_idx=None):
     _check_cols(leaves, N, cap, "leaves")
     _need(len(leaves) <= MAX_LEAVES, "at most %d leaves" % MAX_LEAVES)
     _need(1 <= nb <= 256, "nb must be in [1, 256]")
+    _need(cap < 2 ** 31, "row ids are int32: cap must be < 2**31")
     extra = [src_idx] if src_idx is not None else []
     if src_idx is not None:
         _need(src_idx.dtype == torch.int32 and src_idx.shape == (N, cap)
               and src_idx.is_contiguous(), "src_idx must be (N, cap) int32")
+    if counts is not None:
+        _need(counts.dtype == torch.int32 and counts.shape == (N, nb)
+              and counts.is_contiguous(), "counts must be (N, nb) int32")
+        extra.append(counts)
     if not _on_cuda([bucket] + leaves + extra):
-        return stable_partition_plain(bucket, nb, leaves, src_idx)
+        return stable_partition_plain(bucket, nb, leaves, src_idx,
+                                      want_bucket)
     fn = _kernel("stable_partition")
     dev = bucket.device
     out = [torch.empty_like(leaf) for leaf in leaves]
-    counts = torch.empty((N, nb), dtype=torch.int32, device=dev)
-    nblk = -(-cap // 1024)
-    scratch = torch.empty((N, nb, max(1, nblk)), dtype=torch.int32,
-                          device=dev)
-    bucket_out = torch.empty_like(bucket)
+    have = counts is not None
+    if not have:
+        counts = torch.zeros((N, nb), dtype=torch.int32, device=dev)
+    bucket_out = torch.empty_like(bucket) if want_bucket else None
     if cap == 0:
-        return out, torch.zeros_like(counts), bucket_out
+        return out, counts, bucket_out
+    status = torch.zeros((N * -(-cap // _K2_TILE) * nb + 1,),
+                         dtype=torch.int64, device=dev)
     rc = fn(bucket.data_ptr(),
             src_idx.data_ptr() if src_idx is not None else None, N, cap,
             int(nb), _ptrs(leaves), _ptrs(out),
             (ctypes.c_int64 * max(1, len(leaves)))(
                 *[_row_bytes(leaf) for leaf in leaves]),
-            len(leaves), counts.data_ptr(), scratch.data_ptr(),
-            bucket_out.data_ptr(), _stream())
+            len(leaves), counts.data_ptr(), int(have), status.data_ptr(),
+            bucket_out.data_ptr() if want_bucket else None, _stream())
     _check("stable_partition", rc)
     return out, counts, bucket_out
 
@@ -900,6 +918,8 @@ def range_dst_hist(key_cols, bounds, ascending, r, n_dst, n):
 # K7 segment_table
 # ---------------------------------------------------------------------
 _SEG_KINDS = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
+_K7_TILE = 8192       # K7_TILE of csrc/segment_table.cu: the rows of a
+                      # tile, by which the look-back's status words go
 
 
 def size_class(sizes):
@@ -987,8 +1007,8 @@ def segment_table(key_cols, n, want_keys=True):
     if cap == 0:
         n_seg.zero_()
         return start_rows, sizes, bucket, n_seg, hist, keys
-    blockcnt = torch.empty((N, -(-cap // 1024)), dtype=torch.int32,
-                           device=dev)
+    status = torch.zeros((N * -(-cap // _K7_TILE) + 1,), dtype=torch.int64,
+                         device=dev)
     # each fill as the bit pattern of its column's dtype
     fill_bits = [int(torch.tensor(f, dtype=c.dtype).view(
         torch.int64 if c.element_size() == 8 else torch.int32))
@@ -999,7 +1019,7 @@ def segment_table(key_cols, n, want_keys=True):
             (ctypes.c_int * nk)(*[_SEG_KINDS[c.dtype] for c in key_cols]),
             (ctypes.c_int64 * nk)(*fill_bits), nk, n.data_ptr(), N, cap,
             start_rows.data_ptr(), sizes.data_ptr(), bucket.data_ptr(),
-            n_seg.data_ptr(), hist.data_ptr(), blockcnt.data_ptr(),
+            n_seg.data_ptr(), hist.data_ptr(), status.data_ptr(),
             _stream())
     _check("segment_table", rc)
     return start_rows, sizes, bucket, n_seg, hist, keys

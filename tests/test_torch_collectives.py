@@ -325,3 +325,134 @@ def test_reduce_by_key_compact_plain_against_numpy(op):
         assert dc[s].tolist() == [sum(1 for a, _ in keys if a == j)
                                   for j in range(n_dst)]
         assert do[s].tolist() == list(np.cumsum([0] + dc[s].tolist())[:-1])
+
+
+# K2's stable partition at the one-sweep kernel's edge shapes (its tile
+# is kernels._K2_TILE = 4,096 rows): the plain version against the
+# reference's bucketize (its counting sort, _dst_order, for nb <= 17;
+# a stable argsort above) on every shard
+K2_TILE = kernels._K2_TILE
+
+
+def _partition_leaves(kind, N, cap, rng):
+    if kind == "mixed":           # bool, int64 and (N, cap, 3) float32
+        return [rng.rand(N, cap) < 0.5,
+                rng.randint(-2 ** 62, 2 ** 62, (N, cap)).astype(np.int64),
+                rng.standard_normal((N, cap, 3)).astype(np.float32)]
+    return [rng.randint(0, 100, (N, cap) if i % 2 else (N, cap, 2)).astype(
+        (np.int64, np.float64, np.int32, np.float32)[i % 4])
+        for i in range(kernels.MAX_LEAVES)]
+
+
+def _check_partition(bucket, nb, leaves, src):
+    N, cap = bucket.shape
+    out, counts, bs = kernels.stable_partition(
+        _t(bucket), nb, [_t(x) for x in leaves],
+        src_idx=None if src is None else _t(src))
+    for s in range(N):
+        cur = [x[s] if src is None else x[s][src[s]] for x in leaves]
+        ls, c, _ = ref.bucketize(jnp.zeros((cap,), jnp.int64),
+                                 [jnp.asarray(x) for x in cur], cap,
+                                 nb - 1, dst=jnp.asarray(bucket[s]))
+        for got, want in zip(out, ls):
+            assert np.array_equal(got[s].numpy(), np.asarray(want))
+        want_counts = np.bincount(bucket[s], minlength=nb)
+        assert np.array_equal(counts[s].numpy()[:nb - 1], np.asarray(c))
+        assert np.array_equal(counts[s].numpy(), want_counts)
+        order = np.asarray(ref._dst_order(jnp.asarray(bucket[s]), nb - 1)) \
+            if nb <= 17 else np.argsort(bucket[s], kind="stable")
+        assert np.array_equal(bs[s].numpy(), bucket[s][order])
+
+
+@pytest.mark.parametrize("src", [False, True])
+@pytest.mark.parametrize("cap", [0, 1, K2_TILE - 1, 3 * K2_TILE + 1])
+@pytest.mark.parametrize("nb", [1, 2, 33, 256])
+def test_stable_partition_plain_matches_reference_at_tile_edges(nb, cap,
+                                                                src):
+    N = 3
+    rng = np.random.RandomState(nb + cap % 101 + 7 * src)
+    bucket = rng.randint(0, nb, (N, cap)).astype(np.int32)
+    perm = np.stack([rng.permutation(cap) for _ in range(N)]).astype(
+        np.int32) if src else None
+    _check_partition(bucket, nb, _partition_leaves("mixed", N, cap, rng),
+                     perm)
+
+
+@pytest.mark.parametrize("case", ["one bucket nb=2", "one bucket nb=33",
+                                  "empty shard", "16 leaves",
+                                  "16 leaves src_idx"])
+def test_stable_partition_plain_special_layouts(case):
+    """Every row in one bucket; a shard with no valid row (all of its
+    rows in the padding bucket, as bucketize gives it); the 16 leaves a
+    call takes, with and without src_idx."""
+    N, cap = 3, 2 * K2_TILE + 5
+    rng = np.random.RandomState(41)
+    nb = 33 if case.endswith("33") else 9
+    if case.startswith("one bucket"):
+        nb = 2 if case.endswith("2") else 33
+        bucket = np.full((N, cap), nb - 1, np.int32)
+        bucket[1] = 0
+    else:
+        bucket = rng.randint(0, nb, (N, cap)).astype(np.int32)
+    if case == "empty shard":
+        bucket[2] = nb - 1
+    kind = "many" if case.startswith("16") else "mixed"
+    perm = np.stack([rng.permutation(cap) for _ in range(N)]).astype(
+        np.int32) if case.endswith("src_idx") else None
+    _check_partition(bucket, nb, _partition_leaves(kind, N, cap, rng), perm)
+
+
+@pytest.mark.parametrize("mask_kind", ["all", "none", "random"])
+@pytest.mark.parametrize("cap", [1, K2_TILE - 1, 3 * K2_TILE + 1])
+def test_compact_matches_reference_at_tile_edges(cap, mask_kind):
+    N = 3
+    rng = np.random.RandomState(cap % 103)
+    leaves = _partition_leaves("mixed", N, cap, rng)
+    mask = {"all": np.ones((N, cap), bool), "none": np.zeros((N, cap), bool),
+            "random": rng.rand(N, cap) < 0.3}[mask_kind]
+    got, cnt = col.compact([_t(x) for x in leaves], _t(mask))
+    for s in range(N):
+        want, wc = ref.compact([jnp.asarray(x[s]) for x in leaves],
+                               jnp.asarray(mask[s]))
+        assert int(cnt[s]) == int(wc)
+        for g, w in zip(got, want):
+            assert np.array_equal(g[s].numpy(), np.asarray(w))
+
+
+def test_bucketize_reads_the_callers_histogram():
+    """bucketize hands K1's histogram to K2 as the bucket counts (the
+    kernel then skips its own count): the same sorted rows as the
+    reference's bucketize, also where the histogram covers padding rows
+    and an empty shard."""
+    N, cap = 4, K2_TILE + 9
+    keys, vals, n = _inputs(43, N, cap, 500, nvals=1)
+    n[3] = 0
+    dst, hist, _ = kernels.hash_dst_hist([_t(keys[0])], _t(n), N, N)
+    out, counts, offs = col.bucketize([_t(keys[0]), _t(vals[0])], _t(n), N,
+                                      dst, hist)
+    for s in range(N):
+        ls, c, o = ref.bucketize(jnp.asarray(keys[0][s]),
+                                 [jnp.asarray(keys[0][s]),
+                                  jnp.asarray(vals[0][s])],
+                                 int(n[s]), N, dst=jnp.asarray(dst[s].numpy()))
+        assert np.array_equal(counts[s].numpy(), np.asarray(c))
+        assert np.array_equal(offs[s].numpy(), np.asarray(o))
+        for got, want in zip(out, ls):
+            assert np.array_equal(got[s].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("source,prefix,const", [
+    ("stable_partition.cu", "K2", "_K2_TILE"),
+    ("segment_table.cu", "K7", "_K7_TILE")])
+def test_tile_constants_match_the_sources(source, prefix, const):
+    """The wrappers size the look-back's status words by their tile
+    constant: it must be the source's THREADS x ITEMS."""
+    import os
+    import re
+    with open(os.path.join(kernels.CSRC, source)) as f:
+        text = f.read()
+
+    def define(name):
+        return int(re.search(r"(?m)^#define %s (\d+)" % name, text).group(1))
+    assert getattr(kernels, const) == define(prefix + "_THREADS") * define(
+        prefix + "_ITEMS")

@@ -295,3 +295,103 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         kernels.bucket_gather(t[0], t[1], t[0], t[3], t[3], 4, 4,
                               k, "wrap")
+
+
+# K7 at the one-sweep kernel's edge shapes (its tile is kernels._K7_TILE
+# = 4,096 rows): the plain version against the reference's segment_spans,
+# bucket_histogram and bucket_index on every shard
+K7_TILE = kernels._K7_TILE
+
+
+def _check_table(cols, n):
+    cap = cols[0].shape[1]
+    start_rows, sizes, bucket, n_seg, hist, keys = kernels.segment_table(
+        [_t(c) for c in cols], _t(n))
+    fills = kernels._seg_fills([_t(c) for c in cols])
+    for s in range(len(n)):
+        r_start, r_sizes, _, r_nseg = ref.segment_spans(
+            [jnp.asarray(c[s]) for c in cols], jnp.int32(n[s]))
+        r_hist, _ = ref.bucket_histogram([jnp.asarray(c[s]) for c in cols],
+                                         jnp.int32(n[s]))
+        r_nseg = int(r_nseg)
+        live = np.arange(cap) < r_nseg
+        assert int(n_seg[s]) == r_nseg
+        np.testing.assert_array_equal(start_rows[s].numpy(),
+                                      np.where(live, np.asarray(r_start), 0))
+        np.testing.assert_array_equal(sizes[s].numpy(), np.asarray(r_sizes))
+        np.testing.assert_array_equal(hist[s].numpy(), np.asarray(r_hist))
+        np.testing.assert_array_equal(bucket[s].numpy(), np.where(
+            live, np.asarray(ref.bucket_index(jnp.asarray(r_sizes))),
+            kernels.SIZE_CLASSES))
+        for c, kc in enumerate(keys):
+            want = np.where(live, cols[c][s][np.asarray(r_start)], fills[c])
+            got = kc[s].numpy()
+            assert got.dtype == cols[c].dtype
+            np.testing.assert_array_equal(got.view(np.uint8),
+                                          want.astype(got.dtype).view(
+                                              np.uint8))
+    return n_seg
+
+
+def _layout(name, cap, dtype=np.int64):
+    """(N=4, cap) key columns of one layout and n."""
+    rng = np.random.RandomState(cap % 97 + len(name))
+    N = 4
+    if name == "one_segment":
+        k = np.zeros((N, cap), dtype)
+        n = [cap, cap, max(0, cap - 3), 1]
+    elif name == "distinct":
+        k = np.tile(np.arange(cap, dtype=dtype), (N, 1))
+        n = [cap, cap // 2, 1, cap]
+    elif name == "n0":
+        k = np.sort(rng.randint(0, 50, (N, cap)), axis=1).astype(dtype)
+        n = [0, 0, cap, 0]
+    else:                                      # runs of 1-300 rows
+        sizes = rng.randint(1, 300, cap)
+        ids = np.repeat(np.arange(cap), sizes)[:cap]
+        k = np.tile(ids.astype(dtype), (N, 1))
+        n = [cap, cap - cap // 3, cap // 7, cap]
+    return [k], np.array(n, np.int32)
+
+
+@pytest.mark.parametrize("layout", ["one_segment", "distinct", "n0",
+                                    "runs"])
+@pytest.mark.parametrize("cap", [1, K7_TILE - 1, 3 * K7_TILE + 1])
+def test_segment_table_matches_reference_at_tile_edges(layout, cap):
+    cols, n = _layout(layout, cap)
+    n_seg = _check_table(cols, n)
+    if layout == "one_segment":
+        assert n_seg.tolist() == [1 if m else 0 for m in n]
+    if layout == "distinct":
+        assert n_seg.tolist() == n.tolist()
+
+
+def test_segment_table_nan_and_signed_zero_at_tile_edges():
+    """-0.0 equals +0.0 and every NaN is its own key also where the pair
+    straddles two threads' rows or two tiles."""
+    cap = 3 * K7_TILE + 1
+    k = np.repeat(np.arange(cap // 4 + 1, dtype=np.float64), 4)[:cap]
+    k = np.stack([k] * 3)
+    for edge in (7, 8, K7_TILE - 1, K7_TILE, 2 * K7_TILE):
+        k[0, edge - 1], k[0, edge] = -0.0, 0.0
+        k[1, edge - 1], k[1, edge] = np.nan, np.nan
+        k[2, edge - 1:edge + 2] = np.inf
+    _check_table([k], np.array([cap, cap, cap - 3], np.int32))
+
+
+def test_segment_table_four_mixed_key_columns():
+    """int32, int64, float64 and int32 columns: a segment starts wherever
+    any of them differs; column 0's fill is its dtype's max."""
+    cap = 2 * K7_TILE + 33
+    rng = np.random.RandomState(47)
+
+    def runs(mean, dtype):
+        sizes = rng.geometric(1.0 / mean, cap)
+        return np.tile((np.repeat(np.arange(cap), sizes)[:cap] * 3 - 50)
+                       .astype(dtype), (3, 1))
+    cols = [runs(40, np.int32), runs(9, np.int64), runs(300, np.float64),
+            runs(2, np.int32)]
+    cols[2][1, 100:140] = -0.0
+    cols[2][1, 120:130] = 0.0
+    cols[2][2, 50:60] = np.nan
+    _check_table(cols, np.array([cap, cap - 5, 1], np.int32))

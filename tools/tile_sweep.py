@@ -1,0 +1,155 @@
+"""Time K2 (stable_partition) or K7 (segment_table) built with other
+tile constants, each variant held against the plain version, at the
+shapes of tools/partition_profile.py.
+
+    python3 tools/tile_sweep.py k2|k7 [NAME=VALUE,NAME=VALUE ...] ...
+
+Each argument after the kernel is one variant: the `#define NAME ...`
+lines of its source (stable_partition.cu or segment_table.cu) rewritten
+with the values given (an empty variant, "", is the checkout's source).
+Every variant is built beside the others (nvcc with -Xptxas -v, all
+started together) under build/tile_sweep/, bound as kernels.py binds the
+checkout's library, and timed through the wrapper (the wrapper's tile
+constant set to the variant's THREADS x ITEMS), in the order given and
+then reversed.  Prints each variant's ptxas registers and spills and its
+ms a shape.  Needs a card.
+"""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+import chip_smoke as smoke                                  # noqa: E402
+import partition_profile as prof                            # noqa: E402
+from dpark_tpu_torch.backend.cuda import kernels as K       # noqa: E402
+
+KERNELS = {"k2": ("stable_partition", "K2", "_K2_TILE"),
+           "k7": ("segment_table", "K7", "_K7_TILE")}
+
+
+def variant_source(text, defs):
+    for name, value in defs.items():
+        text, n = re.subn(r"(?m)^#define %s\b.*$" % re.escape(name),
+                          "#define %s %s" % (name, value), text)
+        if n != 1:
+            raise SystemExit("no #define %s in the source" % name)
+    return text
+
+
+def parse(arg):
+    return dict(kv.split("=", 1) for kv in arg.split(",") if kv)
+
+
+def build(name, variants):
+    """One library a variant; returns [(label, lib path, build log)]."""
+    src = open(os.path.join(K.CSRC, K.SOURCES[name])).read()
+    out = os.path.join(ROOT, "build", "tile_sweep")
+    shutil.rmtree(out, ignore_errors=True)
+    procs = []
+    for i, defs in enumerate(variants):
+        d = os.path.join(out, "v%d" % i)
+        shutil.copytree(K.CSRC, d)
+        path = os.path.join(d, K.SOURCES[name])
+        with open(path, "w") as f:
+            f.write(variant_source(src, defs))
+        so = os.path.join(d, "lib%s.so" % name)
+        procs.append((defs, so, subprocess.Popen(
+            [K._nvcc(), "-Xptxas", "-v", "-gencode",
+             "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-I", d, "-o", so, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    built = []
+    for defs, so, p in procs:
+        log = p.communicate()[0].decode(errors="replace")
+        if p.returncode:
+            print("variant %s failed to build:\n%s" % (defs, log))
+            continue
+        built.append((defs, so, log))
+    return built
+
+
+def tile_of(name, defs, prefix):
+    """THREADS x ITEMS of a variant (the source's values where not
+    given)."""
+    src = open(os.path.join(K.CSRC, K.SOURCES[name])).read()
+
+    def value(key):
+        if key in defs:
+            return int(defs[key])
+        return int(re.search(r"(?m)^#define %s (\d+)" % key, src).group(1))
+    return value(prefix + "_THREADS") * value(prefix + "_ITEMS")
+
+
+def main():
+    if len(sys.argv) < 2 or sys.argv[1] not in KERNELS:
+        raise SystemExit(__doc__)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    kernel = sys.argv[1]
+    name, prefix, const = KERNELS[kernel]
+    variants = [parse(a) for a in sys.argv[2:]] or [{}]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    K.build()
+    built = build(name, variants)
+    print("build: %.2f s" % (time.perf_counter() - t0), flush=True)
+    libs = []
+    for defs, so, log in built:
+        label = ",".join("%s=%s" % kv for kv in defs.items()) or "checkout"
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("ptxas %s: %s" % (label, line.strip()))
+        libs.append((label, K._bind(name, ctypes.CDLL(so)),
+                     tile_of(name, defs, prefix)))
+    dev = torch.device("cuda")
+    saved = (K._libs[name], getattr(K, const))
+    cases = prof.k2_cases(dev) if kernel == "k2" else prof.k7_cases(dev)
+    try:
+        for label, args in cases:
+            if kernel == "k2":
+                bucket, nb, leaves, src, wb, cnt = args
+                want = prof.k2_outputs(K.stable_partition_plain(
+                    bucket, nb, leaves, src, want_bucket=wb), wb)
+
+                def call():
+                    return prof.k2_outputs(K.stable_partition(
+                        bucket, nb, leaves, src, want_bucket=wb,
+                        counts=cnt), wb)
+            else:
+                keys, n = args
+                want = prof.k7_outputs(K.segment_table_plain([keys], n))
+
+                def call():
+                    return prof.k7_outputs(K.segment_table([keys], n))
+            times = {}
+            for order in (libs, libs[::-1]):
+                for vlabel, fn, tile in order:
+                    K._libs[name] = fn
+                    setattr(K, const, tile)
+                    if vlabel not in times:
+                        prof.same("%s %s" % (vlabel, label), call(), want)
+                    times.setdefault(vlabel, []).append(smoke.timed(call))
+            for vlabel, _, _ in libs:
+                print("%s %s %s: ms=%s" % (kernel, label, vlabel, ",".join(
+                    "%.4f" % x for x in times[vlabel])), flush=True)
+            del args, want
+            torch.cuda.empty_cache()
+    finally:
+        K._libs[name] = saved[0]
+        setattr(K, const, saved[1])
+
+
+if __name__ == "__main__":
+    main()
