@@ -14,8 +14,12 @@ NVIDIA GPU.
    destination pass, (b) SortOp's validity partition, (c) compact, (d)
    bucket_members, each with its per-launch split, and through src_idx
    the sector bound and torch.gather's time for the same reads; K7 on
-   bench and power-law keys, torch.unique_consecutive beside both; the
-   earlier kernels' times printed beside); times the plain segmented scan
+   bench and power-law keys, torch.unique_consecutive beside both; K3 on
+   the bench (dst, key) rows with its padded bound and launch split, then
+   float64 min and max over values that hold NaN at the first, a middle
+   and the last row of runs, within a tile and across every tile, and
+   "last" over TPC-H Q1's six leaves; the earlier kernels' times printed
+   beside); times the plain segmented scan
    of a vmapped merge at the main
    shape; holds K17 (B9's masked monoid reductions) against its plain
    version at 8 x 8,388,608 rows (bench values: int64 add, min, max;
@@ -397,6 +401,11 @@ TOPK_PR10_MS = 5.4995
 # one-sweep redesigns (the same card: NVIDIA H100 80GB HBM3, 700.00 W)
 K2_OLD_MS = 4.59
 K7_OLD_MS = {"bench": 1.225, "power-law": 1.135}
+# K3 at the bench (dst, key) shape before its one-sweep redesign (the
+# same card; PERF.md section 6)
+K3_OLD_MS = 2.79
+K3_FLOAT_RTOL = 1e-12              # float sums in another association
+K3_KEY_FILL = INT64_MAX            # the key sentinel of an int64 column
 # K17's float add against its plain version: it accumulates in double in
 # another order (float32: the plain version sums in float32)
 K17_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -501,24 +510,8 @@ def kernel_phases(K, dev):
     # K3: merge runs of equal (dst, key) and pack, per destination counts
     sd, sk, sv = a[2], a[0][0], a[0][1]
     fills = [N_SHARDS, K.KEY_SENTINEL]
-    a = K.reduce_by_key_compact([sd, sk], fills, [sv], n, "add", 0,
-                                N_SHARDS)
-    b = K.reduce_by_key_compact_plain([sd, sk], fills, [sv], n, "add", 0,
-                                      N_SHARDS)
-    err = max_err([("K3 dst", a[0][0], b[0][0]), ("K3 key", a[0][1], b[0][1]),
-                   ("K3 val", a[1][0], b[1][0]), ("K3 n", a[2], b[2]),
-                   ("K3 counts", a[3], b[3]), ("K3 offsets", a[4], b[4])])
-    n_out = int(a[2].sum().item())
-    out["reduce_by_key_compact"] = {
-        "max_abs_err": err,
-        "ms": timed(lambda: K.reduce_by_key_compact(
-            [sd, sk], fills, [sv], n, "add", 0, N_SHARDS)),
-        "plain_ms": timed(lambda: K.reduce_by_key_compact_plain(
-            [sd, sk], fills, [sv], n, "add", 0, N_SHARDS), reps=3),
-        "bound_ms": bound_ms(nbytes(sd, sk, sv, n) + n_out * (4 + 8 + 8)
-                             + 2 * 4 * N_SHARDS * N_SHARDS),
-        "library_ms": None,
-    }
+    a, out["reduce_by_key_compact"] = k3_case(
+        K, [sd, sk], fills, [sv], n, "add", 0, N_SHARDS, old_ms=K3_OLD_MS)
 
     # K4: the exchange of the combined map output
     ks, vs, counts, offs = a[0][1], a[1][0], a[3], a[4]
@@ -541,7 +534,12 @@ def kernel_phases(K, dev):
     }
     for name, rec in out.items():
         print_phase(name, rec)
-    del keys, vals, order, src, bucket, a, b, x, y
+    for op in ("min", "max"):
+        _, rec = k3_case(K, *k3_nan_inputs(sd, sk, n), op, 0, N_SHARDS)
+        print_phase("reduce_by_key_compact float64 %s with NaN" % op, rec)
+    _, rec = k3_case(K, *k3_q1_inputs(dev), "last", 0, N_SHARDS)
+    print_phase("reduce_by_key_compact last, q1 6 leaves", rec)
+    del keys, vals, order, src, bucket, a, b, x, y, sd, sk, sv
     torch.cuda.empty_cache()
     for name, args in (("stable_partition (b) sort validity",
                         sort_validity_inputs(K, dev)),
@@ -692,6 +690,144 @@ def partition_case(K, bucket, nb, leaves, src=None, want_bucket=True,
         "library_ms": timed(library, reps=3),
         "notes": notes,
     }
+
+
+def k3_bounds(keys, vals, n, n_out, n_dst, op):
+    """K3's bound_ms (keys and n read once, and the values once, or for
+    "last" only the kept rows' values; the kept rows' keys and values,
+    n_unique and the counts and offsets written once) and its padded
+    bound (every slot of the (N, cap) outputs written, the key fills and
+    zero values past n_unique included, as the contract has it)."""
+    N, cap = keys[0].shape[:2]
+    krow = nbytes(*keys) // max(1, N * cap)
+    vrow = nbytes(*vals) // max(1, N * cap)
+    read = nbytes(*keys, n) + (n_out * vrow if op == "last"
+                               else nbytes(*vals))
+    fixed = read + 4 * N + 2 * 4 * N * n_dst
+    return (bound_ms(fixed + n_out * (krow + vrow)),
+            bound_ms(fixed + N * cap * (krow + vrow)))
+
+
+def k3_divergence(got, want, rtol):
+    """(max |kernel - plain| over K3's outputs, None or what differs):
+    integers must be bit-equal, NaN stand in the same slots and other
+    floats agree within rtol of max(|plain|, 1) (0: exactly, -0.0 equal
+    to 0.0; a float sum's error scales with the values summed, not their
+    total)."""
+    pairs = ([("key %d" % i, g, w) for i, (g, w) in enumerate(
+        zip(got[0], want[0]))] + [("value %d" % i, g, w) for i, (g, w) in
+                                  enumerate(zip(got[1], want[1]))]
+             + [("n_unique", got[2], want[2])])
+    if got[3] is not None:
+        pairs += [("counts", got[3], want[3]), ("offsets", got[4], want[4])]
+    err = 0.0
+    for name, a, b in pairs:
+        if not a.dtype.is_floating_point:
+            if not torch.equal(a, b):
+                return err, "%s differs at %s" % (
+                    name, (a != b).nonzero()[:5].tolist())
+            continue
+        an, bn = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(an, bn):
+            return err, "%s: NaN in %d slots, the plain version in %d" % (
+                name, int(an.sum()), int(bn.sum()))
+        d = torch.where(a == b, 0.0, (a - b).abs())[~an]
+        if d.numel():
+            bad = d > rtol * b[~an].abs().clamp_min(1.0)
+            if bool(bad.any()):
+                return err, "%s: %d slots beyond rtol %g" % (
+                    name, int(bad.sum()), rtol)
+            err = max(err, float(d.max()))
+    return err, None
+
+
+def k3_rtol(op):
+    return K3_FLOAT_RTOL if op in ("add", "mul") else 0.0
+
+
+def k3_case(K, keys, fills, vals, n, op, dst_col=None, n_dst=0,
+            old_ms=None):
+    """K3 at one shape against its plain version (k3_divergence: float
+    sums and products within K3_FLOAT_RTOL, everything else exactly).
+    Returns
+    (the kernel's outputs, the phase record: bound and padded bound,
+    the launch split, the earlier kernel's ms where given)."""
+    def kernel():
+        return K.reduce_by_key_compact(keys, fills, vals, n, op, dst_col,
+                                       n_dst)
+
+    def plain():
+        return K.reduce_by_key_compact_plain(keys, fills, vals, n, op,
+                                             dst_col, n_dst)
+    got = kernel()
+    err, bad = k3_divergence(got, plain(), k3_rtol(op))
+    if bad is not None:
+        fail("K3 %s against its plain version: %s" % (op, bad))
+    n_out = int(got[2].sum().item())
+    bound, padded = k3_bounds(keys, vals, n, n_out,
+                              n_dst if dst_col is not None else 0, op)
+    notes = {"op": op, "keys": len(keys), "leaves": len(vals),
+             "kept_rows": n_out, "padded_bound_ms": "%.4f" % padded,
+             "split": launch_split(kernel)}
+    if old_ms is not None:
+        notes["old_ms"] = old_ms
+    return got, {"max_abs_err": err, "ms": timed(kernel),
+                 "plain_ms": timed(plain, reps=3), "bound_ms": bound,
+                 "library_ms": None, "notes": notes}
+
+
+def k3_nan_inputs(sd, sk, n):
+    """K3's float shape over the bench (dst, key) runs: standard normal
+    float64 values with NaN at the first row of every 97th run, a middle
+    row of every 89th and the last row of every 83rd, and a -0.0 then a
+    0.0 opening every 79th run; shards 6 and 7 one run of CAP rows each
+    (across every tile), shard 7's with a NaN in its middle.  Returns
+    (keys, fills, values, n)."""
+    dev = sd.device
+    d, k = sd.clone(), sk.clone()
+    d[6:] = 0
+    k[6:] = 0
+    gen = torch.Generator(device=dev).manual_seed(20261041)
+    v = torch.randn(d.shape, generator=gen, device=dev, dtype=torch.float64)
+    starts = torch.ones_like(d, dtype=torch.bool)
+    starts[:, 1:] = (d[:, 1:] != d[:, :-1]) | (k[:, 1:] != k[:, :-1])
+    flat = v.view(-1)
+    first = starts.view(-1).nonzero().view(-1)
+    last = torch.cat([first[1:], first.new_tensor([flat.numel()])]) - 1
+    r = torch.arange(first.numel(), device=dev)
+    flat[first[r % 97 == 0]] = float("nan")
+    flat[((first + last) // 2)[r % 89 == 0]] = float("nan")
+    flat[last[r % 83 == 0]] = float("nan")
+    z = (r % 79 == 0) & (last > first)
+    flat[first[z]] = -0.0
+    flat[first[z] + 1] = 0.0
+    v[6:] = torch.randn((2, d.shape[1]), generator=gen, device=dev,
+                        dtype=torch.float64)
+    v[7, d.shape[1] // 2] = float("nan")
+    return [d, k], [N_SHARDS, K3_KEY_FILL], [v], n
+
+
+def k3_q1_inputs(dev):
+    """K3 "last" at TPC-H Q1's map-side shape: (dst, returnflag,
+    linestatus) rows over Q1's four runs a shard (k14_phases' split)
+    with the six leaves K14 leaves there (5 int64, 1 float64).  Returns
+    (keys, fills, leaves, n)."""
+    bounds = [int(CAP * 0.2477), int(CAP * 0.4954), int(CAP * 0.5037)]
+    r = torch.zeros((N_SHARDS, CAP), dtype=torch.int64, device=dev)
+    for b in bounds:
+        r[:, b:] += 1
+    gen = torch.Generator(device=dev).manual_seed(20261042)
+    qty = torch.randint(1, 51, (N_SHARDS, CAP), generator=gen, device=dev)
+    price = qty * torch.randint(90100, 209_899, (N_SHARDS, CAP),
+                                generator=gen, device=dev)
+    disc = torch.randint(0, 11, (N_SHARDS, CAP), generator=gen, device=dev)
+    tax = torch.randint(0, 9, (N_SHARDS, CAP), generator=gen, device=dev)
+    dprice = price * (100 - disc)
+    leaves = [qty, price, dprice, dprice * (100 + tax), disc.double() / 100,
+              torch.ones_like(qty)]
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    return ([r.to(torch.int32), 65 + 17 * (r // 2), 70 + 9 * (r % 2)],
+            [N_SHARDS, K3_KEY_FILL, K3_KEY_FILL], leaves, n)
 
 
 def print_phase(name, rec):
@@ -2671,11 +2807,44 @@ def spill_kernel_phases(K, dev):
         "bound_ms": bound_ms(nbytes(rid, keys, vals, n) + kept * 24
                              + nbytes(got[1], got[2])),
         "library_ms": None,
-        "notes": {"kept_rows": kept}}
-    print_phase("B12 composed of K13 + K5 + K3", rec)
+        "notes": {"kept_rows": kept, "parts_ms": b12_parts(
+            K, collectives, rid, keys, vals, n)}}
+    print_phase("B12 composed of K13 + K5 + K2 + K3", rec)
     del keys, vals, rid, got, want, valid
     torch.cuda.empty_cache()
     return out
+
+
+def parts_note(parts):
+    return ",".join("%s:%.4f" % kv for kv in parts.items())
+
+
+def b12_parts(K, collectives, rid, keys, vals, n):
+    """B12's parts (bucketize_combine_rid with one key column), each
+    timed alone with CUDA events: K13, the sort by (dev, rid, key) (K5
+    passes and K2's partition by dev with its gathers), K3."""
+    d, rid64, _ = K.rid_fold(rid, n, N_SHARDS)
+    ops = [d, rid64, keys, vals]
+
+    def sort():
+        return collectives._lex_sort(ops, 3, nb0=N_SHARDS + 1)
+    s = sort()
+    return parts_note({
+        "rid_fold": timed(lambda: K.rid_fold(rid, n, N_SHARDS)),
+        "sort": timed(sort),
+        "k3": timed(lambda: K.reduce_by_key_compact(
+            list(s[:3]), [N_SHARDS, INT64_MAX, INT64_MAX], [s[3]], n, "add",
+            0, N_SHARDS))})
+
+
+def b6_parts(K, collectives, keys, vals, n):
+    """B6's parts (segment_reduce_keys with one key column), each timed
+    alone with CUDA events: the key sort (K5 passes and the gathers), K3."""
+    s = collectives._lex_sort([keys, vals], 1)
+    return parts_note({
+        "sort": timed(lambda: collectives._lex_sort([keys, vals], 1)),
+        "k3": timed(lambda: K.reduce_by_key_compact(
+            [s[0]], [INT64_MAX], [s[1]], n, "add"))})
 
 
 def merge_phase(K, dev):
@@ -2705,7 +2874,9 @@ def merge_phase(K, dev):
         # keys and values read once, the kept rows and counts written
         "bound_ms": bound_ms(nbytes(keys, vals, n) + kept * 16
                              + nbytes(got[2])),
-        "library_ms": None, "notes": {"kept_rows": kept}}
+        "library_ms": None,
+        "notes": {"kept_rows": kept, "parts_ms": b6_parts(
+            K, collectives, keys, vals, n)}}
     print_phase("B6 composed of K5 + K3", rec)
     del keys, vals, got, want
     torch.cuda.empty_cache()

@@ -25,9 +25,9 @@
 //
 // One one-sweep launch (the scheme of K5's passes, radix_sort.cu),
 // k7_sweep: a block takes the next work item from an atomic counter
-// (k7_item: each shard's tiles in order, its fill items spread among the
-// next shard's tiles), so that whatever an item waits for is already
-// running and every wait makes progress.  A tile:
+// (sweep_item, common.cuh: each shard's tiles in order, its fill items
+// spread among the next shard's tiles), so that whatever an item waits
+// for is already running and every wait makes progress.  A tile:
 // each thread loads its 16 consecutive rows of every key column 16 bytes
 // at a time, and the row before them, and marks its segment starts; a
 // block scan gives each thread the starts before it in the tile and the
@@ -64,49 +64,6 @@ struct SegKeys {
   int n;
 };
 
-__device__ __forceinline__ void load16(const int32_t* p, int32_t* v) {
-  const int4 x = *(const int4*)p;
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-
-__device__ __forceinline__ void load16(const long long* p, long long* v) {
-  const longlong2 x = *(const longlong2*)p;
-  v[0] = x.x;
-  v[1] = x.y;
-}
-
-__device__ __forceinline__ void load16(const double* p, double* v) {
-  const double2 x = *(const double2*)p;
-  v[0] = x.x;
-  v[1] = x.y;
-}
-
-// bit i: row row0 + i (< cap) differs in this column, compared in T,
-// from the row before it (bit 0 clear for row 0)
-template <typename T>
-__device__ __forceinline__ unsigned col_diffs(const char* col, int64_t base,
-                                              int64_t row0, int64_t cap) {
-  const T* p = (const T*)col + base + row0;
-  constexpr int PER = 16 / sizeof(T);
-  T v[K7_ITEMS];
-  if (row0 + K7_ITEMS <= cap && ((uintptr_t)p & 15) == 0) {
-#pragma unroll
-    for (int q = 0; q < K7_ITEMS; q += PER) load16(p + q, v + q);
-  } else {
-#pragma unroll
-    for (int i = 0; i < K7_ITEMS; ++i) v[i] = row0 + i < cap ? p[i] : (T)0;
-  }
-  const T h = row0 > 0 ? p[-1] : v[0];
-  unsigned d = 0;
-#pragma unroll
-  for (int i = 0; i < K7_ITEMS; ++i)
-    d |= (unsigned)(v[i] != (i > 0 ? v[i - 1] : h)) << i;
-  return d;
-}
-
 // each key column's element at row `src` to output slot j
 __device__ __forceinline__ void put_keys(const SegKeys& K, int64_t j,
                                          int64_t src) {
@@ -122,33 +79,6 @@ __device__ __forceinline__ void put_keys(const SegKeys& K, int64_t j,
 
 __device__ __forceinline__ int size_class(int32_t sz) {
   return sz <= 1 ? 0 : 32 - __clz(sz - 1);
-}
-
-// v into p[lo, hi) by the nth threads from tid: 16-byte stores between a
-// scalar head and tail
-template <typename T>
-__device__ __forceinline__ void fill_span(T* p, int64_t lo, int64_t hi, T v,
-                                          int tid, int nth) {
-  if (lo >= hi) return;
-  constexpr int PER = 16 / sizeof(T);
-  int64_t head = (int64_t)((16 - ((uintptr_t)(p + lo) & 15)) & 15) /
-                 (int64_t)sizeof(T);
-  if (head > hi - lo) head = hi - lo;
-  for (int64_t i = tid; i < head; i += nth) p[lo + i] = v;
-  const int64_t vlo = lo + head;
-  const int64_t nvec = (hi - vlo) / PER;
-  uint4 pat;
-  if constexpr (sizeof(T) == 4) {
-    const unsigned u = (unsigned)v;
-    pat = make_uint4(u, u, u, u);
-  } else {
-    const unsigned lo32 = (unsigned)(unsigned long long)v;
-    const unsigned hi32 = (unsigned)((unsigned long long)v >> 32);
-    pat = make_uint4(lo32, hi32, lo32, hi32);
-  }
-  uint4* q = (uint4*)(p + vlo);
-  for (int64_t k = tid; k < nvec; k += nth) q[k] = pat;
-  for (int64_t i = vlo + nvec * PER + tid; i < hi; i += nth) p[i] = v;
 }
 
 // the fills of slots [lo, hi) of the shard at base, by the block
@@ -180,50 +110,6 @@ __device__ __forceinline__ unsigned long long k7_word(unsigned long long f,
          (unsigned)(last + 1);
 }
 
-// exclusive block scan of (starts: sum, last start row: max, -1 for
-// none) over the threads, with the block's totals; every thread calls it
-__device__ __forceinline__ void scan_starts(int c, int l, int* s_c, int* s_l,
-                                            int* ex_c, int* ex_l,
-                                            int* tot_c, int* tot_l) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int vc = c, vl = l;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int yc = __shfl_up_sync(DPK_FULL, vc, d);
-    const int yl = __shfl_up_sync(DPK_FULL, vl, d);
-    if (lane >= d) {
-      vc += yc;
-      vl = max(vl, yl);
-    }
-  }
-  if (lane == 31) {
-    s_c[warp] = vc;
-    s_l[warp] = vl;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int wc = lane < nw ? s_c[lane] : 0, wl = lane < nw ? s_l[lane] : -1;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int yc = __shfl_up_sync(DPK_FULL, wc, d);
-      const int yl = __shfl_up_sync(DPK_FULL, wl, d);
-      if (lane >= d) {
-        wc += yc;
-        wl = max(wl, yl);
-      }
-    }
-    s_c[lane] = wc;  // inclusive over warps
-    s_l[lane] = wl;
-  }
-  __syncthreads();
-  const int bl = warp > 0 ? s_l[warp - 1] : -1;
-  const int pl = __shfl_up_sync(DPK_FULL, vl, 1);
-  *ex_c = (warp > 0 ? s_c[warp - 1] : 0) + vc - c;
-  *ex_l = max(bl, lane > 0 ? pl : -1);
-  *tot_c = s_c[nw - 1];
-  *tot_l = s_l[nw - 1];
-  __syncthreads();
-}
-
 // n_seg[s] for a fill item of shard s: the inclusive word of the tile
 // that holds the shard's last valid row, once published (that tile took
 // its id before this item, so it is running)
@@ -245,32 +131,7 @@ __device__ __forceinline__ int64_t wait_n_seg(
   return *s_n;
 }
 
-// work item g of the sweep: shard 0's tiles, then for p = 1 .. N-1
-// shard p's tiles with shard p-1's fill items spread evenly among them,
-// then shard N-1's fill items; each shard's tiles in order.  Returns
-// (shard, tile or fill index, whether a fill item).
-__device__ __forceinline__ bool k7_item(int64_t g, int64_t ntiles,
-                                        int64_t nfill, int N, int64_t* s,
-                                        int64_t* t) {
-  if (g < ntiles) {
-    *s = 0;
-    *t = g;
-    return false;
-  }
-  const int64_t M = ntiles + nfill, h = g - ntiles;
-  const int64_t p = h / M + 1, i = h - (p - 1) * M;
-  if (p == N) {
-    *s = N - 1;
-    *t = i;
-    return true;
-  }
-  const int64_t f0 = i * nfill / M, f1 = (i + 1) * nfill / M;
-  *s = f1 > f0 ? p - 1 : p;
-  *t = f1 > f0 ? f0 : i - f0;
-  return f1 > f0;
-}
-
-// one work item a block, from an atomic counter (k7_item)
+// one work item a block, from an atomic counter (sweep_item)
 static __global__ void __launch_bounds__(K7_THREADS, K7_MIN_BLOCKS)
     k7_sweep(const SegKeys K, const int32_t* n, int N, int64_t cap,
              int64_t ntiles, int64_t nfill, int32_t* start_rows,
@@ -284,7 +145,7 @@ static __global__ void __launch_bounds__(K7_THREADS, K7_MIN_BLOCKS)
   if (tid < DPK_SIZE_CLASSES) h_sm[tid] = 0;
   __syncthreads();
   int64_t s, t;
-  const bool fill = k7_item(s_item, ntiles, nfill, N, &s, &t);
+  const bool fill = sweep_item(s_item, ntiles, nfill, N, &s, &t);
   const int64_t base = s * cap;
   const int64_t ns = n[s];
   const int64_t nvc = ns < 0 ? 0 : (ns < cap ? ns : cap);
@@ -319,11 +180,11 @@ static __global__ void __launch_bounds__(K7_THREADS, K7_MIN_BLOCKS)
     for (int c = 0; c < DPK_SEG_KEYS; ++c) {
       if (c >= K.n) continue;
       if (K.kind[c] == 0)
-        d |= col_diffs<int32_t>(K.p[c], base, row0, cap);
+        d |= col_diffs<int32_t, K7_ITEMS>(K.p[c], base, row0, cap);
       else if (K.kind[c] == 1)
-        d |= col_diffs<long long>(K.p[c], base, row0, cap);
+        d |= col_diffs<long long, K7_ITEMS>(K.p[c], base, row0, cap);
       else
-        d |= col_diffs<double>(K.p[c], base, row0, cap);
+        d |= col_diffs<double, K7_ITEMS>(K.p[c], base, row0, cap);
     }
     const int64_t left = nvc - row0;
     mask = left >= K7_ITEMS ? d : d & ((1u << left) - 1u);

@@ -96,7 +96,8 @@ _build_lock = threading.Lock()
 build_seconds = None
 # libraries built with `-Xptxas -v`: their registers, shared memory and
 # spills per kernel land in build_logs[name] once loaded
-VERBOSE_PTXAS = ("radix_sort", "stable_partition", "segment_table")
+VERBOSE_PTXAS = ("radix_sort", "stable_partition", "segment_table",
+                 "reduce_by_key_compact")
 build_logs = {}
 
 
@@ -467,6 +468,11 @@ def stable_partition(bucket, nb, leaves, src_idx=None, want_bucket=True,
 # ---------------------------------------------------------------------
 # K3 reduce_by_key_compact
 # ---------------------------------------------------------------------
+_K3_TILE = 6144       # K3_TILE of csrc/reduce_by_key.cu (384 x 16): the
+                      # rows of a tile, by which the look-back's words go
+K3_MAX_DST = 4096     # K3_MAX_DST: the destination histogram's bins
+
+
 def identity(op, dtype):
     """A monoid's identity for a torch dtype: 0 (add), 1 (mul), +inf /
     -inf (float min / max), the dtype's max / min (int min / max)."""
@@ -487,7 +493,7 @@ def reduce_by_key_compact_plain(key_cols, fills, val_leaves, n, op,
     idx = torch.arange(cap, device=dev)
     valid = idx[None, :] < n[:, None].long()
     start = torch.zeros((N, cap), dtype=torch.bool, device=dev)
-    start[:, 0] = True
+    start[:, :1] = True
     for c in key_cols:
         start[:, 1:] |= c[:, 1:] != c[:, :-1]
     keep = start & valid
@@ -538,9 +544,11 @@ def reduce_by_key_compact(key_cols, fills, val_leaves, n, op, dst_col=None,
     values, or "last": the run's last value, any dtype), pack one row per
     run to the front in order, fill key tails with `fills` and value
     tails with 0.  With `dst_col` (the index of the destination column
-    among the keys) also count kept rows per destination.  Returns
-    (key_out, val_out, n_unique (N,) int32, dcounts (N, n_dst) or None,
-    doffs (N, n_dst) or None)."""
+    among the keys) also count kept rows per destination.  Float min and
+    max propagate NaN; the kernel's float sums and products repeat bit
+    for bit from call to call (one fixed association, another than the
+    plain version's).  Returns (key_out, val_out, n_unique (N,) int32,
+    dcounts (N, n_dst) or None, doffs (N, n_dst) or None)."""
     key_cols, val_leaves = list(key_cols), list(val_leaves)
     N, cap = key_cols[0].shape[:2]
     _check_cols(key_cols, N, cap, "key columns")
@@ -555,6 +563,12 @@ def reduce_by_key_compact(key_cols, fills, val_leaves, n, op, dst_col=None,
                   for v in val_leaves),
               "op %s reduces int64/float64 values only" % op)
     _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    _need(dst_col is None or (0 <= dst_col < len(key_cols)
+                              and 1 <= n_dst <= K3_MAX_DST),
+          "dst_col must index a key column and n_dst be in [1, %d]"
+          % K3_MAX_DST)
+    _need(cap <= 2 ** 31 - _K3_TILE,
+          "row ids are int32: cap must be <= 2**31 - %d" % _K3_TILE)
     if not _on_cuda(key_cols + val_leaves + [n]):
         return reduce_by_key_compact_plain(key_cols, fills, val_leaves, n,
                                            op, dst_col, n_dst)
@@ -564,33 +578,44 @@ def reduce_by_key_compact(key_cols, fills, val_leaves, n, op, dst_col=None,
     val_out = [torch.empty_like(v) for v in val_leaves]
     n_unique = torch.empty((N,), dtype=torch.int32, device=dev)
     has_dst = dst_col is not None
-    dcounts = torch.zeros((N, max(1, n_dst)), dtype=torch.int32, device=dev)
-    doffs = torch.zeros((N, max(1, n_dst)), dtype=torch.int32, device=dev)
-    seg = torch.empty((N, cap), dtype=torch.int32, device=dev)
-    blockcnt = torch.empty((N, max(1, -(-cap // 1024))), dtype=torch.int32,
-                           device=dev)
+    dcounts = doffs = None
+    if has_dst:
+        # counted with atomics; the offsets written by each shard's last
+        # tile
+        dcounts = torch.zeros((N, n_dst), dtype=torch.int32, device=dev)
+        doffs = torch.empty((N, n_dst), dtype=torch.int32, device=dev)
     if cap == 0:
         n_unique.zero_()
-    else:
-        nk, nv = len(key_cols), len(val_leaves)
-        kinds = [0 if v.dtype == torch.int64 else
-                 1 if v.dtype == torch.float64 else 2 for v in val_leaves]
-        rc = fn(_ptrs(key_cols), _ptrs(key_out),
-                (ctypes.c_int * nk)(*[c.element_size() for c in key_cols]),
-                (ctypes.c_int64 * nk)(*[int(f) for f in fills]), nk,
-                dst_col if has_dst else -1, int(n_dst),
-                _ptrs(val_leaves), _ptrs(val_out),
-                (ctypes.c_int64 * max(1, nv))(
-                    *[_row_bytes(v) for v in val_leaves]),
-                (ctypes.c_int * max(1, nv))(*kinds),
-                (ctypes.c_int64 * max(1, nv))(
-                    *[_lanes(v) for v in val_leaves]),
-                nv, OPS[op], n.data_ptr(), N, cap, n_unique.data_ptr(),
-                dcounts.data_ptr(), doffs.data_ptr(), seg.data_ptr(),
-                blockcnt.data_ptr(), _stream())
-        _check("reduce_by_key_compact", rc)
-    if not has_dst:
-        return key_out, val_out, n_unique, None, None
+        if has_dst:
+            doffs.zero_()
+        return key_out, val_out, n_unique, dcounts, doffs
+    ntiles = -(-cap // _K3_TILE)
+    # the tiles' count and value words, the item counter and the shards'
+    # tile counters; a reduction's tile aggregates, inclusive values and
+    # partial folds, one of each a tile and value lane
+    status = torch.zeros((2 * N * ntiles + 1 + N,), dtype=torch.int64,
+                         device=dev)
+    lanes = 0 if op == "last" else sum(_lanes(v) for v in val_leaves)
+    agg = (torch.empty((3 * N * ntiles * lanes,), dtype=torch.int64,
+                       device=dev) if lanes else None)
+    nk, nv = len(key_cols), len(val_leaves)
+    kinds = [0 if v.dtype == torch.int64 else
+             1 if v.dtype == torch.float64 else 2 for v in val_leaves]
+    rc = fn(_ptrs(key_cols), _ptrs(key_out),
+            (ctypes.c_int * nk)(*[c.element_size() for c in key_cols]),
+            (ctypes.c_int64 * nk)(*[int(f) for f in fills]), nk,
+            dst_col if has_dst else -1, int(n_dst),
+            _ptrs(val_leaves), _ptrs(val_out),
+            (ctypes.c_int64 * max(1, nv))(
+                *[_row_bytes(v) for v in val_leaves]),
+            (ctypes.c_int * max(1, nv))(*kinds),
+            (ctypes.c_int64 * max(1, nv))(
+                *[_lanes(v) for v in val_leaves]),
+            nv, OPS[op], n.data_ptr(), N, cap, n_unique.data_ptr(),
+            dcounts.data_ptr() if has_dst else None,
+            doffs.data_ptr() if has_dst else None, status.data_ptr(),
+            agg.data_ptr() if agg is not None else None, _stream())
+    _check("reduce_by_key_compact", rc)
     return key_out, val_out, n_unique, dcounts, doffs
 
 

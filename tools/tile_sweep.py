@@ -1,11 +1,13 @@
-"""Time K2 (stable_partition) or K7 (segment_table) built with other
-tile constants, each variant held against the plain version, at the
-shapes of tools/partition_profile.py.
+"""Time K2 (stable_partition), K7 (segment_table) or K3
+(reduce_by_key_compact) built with other tile constants, each variant
+held against the plain version, at the shapes of
+tools/partition_profile.py (K2, K7) or tools/k3_profile.py (K3).
 
-    python3 tools/tile_sweep.py k2|k7 [NAME=VALUE,NAME=VALUE ...] ...
+    python3 tools/tile_sweep.py k2|k7|k3 [NAME=VALUE,NAME=VALUE ...] ...
 
 Each argument after the kernel is one variant: the `#define NAME ...`
-lines of its source (stable_partition.cu or segment_table.cu) rewritten
+lines of its source (stable_partition.cu, segment_table.cu or
+reduce_by_key.cu) rewritten
 with the values given (an empty variant, "", is the checkout's source).
 Every variant is built beside the others (nvcc with -Xptxas -v, all
 started together) under build/tile_sweep/, bound as kernels.py binds the
@@ -30,11 +32,13 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import chip_smoke as smoke                                  # noqa: E402
+import k3_profile                                           # noqa: E402
 import partition_profile as prof                            # noqa: E402
 from dpark_tpu_torch.backend.cuda import kernels as K       # noqa: E402
 
 KERNELS = {"k2": ("stable_partition", "K2", "_K2_TILE"),
-           "k7": ("segment_table", "K7", "_K7_TILE")}
+           "k7": ("segment_table", "K7", "_K7_TILE"),
+           "k3": ("reduce_by_key_compact", "K3", "_K3_TILE")}
 
 
 def variant_source(text, defs):
@@ -90,6 +94,41 @@ def tile_of(name, defs, prefix):
     return value(prefix + "_THREADS") * value(prefix + "_ITEMS")
 
 
+def k3_check(op):
+    def check(label, got, want):
+        bad = k3_profile.divergence(got, want, op)
+        if bad is not None:
+            raise SystemExit("%s: %s" % (label, bad))
+    return check
+
+
+def cases(kernel, dev):
+    """(label, the plain version's outputs, a call of the checkout's
+    wrapper, the check of its outputs) at each shape of the kernel."""
+    if kernel == "k3":
+        for label, make in k3_profile.CASES:
+            args = make(dev)
+            yield (label, K.reduce_by_key_compact_plain(*args),
+                   lambda: K.reduce_by_key_compact(*args), k3_check(args[4]))
+            del args
+        return
+    for label, args in (prof.k2_cases(dev) if kernel == "k2"
+                        else prof.k7_cases(dev)):
+        if kernel == "k2":
+            bucket, nb, leaves, src, wb, cnt = args
+            yield (label, prof.k2_outputs(K.stable_partition_plain(
+                bucket, nb, leaves, src, want_bucket=wb), wb),
+                lambda: prof.k2_outputs(K.stable_partition(
+                    bucket, nb, leaves, src, want_bucket=wb, counts=cnt),
+                    wb), prof.same)
+        else:
+            keys, n = args
+            yield (label, prof.k7_outputs(K.segment_table_plain([keys], n)),
+                   lambda: prof.k7_outputs(K.segment_table([keys], n)),
+                   prof.same)
+        del args
+
+
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in KERNELS:
         raise SystemExit(__doc__)
@@ -115,36 +154,20 @@ def main():
                      tile_of(name, defs, prefix)))
     dev = torch.device("cuda")
     saved = (K._libs[name], getattr(K, const))
-    cases = prof.k2_cases(dev) if kernel == "k2" else prof.k7_cases(dev)
     try:
-        for label, args in cases:
-            if kernel == "k2":
-                bucket, nb, leaves, src, wb, cnt = args
-                want = prof.k2_outputs(K.stable_partition_plain(
-                    bucket, nb, leaves, src, want_bucket=wb), wb)
-
-                def call():
-                    return prof.k2_outputs(K.stable_partition(
-                        bucket, nb, leaves, src, want_bucket=wb,
-                        counts=cnt), wb)
-            else:
-                keys, n = args
-                want = prof.k7_outputs(K.segment_table_plain([keys], n))
-
-                def call():
-                    return prof.k7_outputs(K.segment_table([keys], n))
+        for label, want, call, check in cases(kernel, dev):
             times = {}
             for order in (libs, libs[::-1]):
                 for vlabel, fn, tile in order:
                     K._libs[name] = fn
                     setattr(K, const, tile)
                     if vlabel not in times:
-                        prof.same("%s %s" % (vlabel, label), call(), want)
+                        check("%s %s" % (vlabel, label), call(), want)
                     times.setdefault(vlabel, []).append(smoke.timed(call))
             for vlabel, _, _ in libs:
                 print("%s %s %s: ms=%s" % (kernel, label, vlabel, ",".join(
                     "%.4f" % x for x in times[vlabel])), flush=True)
-            del args, want
+            del want, call
             torch.cuda.empty_cache()
     finally:
         K._libs[name] = saved[0]
