@@ -39,7 +39,9 @@ NVIDIA GPU.
    (64Mi int64 pairs over 65,536 keys) -> reduceByKey -> count / collect
    / top / reduce, a map+filter chain before the shuffle, on gpu:8 and
    gpu, checked exactly against numpy, with top(10, key=lambda kv: kv[1]
-   * 65536 + kv[0]) on the device through the ranged-int probe (K15);
+   * 65536 + kv[0]) on the device through the ranged-int probe (K15),
+   top(0) and top(-1) giving [] without a K18 launch, and a bool value
+   under reduceByKey(add) counting as numpy counts;
 4. drives the sort path: 64Mi (random int64 key, row index) pairs ->
    sortByKey (both directions) -> count / top on gpu:8 (range shuffle)
    and gpu (one in-place sort), and the first 16Mi pairs -> sortByKey ->
@@ -66,14 +68,15 @@ NVIDIA GPU.
    67,108,864 directed edges): PageRank (20 supersteps, checked against
    a numpy power iteration, rtol 1e-10) and SSSP (min combine, integer
    weights, checked exactly against scipy's Dijkstra), after holding K9
-   and K10 against their plain versions on that graph;
+   and K10 against their plain versions on that graph (K9 with its
+   bound over every padded slot and its launch split);
 7. drives the object Bagel on gpu:8 through Bagel.run over a GAP urand
    graph at scale 19, edge factor 16 (524,288 Vertex objects,
    8,388,608 Edge objects, both endpoints uniform): PageRank with
    Message(target, rank * Edge.value), 20 updates, checked against a
    numpy power iteration (rtol 1e-10), on bucketed degree classes, after
    holding K11 against its plain version on one superstep's emission
-   blocks;
+   blocks (with its launch split);
 8. drives the device join on gpu:8 over TPC-H lineitem and orders at
    scale factor 10, generated from a seed by the specification's row
    rules (15,000,000 orders, about 60,000,000 lines): the join's count,
@@ -1329,6 +1332,22 @@ def main_path(master, keys, vals):
                                       for k in order]:
         fail("%s ranged-int top (%s) differs from numpy: %s"
              % (master, kind, top))
+    # top(n) below 1 selects no row and launches no K18 (ROADMAP C28)
+    from dpark_tpu_torch.backend.cuda import kernels as K
+    before = K.LAUNCHES["topk_select"]
+    for n in (0, -1):
+        if r.top(n, key=lambda kv: kv[1]) != []:
+            fail("%s top(%d) is not []" % (master, n))
+    if K.LAUNCHES["topk_select"] != before:
+        fail("%s top(n < 1) launched K18" % master)
+    # a bool value under add counts as the host adds it (ROADMAP C27)
+    flags = vals[:1 << 16] % 3 == 0
+    got = dict(ctx.parallelize(Columns(keys[:1 << 16] % 64, flags), P)
+               .reduceByKey(add, P).collect())
+    if got != dict(enumerate(np.bincount(keys[:1 << 16] % 64,
+                                         weights=flags).astype(int)
+                             .tolist())):
+        fail("%s bool reduceByKey(add) differs from numpy" % master)
     total = act(master + " reduce",
                 lambda: r.map(lambda kv: kv[1]).reduce(add))
     kinds = [s["kind"] for s in ctx.scheduler.history[-1]["stage_info"]]
@@ -1673,6 +1692,8 @@ def pregel_kernel_phases(K, dev, graph):
         "bound_ms": bound_ms(E * (4 + row + 1) + V * (row + 1)),
         "library_ms": timed(library_k9),
         "notes": {"edges": E, "vertices": V,
+                  "split": launch_split(lambda: K.edge_gather(
+                      slot, ecnt, vals, gate)),
                   "bound_vertex_read_per_edge_ms": "%.4f" % bound_ms(
                       E * (4 + 2 * row + 2)),
                   "bound_padded_ms": "%.4f" % bound_ms(
@@ -1965,6 +1986,7 @@ def bagel_kernel_phase(K, dev, graph):
         "library_ms": timed(library, reps=3),
         "notes": {"blocks": len(blocks), "slots": slots,
                   "gated_slots": gated, "kept": kept,
+                  "split": launch_split(lambda: K.obj_emit_pack(blocks)),
                   "cap_out": a[0].shape[1], "classes": dop.classes},
     }
     print_phase("obj_emit_pack", rec)

@@ -1476,8 +1476,15 @@ class TorchExecutor:
         each shard by (key, row index), so ties resolve by row order.  K18
         selects them in one read of the key; where it does not take the
         key or n (kernels.topk_route, written to plan.top_route), a stable
-        sort by (invalid flag, order key columns) keeps n rows (K5 + K2)."""
+        sort by (invalid flag, order key columns) keeps n rows (K5 + K2).
+        An n below 1 selects no row and launches nothing (heapq.nlargest's
+        answer)."""
         lv = batch.cols
+        if n < 1:
+            if plan is not None:
+                plan.top_route = "n %d below 1: no row selected" % n
+            return layout.Batch(batch.treedef, [c[:, :0] for c in lv],
+                                torch.zeros_like(batch.counts))
         if kspec[0] == "leaves":
             kcols = [lv[i] for i in kspec[1]]
         else:

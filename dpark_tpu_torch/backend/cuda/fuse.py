@@ -118,6 +118,9 @@ TEXT_RESULT_REASON = ("text source read by a result stage: the host runs "
 TEXT_RECORD_REASON = ("text chain records are not (str or int key, "
                       "numeric value) pairs")
 TEXT_RANGE_REASON = "string keys have no range bounds"
+BOOL_MERGE_REASON = ("merge_combiners turns bool value leaf %d into %s on "
+                     "the host, where a tensor's bool add is a logical or; "
+                     "object path")
 
 
 def classify_merge(merge):
@@ -316,23 +319,50 @@ class SortOp:
         return list(packed[1:-1]), n
 
 
+def _value_unwrap(record_treedef):
+    """(number of value leaves, leaves -> the value's own structure) of a
+    (k, value) or flat (k, v1, v2, ...) record."""
+    if isinstance(record_treedef, tuple) and len(record_treedef) == 2:
+        vdef = layout._renumber(record_treedef[1])     # (k, value)
+        return layout.num_leaves(vdef), (
+            lambda leaves: layout.tree_unflatten(vdef, list(leaves)))
+    nleaves = layout.num_leaves(record_treedef) - 1   # flat
+    return nleaves, (
+        lambda leaves: leaves[0] if nleaves == 1 else tuple(leaves))
+
+
+def bool_merge_reason(merge, treedef, specs, nk):
+    """Why a combining write may not merge on the tensor path, or None:
+    over Python's bools (the host path's values) the merge makes another
+    type of a scalar bool value leaf, as add and mul do (True + True ==
+    2), where a tensor's bool add is a logical or (ROADMAP C27).  The
+    reference's array path refuses a bool add and runs the object path."""
+    vspecs = specs[nk:]
+    bools = [i for i, (dt, shape) in enumerate(vspecs)
+             if np.dtype(dt) == np.bool_ and not tuple(shape)]
+    if not bools:
+        return None
+    nleaves, unwrap = _value_unwrap(treedef)
+    sample = [np.ones(tuple(shape), np.dtype(dt)) if tuple(shape)
+              else np.ones((), np.dtype(dt)).item() for dt, shape in vspecs]
+    try:
+        out = layout.tree_leaves(merge(unwrap(sample[:nleaves]),
+                                       unwrap(sample[:nleaves])))
+    except Exception:        # user code: the traced probe decides
+        return None
+    for i in bools:
+        if i < len(out) and not isinstance(out[i], (bool, np.bool_)):
+            return BOOL_MERGE_REASON % (i, type(out[i]).__name__)
+    return None
+
+
 def _leaves_merge_fn(merge, record_treedef):
     """User merge_combiners (value, value) -> value lifted to leaf lists
     and vmapped.  The value's real structure is rebuilt before calling
     the user function (a nested accumulator sees its own shape).  The
     returned function carries its K14 programs (merge_program.program_for:
     `programs` by leaf signature, `route`)."""
-    if isinstance(record_treedef, tuple) and len(record_treedef) == 2:
-        vdef = layout._renumber(record_treedef[1])     # (k, value)
-        nleaves = layout.num_leaves(vdef)
-
-        def _unwrap(leaves):
-            return layout.tree_unflatten(vdef, list(leaves))
-    else:                                    # flat (k, v1, v2, ...)
-        nleaves = layout.num_leaves(record_treedef) - 1
-
-        def _unwrap(leaves):
-            return leaves[0] if nleaves == 1 else tuple(leaves)
+    nleaves, _unwrap = _value_unwrap(record_treedef)
     if nleaves == 0:
         # a leafless value ((k, None) records): nothing to merge, as long
         # as the merge keeps the value leafless
@@ -1615,6 +1645,10 @@ def _plan_shuffle_write(plan, dep, ndev, streams=False):
                                   kinds="i")
         if epi_nk is None:
             return HASH_KEY_COMBINER_REASON
+        reason = bool_merge_reason(dep.aggregator.merge_combiners,
+                                   plan.out_treedef, plan.out_specs, epi_nk)
+        if reason is not None:
+            return reason
     if dep.partitioner.num_partitions > ndev:
         if not streams:
             return WIDE_REASON % (dep.partitioner.num_partitions, ndev)

@@ -97,7 +97,7 @@ build_seconds = None
 # libraries built with `-Xptxas -v`: their registers, shared memory and
 # spills per kernel land in build_logs[name] once loaded
 VERBOSE_PTXAS = ("radix_sort", "stable_partition", "segment_table",
-                 "reduce_by_key_compact")
+                 "reduce_by_key_compact", "edge_gather", "obj_emit_pack")
 build_logs = {}
 
 
@@ -239,17 +239,18 @@ def _bind(name, lib):
         fn.argtypes = [_P, _I, _L, _P, _P, _P, _I, _I, ctypes.c_uint64, _P]
     elif name == "edge_gather":
         fn = lib.dpk_edge_gather
-        fn.argtypes = [_P, _P, _I, _L, _L, _P, _P, _P, _I, _P, _P, _P]
+        fn.argtypes = [_P, _P, _I, _L, _L, _P, _P, _P, _I, _P, _P, _P, _P]
     elif name == "pregel_deliver":
         fn = lib.dpk_pregel_deliver
         fn.argtypes = [_P, _P, _I, _L, _P, _P, _L, _P, _P, _P, _P, _P, _I,
                        _P, _P]
     elif name == "obj_emit_pack":
         count = lib.dpk_obj_emit_count
-        count.argtypes = [_P, _I, _I, _I, _L, _P, _P, _P]
+        count.argtypes = [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P]
         count.restype = ctypes.c_int
         scatter = lib.dpk_obj_emit_scatter
-        scatter.argtypes = [_P, _I, _I, _I, _I, _L, _P, _P, _L, _P, _P]
+        scatter.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _L,
+                            _L, _P, _P, _P, _P]
         scatter.restype = ctypes.c_int
         return count, scatter
     elif name == "rid_fold":
@@ -1236,10 +1237,10 @@ def bucket_gather_state(start_rows, sizes, members, boff, bcnt, G, B, vals,
 # ---------------------------------------------------------------------
 def edge_gather_plain(e_slot, ecnt, leaves, gate):
     cap_e = e_slot.shape[1]
-    idx = e_slot.long()
-    out = [shard_rows(leaf, idx) for leaf in leaves]
     live = torch.arange(cap_e, device=e_slot.device)[None, :] \
         < ecnt[:, None].long()
+    idx = torch.where(live, e_slot.long(), 0)
+    out = [shard_rows(leaf, idx) for leaf in leaves]
     return out, shard_rows(gate, idx) & live
 
 
@@ -1247,9 +1248,11 @@ def edge_gather(e_slot, ecnt, leaves, gate):
     """The vertex state seen from each edge slot: for every (shard, edge
     slot), each vertex leaf's row e_slot[s, e] of shard s ((N, cap_v, ...)
     leaves -> (N, cap_e, ...)), and the send flag sa[s, e] = gate[s,
-    e_slot[s, e]] & (e < ecnt[s]).  `e_slot` is (N, cap_e) int32 (padded
-    slots hold 0 and gather vertex row 0, as the reference does), `ecnt`
-    (N,) int32, `gate` (N, cap_v) bool.  Returns (gathered leaves, sa)."""
+    e_slot[s, e]] & (e < ecnt[s]).  `e_slot` is (N, cap_e) int32, `ecnt`
+    (N,) int32, `gate` (N, cap_v) bool.  A padded slot (e >= ecnt[s])
+    gathers vertex row 0 whatever its e_slot holds (the reference's
+    padded slots hold 0) and its flag is False.  Returns (gathered
+    leaves, sa)."""
     leaves = list(leaves)
     N, cap_e = e_slot.shape
     cap_v = gate.shape[1] if gate.dim() == 2 else -1
@@ -1261,6 +1264,8 @@ def edge_gather(e_slot, ecnt, leaves, gate):
           and gate.is_contiguous() and cap_v >= 1,
           "gate must be a contiguous (N, cap_v) bool tensor")
     _check_cols(leaves, N, cap_v, "vertex leaves")
+    _need(cap_e < 2 ** 31 - 4096 and cap_v < 2 ** 31 and N < 2 ** 16,
+          "edge_gather takes cap_e, cap_v below 2**31 and N below 2**16")
     if not _on_cuda([e_slot, ecnt, gate] + leaves):
         return edge_gather_plain(e_slot, ecnt, leaves, gate)
     fn = _kernel("edge_gather")
@@ -1268,14 +1273,21 @@ def edge_gather(e_slot, ecnt, leaves, gate):
     out = [torch.empty((N, cap_e) + tuple(leaf.shape[2:]), dtype=leaf.dtype,
                        device=dev) for leaf in leaves]
     sa = torch.empty((N, cap_e), dtype=torch.bool, device=dev)
-    # one launch per MAX_LEAVES leaves (each rewrites the same sa)
+    # one launch per MAX_LEAVES leaves (each rewrites the same sa); one
+    # leaf of 1, 2, 4, 8 or 16 B goes through a record table, {row, gate}
+    # a vertex, so that an edge makes one random read
     for i in range(0, max(1, len(leaves)), MAX_LEAVES):
         part = leaves[i:i + MAX_LEAVES]
+        rec = None
+        if len(part) == 1 and _row_bytes(part[0]) in (1, 2, 4, 8, 16):
+            rec = torch.empty((N, cap_v, 2 * _row_bytes(part[0])),
+                              dtype=torch.uint8, device=dev)
         rc = fn(e_slot.data_ptr(), ecnt.data_ptr(), N, cap_e, cap_v,
                 _ptrs(part), _ptrs(out[i:i + MAX_LEAVES]),
                 (ctypes.c_int64 * max(1, len(part)))(
                     *[_row_bytes(leaf) for leaf in part]),
-                len(part), gate.data_ptr(), sa.data_ptr(), _stream())
+                len(part), gate.data_ptr(), sa.data_ptr(),
+                None if rec is None else rec.data_ptr(), _stream())
         _check("edge_gather", rc)
     return out, sa
 
@@ -1374,6 +1386,10 @@ def pregel_deliver(vid, vcnt, uk, n_unique, leaves, combine, fills=None):
 # ---------------------------------------------------------------------
 # K11 obj_emit_pack
 # ---------------------------------------------------------------------
+K11_TILE = 2048            # K11_TILE of csrc/obj_emit_pack.cu
+K11_MAX_BLOCKS = 48        # K11_MAX_BLOCKS: 24 classes, mail and no-mail
+
+
 def _emit_width(counts):
     """The packed width of K11's outputs: the fine capacity class of the
     largest shard's count (read with one host sync)."""
@@ -1434,58 +1450,68 @@ def obj_emit_pack(blocks):
     N = blocks[0][0].shape[0]
     nl = len(blocks[0][2])
     _need(nl <= MAX_LEAVES, "at most %d message leaves" % MAX_LEAVES)
-    spec = [(leaf.dtype, tuple(leaf.shape[3:])) for leaf in blocks[0][2]]
-    tensors = []
+    spec = [(leaf.dtype, leaf.shape[3:]) for leaf in blocks[0][2]]
+    # one pass over the blocks: the checks, and the kernels' arguments
+    # (this wrapper's host time is most of a call's)
+    devs, gates, dsts, caps, ms, src = set(), [], [], [], [], []
     for gate, dst, lv in blocks:
-        _need(gate.dtype == torch.bool and gate.dim() == 2
-              and gate.shape[0] == N and gate.is_contiguous(),
+        gs, ds = gate.shape, dst.shape
+        _need(gate.dtype == torch.bool and len(gs) == 2 and gs[0] == N
+              and gate.is_contiguous(),
               "each gate must be a contiguous (N, cap) bool tensor")
-        cap = gate.shape[1]
-        _need(dst.dtype == torch.int64 and dst.dim() == 3
-              and dst.shape[:2] == (N, cap) and dst.is_contiguous(),
+        _need(dst.dtype == torch.int64 and len(ds) == 3 and ds[0] == N
+              and ds[1] == gs[1] and dst.is_contiguous(),
               "each dst must be a contiguous (N, cap, m) int64 tensor")
-        m = dst.shape[2]
         _need(len(lv) == nl and all(
-            leaf.is_contiguous() and leaf.dim() >= 3
-            and tuple(leaf.shape[:3]) == (N, cap, m)
-            and (leaf.dtype, tuple(leaf.shape[3:])) == sp
-            for leaf, sp in zip(lv, spec)),
+            leaf.shape[:3] == ds and (leaf.dtype, leaf.shape[3:]) == sp
+            and leaf.is_contiguous() for leaf, sp in zip(lv, spec)),
             "each block's message leaves must be contiguous (N, cap, m, "
             "...) tensors of the first block's dtypes and shapes")
-        tensors += [gate, dst] + lv
-    if not _on_cuda(tensors):
+        devs.update([gate.device, dst.device] + [x.device for x in lv])
+        gates.append(gate.data_ptr())
+        dsts.append(dst.data_ptr())
+        caps.append(ds[1])
+        ms.append(ds[2])
+        src += [x.data_ptr() for x in lv]
+    _need(len(devs) == 1, "tensors on several devices: %s" % devs)
+    dev = devs.pop()
+    if dev.type == "cpu":
         return obj_emit_pack_plain(blocks)
+    _need(dev.type == "cuda", "unsupported device %s" % dev)
+    nb = len(blocks)
+    _need(nb <= K11_MAX_BLOCKS, "at most %d emission blocks" % K11_MAX_BLOCKS)
     count_fn, scatter_fn = _kernel("obj_emit_pack")
-    dev = blocks[0][0].device
-    W = 5 + nl
-    rows, tiles = [], 0
-    for gate, dst, lv in blocks:
-        cap, m = dst.shape[1], dst.shape[2]
-        rows += [gate.data_ptr(), dst.data_ptr(), cap, m, tiles]
-        rows += [leaf.data_ptr() for leaf in lv]
-        tiles += -(-cap * m // 1024)
-    lb = [leaf.element_size() * math.prod(leaf.shape[3:])
-          for leaf in blocks[0][2]]
+    first = [0]
+    for cap, m in zip(caps, ms):
+        _need(cap * m < 2 ** 31 - K11_TILE,
+              "an emission block takes below 2**31 slots a shard")
+        first.append(first[-1] + -(-cap * m // K11_TILE))
+    tiles = first[-1]
+    # the descriptors go to both kernels by value: nothing is copied to
+    # the device, and nothing after the host read
+    ptrs, i64 = ctypes.c_void_p * nb, ctypes.c_int64 * nb
+    desc = (nb, ptrs(*gates), ptrs(*dsts), i64(*caps), i64(*ms),
+            (ctypes.c_int64 * (nb + 1))(*first))
+    # everything but the outputs is made before the host read, so that
+    # the card waits for the host as little as it can
+    src = (ctypes.c_void_p * max(1, len(src)))(*src)
+    lb = (ctypes.c_int64 * max(1, nl))(*[
+        leaf.element_size() * math.prod(leaf.shape[3:])
+        for leaf in blocks[0][2]])
     tileoff = torch.empty((N, max(1, tiles)), dtype=torch.int32, device=dev)
     counts = torch.empty((N,), dtype=torch.int32, device=dev)
-    # the descriptor table: the output leaf pointers are filled in after
-    # the outputs are sized
-    table = torch.tensor(rows + lb + [0] * nl, dtype=torch.int64)
-    desc = table.to(dev)
-    _check("obj_emit_pack", count_fn(desc.data_ptr(), len(blocks), W, N,
-                                     tiles, tileoff.data_ptr(),
+    _check("obj_emit_pack", count_fn(*desc, N, tileoff.data_ptr(),
                                      counts.data_ptr(), _stream()),
            count=False)
-    cap_out = _emit_width(counts)
+    host = counts.cpu()
+    cap_out = _emit_width(host)
+    fill_tiles = -(-(cap_out - int(host.min())) // K11_TILE)
     dst_out = torch.empty((N, cap_out), dtype=torch.int64, device=dev)
     leaves = [torch.empty((N, cap_out) + shp, dtype=dt, device=dev)
               for dt, shp in spec]
-    table[len(rows) + nl:] = torch.tensor([o.data_ptr() for o in leaves],
-                                          dtype=torch.int64)
-    desc = table.to(dev)
-    rc = scatter_fn(desc.data_ptr(), len(blocks), W, nl, N, tiles,
-                    tileoff.data_ptr(), counts.data_ptr(), cap_out,
-                    dst_out.data_ptr(), _stream())
+    rc = scatter_fn(*desc, src, nl, N, tileoff.data_ptr(),
+                    counts.data_ptr(), cap_out, fill_tiles,
+                    dst_out.data_ptr(), _ptrs(leaves), lb, _stream())
     _check("obj_emit_pack", rc)
     return dst_out, leaves, counts
 

@@ -92,6 +92,27 @@ def test_edge_gather_send_gate_leaf_cast(jnp):
         assert np.array_equal(sa[s].numpy(), np.asarray(want))
 
 
+def test_edge_gather_padded_slots_read_row_zero(jnp):
+    """A padded slot gathers vertex row 0 and flags False whatever its
+    e_slot holds: the reference's `v[slot]`, `a[slot] & ev` over its
+    zero-padded slots (the kernel never reads a padded slot)."""
+    leaves, gate, slot, ecnt = _edge_case(7)
+    rng = np.random.RandomState(70)
+    junk = slot.copy()
+    for s in range(slot.shape[0]):
+        junk[s, ecnt[s]:] = rng.randint(1, 16, slot.shape[1] - ecnt[s])
+    out, sa = kernels.edge_gather(_t(junk), _t(ecnt),
+                                  [_t(l) for l in leaves], _t(gate))
+    for s in range(slot.shape[0]):
+        sl = jnp.asarray(slot[s])
+        ev = jnp.arange(slot.shape[1]) < ecnt[s]
+        assert np.array_equal(sa[s].numpy(),
+                              np.asarray(jnp.asarray(gate[s])[sl] & ev))
+        for got, l in zip(out, leaves):
+            assert np.array_equal(got[s].numpy(),
+                                  np.asarray(jnp.asarray(l[s])[sl]))
+
+
 def test_edge_gather_checks_its_inputs():
     leaves, gate, slot, ecnt = _edge_case(0)
     with pytest.raises(ValueError, match="gate"):

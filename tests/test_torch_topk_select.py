@@ -16,6 +16,9 @@ composition it replaces, and the device top path that runs it.
    its tpu:8 on the CPU mesh; the stage records `top_route` "K18", or the
    reason it kept K5 + K2 (n above K18's limit, more key columns than it
    takes).
+3. top(0) and top(-1) on gpu:4, largest and smallest, by a value key and
+   over two key columns: no row and no K18 call, as the JAX package's
+   `local` and tpu:4 answer (ROADMAP C28).
 
 The kernel itself runs in tests/test_torch_topk_select_cuda.py, on a card
 only."""
@@ -336,3 +339,44 @@ def test_route_above_k18_keeps_k5_k2(gctx, lctx):
     assert st["top_route"] == "3 key columns above K18's 2"
     assert got == sorted(triples, reverse=True)[:5]
     assert got == lctx.parallelize(triples, 8).sortByKey(numSplits=8).top(5)
+
+
+# ---------------------------------------------------------------------
+# 3. top(n) with n below 1 (ROADMAP C28): no row, no launch
+# ---------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def tctx4():
+    c = RefContext("tpu:4")
+    c.start()
+    yield c
+    c.stop()
+
+
+def _top_small(ctx, n, reverse):
+    cols = (np.arange(30) % 4, np.arange(30))
+    rows = list(zip(*(c.tolist() for c in cols)))
+    return ctx.parallelize(rows, 4).reduceByKey(add, 4).top(
+        n, key=lambda kv: kv[1], reverse=reverse)
+
+
+def _top_two_columns(ctx, n, reverse):
+    rows = [(i % 4, i) for i in range(30)]
+    return ctx.parallelize(rows, 4).map(lambda r: (r[0], r[1])).top(
+        n, reverse=reverse)
+
+
+@pytest.mark.parametrize("job", [_top_small, _top_two_columns])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n", [0, -1])
+def test_top_below_one_selects_nothing(job, reverse, n, lctx, tctx4,
+                                       monkeypatch):
+    def no_launch(*a, **k):
+        raise AssertionError("K18 called for n = %d" % n)
+    monkeypatch.setattr(K, "topk_select", no_launch)
+    c = DparkContext("gpu:4", device="cpu")
+    got = job(c, n, reverse)
+    st = _result_stage(c)
+    c.stop()
+    assert got == [] == job(lctx, n, reverse) == job(tctx4, n, reverse)
+    assert st["kind"] == "array+top", st
+    assert st["top_route"] == "n %d below 1: no row selected" % n

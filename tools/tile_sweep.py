@@ -1,13 +1,14 @@
-"""Time K2 (stable_partition), K7 (segment_table) or K3
-(reduce_by_key_compact) built with other tile constants, each variant
-held against the plain version, at the shapes of
-tools/partition_profile.py (K2, K7) or tools/k3_profile.py (K3).
+"""Time K2 (stable_partition), K7 (segment_table), K3
+(reduce_by_key_compact), K9 (edge_gather) or K11 (obj_emit_pack) built
+with other tile constants, each variant held against the plain version,
+at the shapes of tools/partition_profile.py (K2, K7),
+tools/k3_profile.py (K3) or tools/graph_kernels_profile.py (K9, K11).
 
-    python3 tools/tile_sweep.py k2|k7|k3 [NAME=VALUE,NAME=VALUE ...] ...
+    python3 tools/tile_sweep.py k2|k7|k3|k9|k11 [NAME=VALUE,...] ...
 
 Each argument after the kernel is one variant: the `#define NAME ...`
-lines of its source (stable_partition.cu, segment_table.cu or
-reduce_by_key.cu) rewritten
+lines of its source (stable_partition.cu, segment_table.cu,
+reduce_by_key.cu, edge_gather.cu or obj_emit_pack.cu) rewritten
 with the values given (an empty variant, "", is the checkout's source).
 Every variant is built beside the others (nvcc with -Xptxas -v, all
 started together) under build/tile_sweep/, bound as kernels.py binds the
@@ -32,13 +33,16 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import chip_smoke as smoke                                  # noqa: E402
+import graph_kernels_profile as graph                       # noqa: E402
 import k3_profile                                           # noqa: E402
 import partition_profile as prof                            # noqa: E402
 from dpark_tpu_torch.backend.cuda import kernels as K       # noqa: E402
 
 KERNELS = {"k2": ("stable_partition", "K2", "_K2_TILE"),
            "k7": ("segment_table", "K7", "_K7_TILE"),
-           "k3": ("reduce_by_key_compact", "K3", "_K3_TILE")}
+           "k3": ("reduce_by_key_compact", "K3", "_K3_TILE"),
+           "k9": ("edge_gather", "K9", None),
+           "k11": ("obj_emit_pack", "K11", "K11_TILE")}
 
 
 def variant_source(text, defs):
@@ -105,6 +109,19 @@ def k3_check(op):
 def cases(kernel, dev):
     """(label, the plain version's outputs, a call of the checkout's
     wrapper, the check of its outputs) at each shape of the kernel."""
+    if kernel == "k9":
+        for label, (slot, ecnt, vals, gate, _) in graph.k9_cases(dev):
+            yield (label, graph.k9_outputs(K.edge_gather_plain(
+                slot, ecnt, vals, gate)), lambda: graph.k9_outputs(
+                    K.edge_gather(slot, ecnt, vals, gate)), prof.same)
+        return
+    if kernel == "k11":
+        for label, blocks in graph.k11_cases(dev):
+            yield (label, graph.k11_outputs(K.obj_emit_pack_plain(blocks)),
+                   lambda: graph.k11_outputs(K.obj_emit_pack(blocks)),
+                   prof.same)
+            del blocks
+        return
     if kernel == "k3":
         for label, make in k3_profile.CASES:
             args = make(dev)
@@ -151,16 +168,17 @@ def main():
             if "registers" in line or "spill" in line:
                 print("ptxas %s: %s" % (label, line.strip()))
         libs.append((label, K._bind(name, ctypes.CDLL(so)),
-                     tile_of(name, defs, prefix)))
+                     tile_of(name, defs, prefix) if const else None))
     dev = torch.device("cuda")
-    saved = (K._libs[name], getattr(K, const))
+    saved = (K._libs[name], getattr(K, const) if const else None)
     try:
         for label, want, call, check in cases(kernel, dev):
             times = {}
             for order in (libs, libs[::-1]):
                 for vlabel, fn, tile in order:
                     K._libs[name] = fn
-                    setattr(K, const, tile)
+                    if const:
+                        setattr(K, const, tile)
                     if vlabel not in times:
                         check("%s %s" % (vlabel, label), call(), want)
                     times.setdefault(vlabel, []).append(smoke.timed(call))
@@ -171,7 +189,8 @@ def main():
             torch.cuda.empty_cache()
     finally:
         K._libs[name] = saved[0]
-        setattr(K, const, saved[1])
+        if const:
+            setattr(K, const, saved[1])
 
 
 if __name__ == "__main__":
