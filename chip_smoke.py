@@ -376,6 +376,10 @@ KRONECKER_ABC = (0.57, 0.19, 0.19)
 DAMPING = 0.85
 PR_STEPS = 20                      # rank updates; max_superstep = 21
 SSSP_MAX_SUPERSTEP = 400
+# a Pregel superstep's K1 (the pre-combine's destinations): 2^24 message
+# slots a shard, PageRank's 67,108,864 messages a superstep over 8 shards
+PREGEL_K1_CAP = 1 << 24
+PREGEL_K1_ROWS = 1 << 23
 PR_RTOL = 1e-10                    # float64 sums in another order
 # the GAP Benchmark Suite's urand graph (Beamer, Asanovic, Patterson,
 # arXiv:1508.03619): both endpoints uniform, edge factor 16; scale 27
@@ -485,23 +489,17 @@ def kernel_phases(K, dev):
     keys, vals, n = bench_columns(dev)
     out = {}
 
-    # K1: hash -> destination -> histogram
-    a = K.hash_dst_hist([keys], n, N_SHARDS, N_SHARDS)
-    b = K.hash_dst_hist_plain([keys], n, N_SHARDS, N_SHARDS)
-    err = max_err([("K1 dst", a[0], b[0]), ("K1 hist", a[1], b[1])])
-    dst = a[0]
-    flat_dst = (dst.long() + torch.arange(N_SHARDS, device=dev)[:, None]
-                * (N_SHARDS + 1)).view(-1)
-    out["hash_dst_hist"] = {
-        "max_abs_err": err,
-        "ms": timed(lambda: K.hash_dst_hist([keys], n, N_SHARDS, N_SHARDS)),
-        "plain_ms": timed(lambda: K.hash_dst_hist_plain(
-            [keys], n, N_SHARDS, N_SHARDS), reps=3),
-        "bound_ms": bound_ms(nbytes(keys, n, dst, a[1])),
-        "library_ms": timed(lambda: torch.bincount(
-            flat_dst, minlength=N_SHARDS * (N_SHARDS + 1))),
-    }
-
+    # K1: hash -> destination -> histogram (the no-combine write's), and
+    # its other shapes: the combining write's (no histogram) and a Pregel
+    # superstep's pre-combine
+    for label, args in hash_phase_cases(dev, keys, n):
+        a, rec = hash_case(K, *args)
+        if label == "hash_dst_hist":
+            dst = a[0]
+            out[label] = rec
+        else:
+            print_phase(label, rec)
+        del a, args
     # K2 (a): the destination pass of the map-side sort (rows already in
     # key order through src_idx), gathering key and value
     order = torch.sort(keys, dim=1, stable=True).indices
@@ -542,7 +540,7 @@ def kernel_phases(K, dev):
         print_phase("reduce_by_key_compact float64 %s with NaN" % op, rec)
     _, rec = k3_case(K, *k3_q1_inputs(dev), "last", 0, N_SHARDS)
     print_phase("reduce_by_key_compact last, q1 6 leaves", rec)
-    del keys, vals, order, src, bucket, a, b, x, y, sd, sk, sv
+    del keys, vals, order, src, bucket, a, x, y, sd, sk, sv
     torch.cuda.empty_cache()
     for name, args in (("stable_partition (b) sort validity",
                         sort_validity_inputs(K, dev)),
@@ -554,6 +552,59 @@ def kernel_phases(K, dev):
         del args
         torch.cuda.empty_cache()
     return out
+
+
+def hash_case(K, key_cols, n, r, n_dst, want_hist, want_hash):
+    """K1 against its plain version (bit-equal); library: torch.bincount
+    of the destinations (the histogram's share) where there is one."""
+    a = K.hash_dst_hist(key_cols, n, r, n_dst, want_hist, want_hash)
+    b = K.hash_dst_hist_plain(key_cols, n, r, n_dst, want_hist, want_hash)
+    err = max_err([("K1 " + name, x, y) for name, x, y in zip(
+        ("dst", "hist", "hash"), a, b) if x is not None])
+    N, cap = key_cols[0].shape
+    library = None
+    if want_hist:
+        flat = (a[0].long() + torch.arange(N, device=a[0].device)[:, None]
+                * (n_dst + 1)).view(-1)
+        library = timed(lambda: torch.bincount(flat,
+                                               minlength=N * (n_dst + 1)))
+    return a, {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.hash_dst_hist(key_cols, n, r, n_dst, want_hist,
+                                            want_hash)),
+        "plain_ms": timed(lambda: K.hash_dst_hist_plain(
+            key_cols, n, r, n_dst, want_hist, want_hash), reps=3),
+        # the valid rows' keys and the counts read once, every output
+        # written once
+        "bound_ms": bound_ms(int(n.sum().item()) * sum(
+            c.element_size() for c in key_cols)
+            + nbytes(n, *[x for x in a if x is not None])),
+        "library_ms": library,
+        "notes": {"cols": len(key_cols), "N": N, "cap": cap, "r": r,
+                  "n_dst": n_dst, "hist": int(want_hist),
+                  "hash": int(want_hash)},
+    }
+
+
+def hash_phase_cases(dev, keys=None, n=None):
+    """(label, K1's arguments): the bench columns with the histogram (the
+    no-combine write: partitionBy, groupByKey) and without (the combining
+    write), then a Pregel superstep's pre-combine at the pregel path's
+    shape (PREGEL_K1_CAP rows a shard of int64 vertex ids below 2^22,
+    PREGEL_K1_ROWS valid on each, r = n_dst = 8, no histogram)."""
+    if keys is None:
+        keys, _, n = bench_columns(dev)
+    yield "hash_dst_hist", ([keys], n, N_SHARDS, N_SHARDS, True, False)
+    yield "hash_dst_hist no histogram", ([keys], n, N_SHARDS, N_SHARDS,
+                                         False, False)
+    del keys, n
+    gen = torch.Generator(device=dev).manual_seed(20261033)
+    ids = torch.randint(0, 1 << GRAPH_SCALE, (N_SHARDS, PREGEL_K1_CAP),
+                        generator=gen, device=dev)
+    counts = torch.full((N_SHARDS,), PREGEL_K1_ROWS, dtype=torch.int32,
+                        device=dev)
+    yield "hash_dst_hist pregel pre-combine", ([ids], counts, N_SHARDS,
+                                               N_SHARDS, False, False)
 
 
 def bench_columns(dev):
@@ -3460,6 +3511,13 @@ def check_launches(path, fn, *args):
 UNION_CAP = 1 << 20                # rows a shard a branch, k = 12 phase
 UNION_BRANCHES = 12                # the reference's MAX_UNION_SOURCES
 UNION_PATH_ROWS = PAIRS // 2 // N_SHARDS     # 4,194,304: a half a shard
+# the window path's K16 shapes (tools/union_hash_profile.py census on
+# the parent of PR 17): a window of 10 batches of 8 x 1,048,576 pairs
+# (cap_out 2^24), and a union-reduce of a pane (cap 139,264) with the
+# previous window (cap 237,568), 224,370 rows a shard between them
+WINDOW_BUILD_BRANCHES = 10
+WINDOW_REDUCE_CAPS = [139_264, 237_568]
+WINDOW_REDUCE_ROWS = [100_000, 124_370]
 # the Spark Streaming Programming Guide's "Window Operations" example:
 # reduceByKeyAndWindow(_ + _, _ - _, Seconds(30), Seconds(10)) over
 # batches of 1 s of the manual clock
@@ -3477,7 +3535,7 @@ def union_case(K, branches, label):
     """K16 on `branches` against its plain version (bit-equal); library:
     none (no one torch call packs ragged per-shard prefixes); the torch
     composite (torch.cat of every shard's slices, after the same host
-    read) is timed beside it."""
+    read) is timed in turns with it."""
     a = K.union_concat(branches)
     b = K.union_concat_plain(branches)
     err = max_err([("K16 %s leaf %d" % (label, i), x, y)
@@ -3494,9 +3552,17 @@ def union_case(K, branches, label):
         return [torch.cat([lv[li][s, :hc[j][s]]
                            for j, (lv, _) in enumerate(branches)])
                 for li in range(nl) for s in range(N)]
+
+    def kernel():
+        return K.union_concat(branches)
+    # in turns (composite, kernel, kernel, composite): the two are close,
+    # and the card's rate drifts between timings
+    cat_ms = [timed(composite)]
+    ms = [timed(kernel), timed(kernel)]
+    cat_ms.append(timed(composite))
     return {
         "max_abs_err": err,
-        "ms": timed(lambda: K.union_concat(branches)),
+        "ms": sum(ms) / 2,
         "plain_ms": timed(lambda: K.union_concat_plain(branches), reps=3),
         # every valid row read once, every output row (tails included)
         # written once, the counts read and the totals written
@@ -3504,15 +3570,20 @@ def union_case(K, branches, label):
                              + 4 * N * (len(branches) + 1)),
         "library_ms": None,
         "notes": {"k": len(branches), "rows": rows, "cap_out": cap_out,
-                  "torch_cat_ms": "%.4f" % timed(composite, reps=3)},
+                  "kernel_ms_each": "%.4f,%.4f" % tuple(ms),
+                  "torch_cat_ms": "%.4f" % (sum(cat_ms) / 2),
+                  "torch_cat_ms_each": "%.4f,%.4f" % tuple(cat_ms)},
     }
 
 
-def union_kernel_phases(K, dev):
-    """K16 against its plain version: k = 12 branches over 8 shards of
+def union_phase_cases(dev):
+    """(label, branches) of K16's phases: k = 12 branches over 8 shards of
     cap 2^20 with ragged counts, shard 3 empty in every branch and branch
-    5 empty, int64/int64/float64 leaves; then k = 2 at 8 x 4,194,304
-    rows, the union path's shape (bench.py's halves, full counts)."""
+    5 empty, int64/int64/float64 leaves; k = 2 at 8 x 4,194,304 rows,
+    the union path's shape (bench.py's halves, full counts); then the
+    window path's largest union (a window of 10 batches: 8 launches a
+    path run) and its most common one (a union-reduce of two panes: 32
+    launches), window_union_branches."""
     rng = np.random.default_rng(20261031)
     counts = rng.integers(0, UNION_CAP + 1, (UNION_BRANCHES, N_SHARDS))
     counts[:, 3] = 0
@@ -3528,11 +3599,8 @@ def union_kernel_phases(K, dev):
                   (N_SHARDS, UNION_CAP))).to(dev)]
         branches.append((lv, torch.from_numpy(
             counts[j].astype(np.int32)).to(dev)))
-    out = {}
-    rec = union_case(K, branches, "k=12")
-    print_phase("union_concat k=12", rec)
+    yield "k=12", branches
     del branches
-    torch.cuda.empty_cache()
     keys, vals = (torch.from_numpy(c.reshape(2, N_SHARDS, UNION_PATH_ROWS))
                   .to(dev) for c in bench_data())
     n = torch.full((N_SHARDS,), UNION_PATH_ROWS, dtype=torch.int32,
@@ -3540,10 +3608,45 @@ def union_kernel_phases(K, dev):
     branches = [([keys[h].contiguous(), vals[h].contiguous()], n)
                 for h in range(2)]
     del keys, vals
-    out["union_concat"] = union_case(K, branches, "k=2")
-    print_phase("union_concat", out["union_concat"])
+    yield "k=2", branches
     del branches
-    torch.cuda.empty_cache()
+    yield "window k=10", window_union_branches(dev, WINDOW_BUILD_BRANCHES,
+                                               [WINDOW_ROWS], None)
+    yield "window k=2", window_union_branches(dev, 2, WINDOW_REDUCE_CAPS,
+                                              WINDOW_REDUCE_ROWS)
+
+
+def window_union_branches(dev, k, caps, rows):
+    """k branches of (word id, count) int64 leaves over 8 shards at the
+    window path's K16 shapes: branch j of cap caps[j % len(caps)] with
+    every row valid (rows None) or about rows[j] rows a shard (within
+    1/16, from a seed)."""
+    rng = np.random.default_rng(20261034)
+    out = []
+    for j in range(k):
+        cap = caps[j % len(caps)]
+        i = torch.arange(N_SHARDS * cap, device=dev, dtype=torch.int64) + j
+        ids = ((i * 2654435761) % VOCAB_WORDS).view(N_SHARDS, cap)
+        n = np.full(N_SHARDS, cap) if rows is None else rng.integers(
+            rows[j] - rows[j] // 16, rows[j] + rows[j] // 16, N_SHARDS)
+        out.append(([ids, torch.ones_like(ids)], torch.from_numpy(
+            n.astype(np.int32)).to(dev)))
+    return out
+
+
+def union_kernel_phases(K, dev):
+    """K16 against its plain version at union_phase_cases' shapes; the
+    k = 2 case is the kernels line's."""
+    out = {}
+    for label, branches in union_phase_cases(dev):
+        rec = union_case(K, branches, label)
+        if label == "k=2":
+            out["union_concat"] = rec
+            print_phase("union_concat", rec)
+        else:
+            print_phase("union_concat " + label, rec)
+        del branches
+        torch.cuda.empty_cache()
     return out
 
 

@@ -15,80 +15,204 @@
 // receive padding) and zeros in the others.  The reference leaves the
 // branches' stale tail rows there instead.
 //
-// One launch for all leaves.  The host builds a descriptor table, one
-// row per non-empty (branch, shard) range and one per shard tail:
-// (branch or -1, first source row, first output row, rows).  Block
-// (x, y) serves descriptor y; its threads walk the range a row each
-// (grid-stride over x) and copy every leaf's row, so the threads of a
-// warp read and write neighbouring rows of one leaf (coalesced).  The
-// source leaf pointers of every branch live in a second small device
-// table, indexed (branch, leaf).
-//
 // Bound: bytes.  Each valid row of every branch is read once and every
 // output row (N * cap_out of each leaf, tails included) written once.
+//
+// Design: a batched copy and fill of byte spans, its table computed on
+// the card.  The output of each shard is cut into tiles of K16_ROWS rows;
+// block (x, l) takes tile x (shard x / tiles, tile x % tiles) of leaf l,
+// reads its shard's k counts from the device into shared memory, k
+// threads at once (the counts' running sum places each branch), and
+// copies the pieces of the branches that fall
+// in the tile -- each a contiguous byte span in its source and in the
+// output -- then fills what lies past the shard's total.  So the grid is
+// sized by the output, and the host builds no table: after its one read
+// of the counts (which sizes cap_out) the wrapper only allocates and
+// launches.  A span is written as whole 16-byte words between a head and
+// a tail of fewer than 16 bytes; each word is loaded as 16 bytes, or,
+// where the source and output offsets differ mod 16 (a branch starting
+// at an odd row of 8 B, rows of 6 B), as the two aligned source words
+// that cover it, shifted into place by funnel shifts.  The fill is
+// 16-byte words of the key fill (or of zero).  The branches' leaves and
+// counts and the output leaves reach the kernel by value, as one
+// __grid_constant__ parameter (nothing copied to the device).
 #include "common.cuh"
 
-#define K16_DESC 4
+#define K16_THREADS 256
+#define K16_ROWS 2048            // output rows of a tile
+#define K16_UNROLL 4             // 16-byte words a thread has in flight
+#define K16_MAX_BRANCHES 12      // kernels.MAX_UNION_BRANCHES
 
-struct K16Out {
-  char* dst[DPK_MAX_LEAVES];
-  int64_t bytes[DPK_MAX_LEAVES];
-  int n;
-  int key_leaf;       // -1: no key fill, zeros everywhere
-  uint64_t key_fill;  // bit pattern at the key leaf's width
+struct K16Args {
+  const char* src[K16_MAX_BRANCHES][DPK_MAX_LEAVES];
+  const int32_t* n[K16_MAX_BRANCHES];  // each branch's (N,) counts
+  int64_t cap[K16_MAX_BRANCHES];       // each branch's rows a shard
+  char* dst[DPK_MAX_LEAVES];           // (N, cap_out, ...), 16-B aligned
+  int64_t bytes[DPK_MAX_LEAVES];       // row bytes of each leaf
+  uint4 fill;                          // the key fill over 16 bytes
+  int32_t* totals;                     // (N,) out
+  int64_t cap_out, tiles;              // tiles a shard
+  int k, key_leaf;
 };
 
-static __global__ void k16_pack(const int64_t* desc, const int64_t* srcp,
-                                K16Out O) {
-  const int64_t* d = desc + (int64_t)blockIdx.y * K16_DESC;
-  const int64_t j = d[0], src0 = d[1], dst0 = d[2], rows = d[3];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       r < rows; r += stride) {
-    for (int l = 0; l < O.n; ++l) {
-      const int64_t b = O.bytes[l];
-      char* out = O.dst[l] + (dst0 + r) * b;
-      if (j >= 0) {
-        const char* src = (const char*)srcp[j * O.n + l];
-        copy_row(src + (src0 + r) * b, out, b);
-      } else if (l == O.key_leaf) {
-        if (b == 8)
-          *(uint64_t*)out = O.key_fill;
+// bytes [off, off + 16) of the 32 bytes a:b, off = 4 * Q + sh / 8
+template <int Q>
+__device__ __forceinline__ uint4 k16_shift(uint4 a, uint4 b, unsigned sh) {
+  const unsigned u[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  return make_uint4(__funnelshift_r(u[Q], u[Q + 1], sh),
+                    __funnelshift_r(u[Q + 1], u[Q + 2], sh),
+                    __funnelshift_r(u[Q + 2], u[Q + 3], sh),
+                    __funnelshift_r(u[Q + 3], u[Q + 4], sh));
+}
+
+// nw 16-byte words to q from src (src - off 16-byte aligned, 0 < off <
+// 16 when Q >= 0: each word from the two aligned words that cover it;
+// Q < 0: src aligned)
+template <int Q>
+__device__ __forceinline__ void k16_words(const char* src, uint4* q,
+                                          int64_t nw, unsigned sh) {
+  const uint4* s = (const uint4*)(src - (Q < 0 ? 0 : 4 * Q + sh / 8));
+  for (int64_t w0 = threadIdx.x; w0 < nw;
+       w0 += (int64_t)K16_THREADS * K16_UNROLL) {
+    uint4 v[K16_UNROLL];
+#pragma unroll
+    for (int u = 0; u < K16_UNROLL; ++u) {
+      const int64_t w = w0 + (int64_t)u * K16_THREADS;
+      if (w < nw) {
+        if constexpr (Q < 0)
+          v[u] = __ldg(s + w);
         else
-          *(uint32_t*)out = (uint32_t)O.key_fill;
-      } else {
-        zero_row(out, b);
+          v[u] = k16_shift<Q>(__ldg(s + w), __ldg(s + w + 1), sh);
       }
+    }
+#pragma unroll
+    for (int u = 0; u < K16_UNROLL; ++u) {
+      const int64_t w = w0 + (int64_t)u * K16_THREADS;
+      if (w < nw) q[w] = v[u];
     }
   }
 }
 
-// desc: ndesc x 4 int64 rows (device); srcp: k x nleaves source leaf
-// pointers (device); dst, bytes: nleaves output leaves and row bytes
-// (host arrays); max_rows: the longest descriptor's row count.
-extern "C" int dpk_union_concat(const int64_t* desc, int ndesc,
-                                int64_t max_rows, const int64_t* srcp,
-                                void* const* dst, const int64_t* bytes,
-                                int nleaves, int key_leaf,
-                                uint64_t key_fill, void* stream) {
-  if (nleaves < 1 || nleaves > DPK_MAX_LEAVES || ndesc < 0 ||
-      ndesc > 65535 || key_leaf >= nleaves)
-    return (int)cudaErrorInvalidValue;
-  if (ndesc == 0 || max_rows <= 0) return (int)cudaGetLastError();
-  K16Out O;
-  O.n = nleaves;
-  O.key_leaf = key_leaf;
-  O.key_fill = key_fill;
-  for (int i = 0; i < DPK_MAX_LEAVES; ++i) {
-    O.dst[i] = i < nleaves ? (char*)dst[i] : nullptr;
-    O.bytes[i] = i < nleaves ? bytes[i] : 0;
+// len bytes from src to out by the block: a head and a tail of fewer
+// than 16 bytes, 16-byte words between them
+__device__ __forceinline__ void k16_copy_span(const char* src, char* out,
+                                              int64_t len) {
+  int64_t head = (int64_t)((16 - ((uintptr_t)out & 15)) & 15);
+  if (head > len) head = len;
+  const int64_t nw = (len - head) >> 4, tail0 = head + (nw << 4);
+  if (threadIdx.x < head)
+    out[threadIdx.x] = src[threadIdx.x];
+  else if (threadIdx.x >= 32 && threadIdx.x - 32 < len - tail0)
+    out[tail0 + threadIdx.x - 32] = src[tail0 + threadIdx.x - 32];
+  const char* s = src + head;
+  uint4* q = (uint4*)(out + head);
+  const unsigned off = (unsigned)((uintptr_t)s & 15), sh = (off & 3) * 8;
+  switch (off == 0 ? -1 : (int)(off >> 2)) {
+    case -1: k16_words<-1>(s, q, nw, 0); break;
+    case 0: k16_words<0>(s, q, nw, sh); break;
+    case 1: k16_words<1>(s, q, nw, sh); break;
+    case 2: k16_words<2>(s, q, nw, sh); break;
+    default: k16_words<3>(s, q, nw, sh); break;
   }
-  if (key_leaf >= 0 && bytes[key_leaf] != 4 && bytes[key_leaf] != 8)
+}
+
+// len bytes of the pattern p at out by the block; a byte's place in the
+// pattern is its offset from the 16-byte aligned leaf base
+__device__ __forceinline__ void k16_fill_span(const char* base, char* out,
+                                              int64_t len, uint4 p) {
+  int64_t head = (int64_t)((16 - ((uintptr_t)out & 15)) & 15);
+  if (head > len) head = len;
+  const int64_t nw = (len - head) >> 4, tail0 = head + (nw << 4);
+  const unsigned char* pb = (const unsigned char*)&p;
+  if (threadIdx.x < head)
+    out[threadIdx.x] = pb[(out + threadIdx.x - base) & 15];
+  else if (threadIdx.x >= 32 && threadIdx.x - 32 < len - tail0)
+    out[tail0 + threadIdx.x - 32] =
+        pb[(out + tail0 + threadIdx.x - 32 - base) & 15];
+  uint4* q = (uint4*)(out + head);
+  for (int64_t w = threadIdx.x; w < nw; w += K16_THREADS) q[w] = p;
+}
+
+static __global__ void __launch_bounds__(K16_THREADS)
+    k16_copy(const __grid_constant__ K16Args a) {
+  const int l = blockIdx.y;
+  const int64_t s = blockIdx.x / a.tiles, t = blockIdx.x - s * a.tiles;
+  const int64_t lo = t * K16_ROWS;
+  const int64_t hi = lo + K16_ROWS < a.cap_out ? lo + K16_ROWS : a.cap_out;
+  const int64_t by = a.bytes[l];
+  const char* base = a.dst[l];
+  char* out = a.dst[l] + s * a.cap_out * by;
+  // the shard's k counts, loaded at once (one load latency a block)
+  __shared__ int cnt[K16_MAX_BRANCHES];
+  if (threadIdx.x < a.k) cnt[threadIdx.x] = __ldg(a.n[threadIdx.x] + s);
+  __syncthreads();
+  int64_t at = 0;  // the shard's rows of the branches before j
+#pragma unroll 1
+  for (int j = 0; j < a.k; ++j) {
+    const int64_t c = cnt[j];
+    const int64_t p0 = lo > at ? lo : at;
+    const int64_t p1 = hi < at + c ? hi : at + c;
+    if (p0 < p1)
+      k16_copy_span(a.src[j][l] + (s * a.cap[j] + p0 - at) * by,
+                    out + p0 * by, (p1 - p0) * by);
+    at += c;
+  }
+  if (t == 0 && l == 0 && threadIdx.x == 0) a.totals[s] = (int32_t)at;
+  if (at < hi)
+    k16_fill_span(base, out + (lo > at ? lo : at) * by,
+                  (hi - (lo > at ? lo : at)) * by,
+                  l == a.key_leaf ? a.fill : make_uint4(0, 0, 0, 0));
+}
+
+// k branches: src the k x nleaves source leaves (branch-major), n the k
+// (N,) int32 count vectors (device), cap their rows a shard; the
+// nleaves output leaves (N, cap_out, ...) (16-byte aligned) and their
+// row bytes; key_leaf -1: no key fill; totals (N,) int32 out.  One
+// launch.
+extern "C" int dpk_union_concat(const void* const* src, int k,
+                                const void* const* n, const int64_t* cap,
+                                int N, int64_t cap_out, void* const* dst,
+                                const int64_t* bytes, int nleaves,
+                                int key_leaf, uint64_t key_fill,
+                                int32_t* totals, void* stream) {
+  if (nleaves < 1 || nleaves > DPK_MAX_LEAVES || k < 1 ||
+      k > K16_MAX_BRANCHES || key_leaf >= nleaves || N < 0 || cap_out < 1)
     return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  int64_t bx = (max_rows + threads - 1) / threads;
-  if (bx > 2048) bx = 2048;
-  dim3 grid((unsigned)bx, (unsigned)ndesc);
-  k16_pack<<<grid, threads, 0, (cudaStream_t)stream>>>(desc, srcp, O);
+  K16Args a;
+  a.k = k;
+  a.key_leaf = key_leaf;
+  a.totals = totals;
+  a.cap_out = cap_out;
+  a.tiles = (cap_out + K16_ROWS - 1) / K16_ROWS;
+  for (int j = 0; j < K16_MAX_BRANCHES; ++j) {
+    a.n[j] = j < k ? (const int32_t*)n[j] : nullptr;
+    a.cap[j] = j < k ? cap[j] : 0;
+  }
+  for (int l = 0; l < DPK_MAX_LEAVES; ++l) {
+    a.dst[l] = l < nleaves ? (char*)dst[l] : nullptr;
+    a.bytes[l] = l < nleaves ? bytes[l] : 0;
+    if (l < nleaves && ((uintptr_t)dst[l] & 15) != 0)
+      return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < K16_MAX_BRANCHES; ++j)
+      a.src[j][l] = j < k && l < nleaves
+                        ? (const char*)src[(int64_t)j * nleaves + l]
+                        : nullptr;
+  }
+  uint64_t f = 0;
+  if (key_leaf >= 0) {
+    if (bytes[key_leaf] == 8)
+      f = key_fill;
+    else if (bytes[key_leaf] == 4)
+      f = (key_fill & 0xffffffffull) | (key_fill << 32);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  a.fill = make_uint4((unsigned)f, (unsigned)(f >> 32), (unsigned)f,
+                      (unsigned)(f >> 32));
+  const int64_t grid = (int64_t)N * a.tiles;
+  if (grid == 0) return (int)cudaGetLastError();
+  if (grid > (int64_t)INT32_MAX) return (int)cudaErrorInvalidValue;
+  k16_copy<<<dim3((unsigned)grid, (unsigned)nleaves), K16_THREADS, 0,
+             (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,7 @@ launches and nothing else.
 """
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -236,7 +237,8 @@ def _bind(name, lib):
                        _P, _P, _P, _I, _P]
     elif name == "union_concat":
         fn = lib.dpk_union_concat
-        fn.argtypes = [_P, _I, _L, _P, _P, _P, _I, _I, ctypes.c_uint64, _P]
+        fn.argtypes = [_P, _I, _P, _P, _I, _L, _P, _P, _I, _I,
+                       ctypes.c_uint64, _P, _P]
     elif name == "edge_gather":
         fn = lib.dpk_edge_gather
         fn.argtypes = [_P, _P, _I, _L, _L, _P, _P, _P, _I, _P, _P, _P, _P]
@@ -378,6 +380,8 @@ def hash_dst_hist(key_cols, n, r, n_dst, want_hist=True, want_hash=False):
     _need(all(c.dtype in (torch.int64, torch.int32) for c in key_cols),
           "key columns must be int32/int64")
     _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
+    _need(r >= 1 and (not want_hist or r <= n_dst),
+          "r must be >= 1, and <= n_dst with the histogram")
     if not _on_cuda(key_cols + [n]):
         return hash_dst_hist_plain(key_cols, n, r, n_dst, want_hist,
                                    want_hash)
@@ -1933,6 +1937,20 @@ def union_concat_plain(branches, key_leaf=0, key_fill=KEY_SENTINEL):
     return out, totals.to(torch.int32).to(dev)
 
 
+def _union_cap_out(counts):
+    """K16's one host read of all k count vectors: cap_out, the
+    power-of-two class of the largest per-shard total."""
+    from dpark_tpu_torch.backend.cuda.layout import round_capacity
+    hc = torch.stack(counts).cpu().tolist()
+    return round_capacity(max(map(sum, zip(*hc)), default=0) or 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _union_fill_bits(value, dtype):
+    """The key fill's bit pattern (a few sentinels recur on every call)."""
+    return _elem_bits(value, dtype)[0]
+
+
 def union_concat(branches, key_leaf=0, key_fill=KEY_SENTINEL):
     """The device union's concatenation.  `branches` is a list of k (<=
     MAX_UNION_BRANCHES) (leaves, n) pairs with the same leaves (dtypes and
@@ -1951,53 +1969,51 @@ def union_concat(branches, key_leaf=0, key_fill=KEY_SENTINEL):
     N = lv0[0].shape[0]
     nl = len(lv0)
     _need(1 <= nl <= MAX_LEAVES, "1..%d leaves" % MAX_LEAVES)
-    spec = [(leaf.dtype, tuple(leaf.shape[2:])) for leaf in lv0]
-    tensors = []
+    spec = [(leaf.dtype, leaf.shape[2:]) for leaf in lv0]
+    dev = lv0[0].device
+    # one pass over the branches (this wrapper's host time is most of a
+    # small union's call)
     for lv, n in branches:
         _need(len(lv) == nl and all(
-            (leaf.dtype, tuple(leaf.shape[2:])) == sp
-            for leaf, sp in zip(lv, spec)),
+            leaf.dtype == dt and leaf.shape[2:] == shp
+            for leaf, (dt, shp) in zip(lv, spec)),
             "every branch must carry the first branch's leaves")
-        _check_cols(lv, N, lv[0].shape[1], "branch leaves")
+        lead = (N, lv[0].shape[1])
+        _need(all(leaf.shape[:2] == lead and leaf.is_contiguous()
+                  for leaf in lv),
+              "branch leaves must be contiguous (N, cap, ...) tensors")
         _need(n.dtype == torch.int32 and n.shape == (N,),
               "branch counts must be (N,) int32")
-        tensors += lv + [n]
+        _need(n.device == dev and all(leaf.device == dev for leaf in lv),
+              "branch tensors on several devices")
     _need(key_leaf is None or (lv0[key_leaf].dim() == 2 and lv0[
         key_leaf].dtype in (torch.int64, torch.int32, torch.float64)),
           "the key leaf must be an int32/int64/float64 (N, cap) column")
-    if not _on_cuda(tensors):
+    if dev.type == "cpu":
         return union_concat_plain(branches, key_leaf, key_fill)
+    _need(dev.type == "cuda", "unsupported device %s" % dev)
     fn = _kernel("union_concat")
-    host, totals, cap_out = _union_sizes([n for _, n in branches])
-    dev = lv0[0].device
-    out = [torch.empty((N, cap_out) + shp, dtype=dt, device=dev)
-           for dt, shp in spec]
-    rows, longest = [], 0
-    hc = host.tolist()
-    tot = totals.tolist()
-    for s in range(N):
-        at = 0
-        for j, (lv, _) in enumerate(branches):
-            c = hc[j][s]
-            if c:
-                rows += [j, s * lv[0].shape[1], s * cap_out + at, c]
-                longest = max(longest, c)
-                at += c
-        if cap_out > tot[s]:
-            rows += [-1, 0, s * cap_out + tot[s], cap_out - tot[s]]
-            longest = max(longest, cap_out - tot[s])
-    desc = torch.tensor(rows, dtype=torch.int64).to(dev)
-    srcp = torch.tensor([leaf.data_ptr() for lv, _ in branches
-                         for leaf in lv], dtype=torch.int64).to(dev)
+    # the launch's arguments but the outputs are made before the host
+    # read, so that the card waits for the host as little as it can
+    k = len(branches)
+    counts = [n for _, n in branches]
+    args = (_ptrs([leaf for lv, _ in branches for leaf in lv]), k,
+            _ptrs(counts), (ctypes.c_int64 * k)(*[lv[0].shape[1]
+                                                  for lv, _ in branches]),
+            N)
+    row_bytes = (ctypes.c_int64 * nl)(*[_row_bytes(x) for x in lv0])
     fill_bits = 0
     if key_leaf is not None:
-        fill_bits = _elem_bits(key_fill, lv0[key_leaf].dtype)[0]
-    rc = fn(desc.data_ptr(), len(rows) // 4, longest, srcp.data_ptr(),
-            _ptrs(out), (ctypes.c_int64 * nl)(*[_row_bytes(o) for o in out]),
-            nl, -1 if key_leaf is None else int(key_leaf), fill_bits,
-            _stream())
+        fill_bits = _union_fill_bits(key_fill, lv0[key_leaf].dtype)
+    totals = torch.empty((N,), dtype=torch.int32, device=dev)
+    cap_out = _union_cap_out(counts)
+    out = [torch.empty((N, cap_out) + shp, dtype=dt, device=dev)
+           for dt, shp in spec]
+    rc = fn(*args, cap_out, _ptrs(out), row_bytes, nl,
+            -1 if key_leaf is None else int(key_leaf), fill_bits,
+            totals.data_ptr(), _stream())
     _check("union_concat", rc)
-    return out, totals.to(torch.int32).to(dev)
+    return out, totals
 
 
 # ---------------------------------------------------------------------

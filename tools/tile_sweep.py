@@ -1,15 +1,18 @@
 """Time K2 (stable_partition), K7 (segment_table), K3
-(reduce_by_key_compact), K9 (edge_gather) or K11 (obj_emit_pack) built
-with other tile constants, each variant held against the plain version,
-at the shapes of tools/partition_profile.py (K2, K7),
-tools/k3_profile.py (K3) or tools/graph_kernels_profile.py (K9, K11).
+(reduce_by_key_compact), K9 (edge_gather), K11 (obj_emit_pack), K1
+(hash_dst_hist) or K16 (union_concat) built with other tile constants,
+each variant held against the plain version, at the shapes of
+tools/partition_profile.py (K2, K7), tools/k3_profile.py (K3),
+tools/graph_kernels_profile.py (K9, K11) or chip_smoke.py's phases (K1:
+hash_phase_cases, K16: union_phase_cases).
 
-    python3 tools/tile_sweep.py k2|k7|k3|k9|k11 [NAME=VALUE,...] ...
+    python3 tools/tile_sweep.py k2|k7|k3|k9|k11|k1|k16 [NAME=VALUE,...] ...
 
 Each argument after the kernel is one variant: the `#define NAME ...`
 lines of its source (stable_partition.cu, segment_table.cu,
-reduce_by_key.cu, edge_gather.cu or obj_emit_pack.cu) rewritten
-with the values given (an empty variant, "", is the checkout's source).
+reduce_by_key.cu, edge_gather.cu, obj_emit_pack.cu, hash_dst_hist.cu or
+union_concat.cu) rewritten with the values given (an empty variant, "",
+is the checkout's source).
 Every variant is built beside the others (nvcc with -Xptxas -v, all
 started together) under build/tile_sweep/, bound as kernels.py binds the
 checkout's library, and timed through the wrapper (the wrapper's tile
@@ -42,7 +45,9 @@ KERNELS = {"k2": ("stable_partition", "K2", "_K2_TILE"),
            "k7": ("segment_table", "K7", "_K7_TILE"),
            "k3": ("reduce_by_key_compact", "K3", "_K3_TILE"),
            "k9": ("edge_gather", "K9", None),
-           "k11": ("obj_emit_pack", "K11", "K11_TILE")}
+           "k11": ("obj_emit_pack", "K11", "K11_TILE"),
+           "k1": ("hash_dst_hist", "K1", None),
+           "k16": ("union_concat", "K16", None)}
 
 
 def variant_source(text, defs):
@@ -121,6 +126,22 @@ def cases(kernel, dev):
                    lambda: graph.k11_outputs(K.obj_emit_pack(blocks)),
                    prof.same)
             del blocks
+        return
+    if kernel == "k1":
+        for label, args in smoke.hash_phase_cases(dev):
+            yield (label, [x for x in K.hash_dst_hist_plain(*args)
+                           if x is not None],
+                   lambda: [x for x in K.hash_dst_hist(*args)
+                            if x is not None], prof.same)
+            del args
+        return
+    if kernel == "k16":
+        def outputs(res):
+            return list(res[0]) + [res[1]]
+        for label, branches in smoke.union_phase_cases(dev):
+            yield (label, outputs(K.union_concat_plain(branches)),
+                   lambda: outputs(K.union_concat(branches)), prof.same)
+            del branches
         return
     if kernel == "k3":
         for label, make in k3_profile.CASES:
