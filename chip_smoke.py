@@ -84,7 +84,9 @@ NVIDIA GPU.
    reduceByKey), checked exactly against numpy; a cogroup count over a
    2^20-row part of the tables (the host merge of rows exchanged and
    sorted on the device), after holding K12 against its plain version at
-   the path's shapes and on one hot key (4,096 x 4,096 pairs); then
+   the path's shapes (with one and with two key columns), on one hot key
+   (4,096 x 4,096 pairs) and on a sparse A over a dense B (every 37th of
+   8 x 2^21 keys, windows past K12's shared memory); then
    TPC-H Q1 as a dpark job on gpu:8 over lineitem at SF 10 (its own
    seed): filter -> map -> reduceByKey of a six-leaf tuple over the
    (returnflag, linestatus) key -> mapValues -> collect, its integer
@@ -112,7 +114,8 @@ NVIDIA GPU.
 10. holds K16 (the union's concatenation, B16) against its plain version
    (12 branches over 8 shards of 2^20 rows, ragged counts, an empty
    shard and an empty branch; then 2 branches of 8 x 4,194,304) and K8's
-   state gather at one tick of the decayed counter, then drives the
+   state gather at one tick of the decayed counter (each class's width,
+   lanes and ms printed), then drives the
    union path on gpu:8 (bench.py's pairs in two halves: a.union(b)
    .reduceByKey -> count / collect, and the union of the two reduced
    halves -> reduceByKey -> collect, exactly numpy's, K16 in every
@@ -391,6 +394,8 @@ URAND_EDGE_FACTOR = 16             # 16,777,216 edges
 TPCH_SF = 10
 COGROUP_ROWS = 1 << 20             # lineitem rows of the cogroup count
 SKEW_ROWS = 4096                   # one key's rows on each join side
+SPARSE_B_ROWS = 1 << 21            # K12's sparse-A case: dense B rows a
+SPARSE_STRIDE = 37                 # shard, and B rows between A's keys
 # TPC-H Q1 (section 2.4.1, DELTA = 90) over lineitem's dates (4.2.3), in
 # days since 1992-01-01 (STARTDATE)
 Q1_ORDER_LAST = 2405               # 1998-08-02: ENDDATE - 151 days
@@ -2645,38 +2650,49 @@ def tpch_data(sf=None, seed=20261024):
 
 
 def _join_side(dev, keys, vals, bounds, cap):
-    """(N, cap) key and value columns holding rows [bounds[s],
-    bounds[s + 1]) in shard s (the sentinel in the key padding)."""
-    kc = torch.full((N_SHARDS, cap), INT64_MAX, dtype=torch.int64)
+    """(N, cap) key columns (one for each array of `keys`) and a value
+    column holding rows [bounds[s], bounds[s + 1]) in shard s (the
+    sentinel in the key padding): (key columns, values, valid rows)."""
+    kcs = []
     vc = torch.zeros((N_SHARDS, cap), dtype=torch.int64)
+    for k in keys:
+        kc = torch.full((N_SHARDS, cap), INT64_MAX, dtype=torch.int64)
+        for s in range(N_SHARDS):
+            lo, hi = bounds[s], bounds[s + 1]
+            kc[s, :hi - lo] = torch.from_numpy(k[lo:hi])
+        kcs.append(kc.to(dev))
     for s in range(N_SHARDS):
         lo, hi = bounds[s], bounds[s + 1]
-        kc[s, :hi - lo] = torch.from_numpy(keys[lo:hi])
         vc[s, :hi - lo] = torch.from_numpy(vals[lo:hi])
     n = torch.tensor(np.diff(bounds), dtype=torch.int32)
-    return kc.to(dev), vc.to(dev), n.to(dev)
+    return kcs, vc.to(dev), n.to(dev)
 
 
-def join_case(K, A, AV, a_n, B, BV, b_n, label, library=True):
-    """K12 on one pair of key-sorted sides against its plain version;
-    ranges and expansion timed apart, each with its bound (the rows this
-    data needs read once, every output slot written once) and its
-    library calls (torch.searchsorted left and right and torch.cumsum;
+def join_case(K, AK, AV, a_n, BK, BV, b_n, label, library=True):
+    """K12 on one pair of key-sorted sides (AK, BK: their key columns)
+    against its plain version; ranges and expansion timed apart, each
+    with its bound (the rows this data needs read once, every output slot
+    written once) and, for one key column, its library calls
+    (torch.searchsorted left and right and torch.cumsum;
     torch.searchsorted of the slots into the offsets and torch.gather)."""
     from dpark_tpu_torch.backend.cuda.layout import round_capacity
-    N, cap_a = A.shape
-    cap_b = B.shape[1]
-    r = K.join_ranges([A], a_n, [B], b_n)
-    rp = K.join_ranges_plain([A], a_n, [B], b_n)
+    N, cap_a = AK[0].shape
+    cap_b = BK[0].shape[1]
+    r = K.join_ranges(AK, a_n, BK, b_n)
+    rp = K.join_ranges_plain(AK, a_n, BK, b_n)
     err = max_err([("K12 lo", r[0], rp[0]), ("K12 per", r[1], rp[1]),
                    ("K12 offs", r[2], rp[2]), ("K12 totals", r[3], rp[3])])
     total = int(r[3].sum().item())
     cap_out = round_capacity(int(r[3].max().item()) or 1)
-    x = K.join_expand([A, AV], [BV], *r, a_n, cap_out)
-    y = K.join_expand_plain([A, AV], [BV], *rp, a_n, cap_out)
-    err = max(err, max_err([("K12 key", x[0], y[0]), ("K12 a", x[1], y[1]),
-                            ("K12 b", x[2], y[2])]))
+    x = K.join_expand(AK + [AV], [BV], *r, a_n, cap_out)
+    y = K.join_expand_plain(AK + [AV], [BV], *rp, a_n, cap_out)
+    err = max(err, max_err([("K12 leaf %d" % i, a, b)
+                            for i, (a, b) in enumerate(zip(x, y))]))
+    del x, y
     na, nb = int(a_n.sum().item()), int(b_n.sum().item())
+    kb = sum(k.element_size() for k in AK)     # key bytes a row
+    library = library and len(AK) == 1
+    A, B = AK[0], BK[0]
     valid = torch.arange(cap_a, device=A.device)[None, :] < a_n[:, None]
     t = torch.arange(cap_out, device=A.device).expand(N, cap_out) \
         .contiguous()
@@ -2694,28 +2710,29 @@ def join_case(K, A, AV, a_n, B, BV, b_n, label, library=True):
             .clamp_(0, cap_b - 1)
         return (torch.gather(A, 1, i), torch.gather(AV, 1, i),
                 torch.gather(BV, 1, bi))
-    notes = {"a_rows": na, "b_rows": nb, "pairs": total,
+    notes = {"nk": len(AK), "a_rows": na, "b_rows": nb, "pairs": total,
              "cap_a": cap_a, "cap_b": cap_b, "cap_out": cap_out}
     recs = {
         "join_ranges": {
             "max_abs_err": err,
-            "ms": timed(lambda: K.join_ranges([A], a_n, [B], b_n)),
+            "ms": timed(lambda: K.join_ranges(AK, a_n, BK, b_n)),
             "plain_ms": timed(lambda: K.join_ranges_plain(
-                [A], a_n, [B], b_n), reps=1),
+                AK, a_n, BK, b_n), reps=1),
             # both sides' valid keys read once; lo, per and offs written
-            "bound_ms": bound_ms((na + nb) * 8 + 3 * nbytes(r[0])
+            "bound_ms": bound_ms((na + nb) * kb + 3 * nbytes(r[0])
                                  + nbytes(a_n, b_n, r[3])),
             "library_ms": timed(lib_ranges, reps=3) if library else None,
             "notes": notes},
         "join_expand": {
             "max_abs_err": err,
-            "ms": timed(lambda: K.join_expand([A, AV], [BV], *r, a_n,
+            "ms": timed(lambda: K.join_expand(AK + [AV], [BV], *r, a_n,
                                               cap_out)),
             "plain_ms": timed(lambda: K.join_expand_plain(
-                [A, AV], [BV], *rp, a_n, cap_out), reps=1),
-            # A's key, value, lo and offs of its valid rows and B's values
-            # read once; every output slot (key, a, b) written once
-            "bound_ms": bound_ms(na * 32 + nb * 8 + 3 * N * cap_out * 8
+                AK + [AV], [BV], *rp, a_n, cap_out), reps=1),
+            # A's keys, value, lo and offs of its valid rows and B's
+            # values read once; every output slot (keys, a, b) written
+            "bound_ms": bound_ms(na * (kb + 24) + nb * 8
+                                 + N * cap_out * (kb + 16)
                                  + nbytes(a_n, r[3])),
             "library_ms": timed(lib_expand, reps=3) if library else None,
             "notes": notes},
@@ -2729,33 +2746,69 @@ def join_case(K, A, AV, a_n, B, BV, b_n, label, library=True):
     return recs
 
 
-def join_kernel_phase(K, dev, data):
-    """K12 at the join path's shapes: lineitem (l_orderkey, revenue) as
-    side A and orders (o_orderkey, o_custkey) as side B, each shard an
-    eighth of the orders and their lines, key-sorted (as the exchange and
-    K5 leave them); then one hot key of SKEW_ROWS rows on each side in
-    one shard of eight (SKEW_ROWS^2 pairs)."""
+def sparse_join_sides(dev):
+    """A sparse A over a dense B, made on the card: B holds
+    SPARSE_B_ROWS consecutive keys a shard, A every SPARSE_STRIDE-th of
+    them, so that a tile of A's rows spans far more B rows than K12's
+    shared window holds."""
+    s = torch.arange(N_SHARDS, device=dev)[:, None]
+    bk = s * SPARSE_B_ROWS + torch.arange(SPARSE_B_ROWS, device=dev)[None, :]
+    na = SPARSE_B_ROWS // SPARSE_STRIDE
+    ak = s * SPARSE_B_ROWS + torch.arange(na, device=dev)[None, :] \
+        * SPARSE_STRIDE
+    counts = [torch.full((N_SHARDS,), c, dtype=torch.int32, device=dev)
+              for c in (na, SPARSE_B_ROWS)]
+    return [ak], -ak, counts[0], [bk], 3 * bk, counts[1]
+
+
+def join_phase_cases(dev, data):
+    """(label, (a_keys, a_vals, a_n, b_keys, b_vals, b_n), library): K12
+    at the join path's shapes, lineitem (l_orderkey, revenue) as side A
+    and orders (o_orderkey, o_custkey) as side B, each shard an eighth of
+    the orders and their lines, key-sorted (as the exchange and K5 leave
+    them); the same with two key columns, (orderkey, custkey); one hot
+    key of SKEW_ROWS rows on each side in one shard of eight
+    (SKEW_ROWS^2 pairs); a sparse A over a dense B."""
     from dpark_tpu_torch.backend.cuda.layout import round_capacity_fine
-    lk, rev, ok, ck, _ = data
+    lk, rev, ok, ck, lc = data
     ob = [len(ok) * s // N_SHARDS for s in range(N_SHARDS + 1)]
     lb = list(np.searchsorted(lk, ok[ob[:-1]])) + [len(lk)]
     cap_a = round_capacity_fine(int(np.diff(lb).max()))
     cap_b = round_capacity_fine(int(np.diff(ob).max()))
-    A, AV, a_n = _join_side(dev, lk, rev, lb, cap_a)
-    B, BV, b_n = _join_side(dev, ok, ck, ob, cap_b)
-    recs = join_case(K, A, AV, a_n, B, BV, b_n, "SF %d" % TPCH_SF)
-    del A, AV, a_n, B, BV, b_n
-    torch.cuda.empty_cache()
+    for label, a_keys, b_keys in (("SF %d" % TPCH_SF, [lk], [ok]),
+                                  ("SF %d nk=2" % TPCH_SF, [lk, lc],
+                                   [ok, ck])):
+        AK, AV, a_n = _join_side(dev, a_keys, rev, lb, cap_a)
+        BK, BV, b_n = _join_side(dev, b_keys, ck, ob, cap_b)
+        yield label, (AK, AV, a_n, BK, BV, b_n), True
+        del AK, AV, a_n, BK, BV, b_n
+        torch.cuda.empty_cache()
     hot = np.full(SKEW_ROWS, 7, np.int64)
     vals = np.arange(SKEW_ROWS, dtype=np.int64)
     bounds = [0] + [SKEW_ROWS] * N_SHARDS
-    sides = [_join_side(dev, hot, vals, bounds, SKEW_ROWS) for _ in "ab"]
-    skew = join_case(K, *sides[0], *sides[1], "skew", library=False)
-    if skew["join_ranges"]["notes"]["pairs"] != SKEW_ROWS ** 2:
-        fail("skew: %d pairs" % skew["join_ranges"]["notes"]["pairs"])
+    sides = [_join_side(dev, [hot], vals, bounds, SKEW_ROWS) for _ in "ab"]
+    yield "skew", (*sides[0], *sides[1]), False
     del sides
+    yield "sparse A", sparse_join_sides(dev), False
     torch.cuda.empty_cache()
-    return recs
+
+
+def join_kernel_phase(K, dev, data):
+    """K12 against its plain version in each of join_phase_cases (each
+    case's pair count checked); the kernels line takes the SF 10
+    case's record."""
+    want = {"SF %d" % TPCH_SF: len(data[0]),
+            "SF %d nk=2" % TPCH_SF: len(data[0]), "skew": SKEW_ROWS ** 2,
+            "sparse A": N_SHARDS * (SPARSE_B_ROWS // SPARSE_STRIDE)}
+    out = None
+    for label, sides, library in join_phase_cases(dev, data):
+        recs = join_case(K, *sides, label, library=library)
+        pairs = recs["join_ranges"]["notes"]["pairs"]
+        if pairs != want[label]:
+            fail("%s: %d pairs, want %d" % (label, pairs, want[label]))
+        out = out or recs
+        del sides
+    return out
 
 
 def join_path(data):
@@ -3664,13 +3717,13 @@ def window_batches(count):
             for b in range(count)]
 
 
-def state_gather_phase(K, dev):
-    """K8's state gather against its plain version at one tick of the
-    decayed counter: batch 2's 8,388,608 new values (flag 0) and the
-    state of batch 1's distinct words (flag 1), split over 8 shards by
-    key and key-sorted (K7 and K2 give the table and the class members),
-    every non-empty size class in the "zero" pad; times summed over the
-    classes.  The "edge" pad is held on the widest class."""
+def state_gather_inputs(K, dev):
+    """K8's state gather at one tick of the decayed counter: batch 2's
+    8,388,608 new values (flag 0) and the state of batch 1's distinct
+    words (flag 1), split over 8 shards by key and key-sorted (K7 and K2
+    give the table and the class members).  Returns (vals, flags, the
+    table (start_rows, sizes, members), [(class b, G, B, boff, bcnt,
+    live lanes, rows)] over the non-empty classes, notes)."""
     from dpark_tpu_torch.backend.cuda import collectives as C
     from dpark_tpu_torch.backend.cuda.layout import round_capacity
     b0, b1 = window_batches(2)
@@ -3697,46 +3750,59 @@ def state_gather_phase(K, dev):
     n = torch.from_numpy(per.astype(np.int32)).to(dev)
     start_rows, sizes, bucket, _, hist, _ = K.segment_table([kt], n,
                                                             want_keys=False)
+    del kt
     members, counts, offsets = C.bucket_members(bucket)
     gmax = hist.cpu().numpy().max(0)
+    classes = []
+    for b in np.flatnonzero(gmax).tolist():
+        boff, bcnt = offsets[:, b].contiguous(), counts[:, b].contiguous()
+        rows = int(sizes.gather(1, members.long()).masked_fill(
+            ~valid_lanes(members, boff, bcnt), 0).sum().item())
+        classes.append((b, round_capacity(int(gmax[b])), 1 << b, boff, bcnt,
+                        int(bcnt.sum().item()), rows))
+    notes = {"rows": len(keys), "groups": int(len(np.unique(keys))),
+             "classes": len(classes), "lanes": sum(c[5] for c in classes),
+             "widest_B": classes[-1][2]}
+    return vt, ft, (start_rows, sizes, members), classes, notes
+
+
+def state_gather_phase(K, dev):
+    """K8's state gather against its plain version at one tick of the
+    decayed counter (state_gather_inputs), every non-empty size class in
+    the "zero" pad, each class's B, G, live lanes, rows and ms printed;
+    times summed over the classes.  The "edge" pad is held on the widest
+    class."""
+    vt, ft, table, classes, notes = state_gather_inputs(K, dev)
     rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "library_ms": None}
-    lanes = classes = 0
-    widest = None
-    for b in np.flatnonzero(gmax).tolist():
-        G, B = round_capacity(int(gmax[b])), 1 << b
-        boff, bcnt = offsets[:, b].contiguous(), counts[:, b].contiguous()
-        args = (start_rows, sizes, members, boff, bcnt, G, B, vt, ft)
+    for b, G, B, boff, bcnt, live, rows in classes:
+        args = (*table, boff, bcnt, G, B, vt, ft)
         x = K.bucket_gather_state(*args, "zero")
         y = K.bucket_gather_state_plain(*args, "zero")
         rec["max_abs_err"] = max(rec["max_abs_err"], max_err(
             [("K8 state class %d out" % b, x[0], y[0]),
              ("K8 state class %d prev" % b, x[1], y[1]),
              ("K8 state class %d has_prev" % b, x[2], y[2])]))
-        rec["ms"] += timed(lambda: K.bucket_gather_state(*args, "zero"),
-                           reps=3)
-        rec["plain_ms"] += timed(
-            lambda: K.bucket_gather_state_plain(*args, "zero"), reps=1)
-        live = int(bcnt.sum().item())
-        rows = int(sizes.gather(1, members.long()).masked_fill(
-            ~valid_lanes(members, boff, bcnt), 0).sum().item())
+        ms = timed(lambda: K.bucket_gather_state(*args, "zero"), reps=3)
         # each group's values and flags read once, member id, start row
         # and size per lane; the padded matrix, prev and has_prev written
-        rec["bound_ms"] += bound_ms(rows * (8 + 8) + live * 12
-                                    + nbytes(*x) + nbytes(boff, bcnt))
-        lanes += live
-        classes += 1
-        widest = args
-    x = K.bucket_gather_state(*widest, "edge")
-    y = K.bucket_gather_state_plain(*widest, "edge")
+        bound = bound_ms(rows * (8 + 8) + live * 12 + nbytes(*x)
+                         + nbytes(boff, bcnt))
+        print("state class %d: B=%d G=%d live=%d rows=%d ms=%.4f "
+              "bound_ms=%.4f" % (b, B, G, live, rows, ms, bound), flush=True)
+        rec["ms"] += ms
+        rec["bound_ms"] += bound
+        rec["plain_ms"] += timed(
+            lambda: K.bucket_gather_state_plain(*args, "zero"), reps=1)
+        del x, y
+    x = K.bucket_gather_state(*args, "edge")
+    y = K.bucket_gather_state_plain(*args, "edge")
     rec["max_abs_err"] = max(rec["max_abs_err"], max_err(
         [("K8 state edge out", x[0], y[0]), ("K8 state edge prev", x[1],
                                              y[1])]))
-    rec["notes"] = {"rows": len(keys), "groups": int(len(np.unique(keys))),
-                    "classes": classes, "lanes": lanes,
-                    "widest_B": widest[6]}
+    rec["notes"] = notes
     print_phase("bucket_gather_state", rec)
-    del kt, ft, vt, start_rows, sizes, bucket, members, x, y
+    del vt, ft, table, classes, args, x, y
     torch.cuda.empty_cache()
     return {"bucket_gather_state": rec}
 

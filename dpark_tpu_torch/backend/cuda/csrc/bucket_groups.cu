@@ -34,15 +34,33 @@
 // B) matrix of each group's NEW values compacted to the front in row
 // order, the pad fill behind them ("zero": 0; "edge": the last new
 // value, 0 when there is none), `prev` (N, G) (the flag-1 row's value,
-// copied; 0 without one) and `has_prev` (N, G).  Classes up to 128 wide:
-// T = B (at most 32) threads serve a lane, reading T rows of the group at
-// a time, and a warp ballot of the flag-0 rows gives each new value its
-// slot (the count of the group's earlier new values).  Wider classes,
-// which hold few groups: a block of min(B, 1024) threads serves a lane,
-// a block-wide scan of the flags ranking each chunk.  Invalid lanes write
-// zeros.  Bound: bytes -- each group's rows and flags read once, the
-// matrix, prev and has_prev written once.
+// copied; 0 without one; the first flag-1 row where a group holds
+// several, as the plain version's argmax) and `has_prev` (N, G).
+// Classes up to K8S_NARROW (128) wide: T = B (at most 32) threads serve a
+// lane, reading T rows of the group at a time, and a warp ballot of the
+// flag-0 rows gives each new value its slot (the count of the group's
+// earlier new values).  Wider classes hold few groups, most of their
+// matrix padding (at a decayed-counter tick, classes 2^15 to 2^19 pad 8
+// lanes a shard, one of them live, to 520 MB): the grid runs over (lane,
+// chunk of K8S_CHUNK slots), so that its size follows the slots and not
+// the lane count.  A lane of one chunk is one block (k8s_write alone).
+// A lane of several takes two launches: k8s_count reads only the flags
+// and records each chunk's count of new values, its last new row and its
+// first flag-1 row; then k8s_write ranks each chunk's new values from
+// the records of the lane's earlier chunks and its own block scan,
+// copies them, fills its chunk of the output's slots past the lane's
+// count with 16-byte stores ("edge": the value at the lane's last new
+// row), and the lane's chunk 0 writes prev and has_prev.  Invalid lanes'
+// chunks write zeros alone.  Bound: bytes -- each group's rows and flags
+// read once, the matrix, prev and has_prev written once; the wide
+// classes' padded matrix is most of it.
 #include "common.cuh"
+
+#define K8S_THREADS 256
+#define K8S_CHUNK 4096                    // slots a block, wide classes
+                                          // (at most 65,536: 16-bit ranks)
+#define K8S_NARROW 128                    // the widest warp-form class
+#define K8S_NONE 0x7fffffff               // no flag-1 row
 
 static __global__ void k8_gather(const int32_t* start_rows,
                                  const int32_t* sizes,
@@ -198,84 +216,253 @@ static __global__ void k8_gather_state(const int32_t* start_rows,
   }
 }
 
-// The wide classes' form: block y serves lane y (shard y / G, lane
-// y % G); its threads walk the group blockDim rows at a time.
-static __global__ void k8_gather_state_block(
+// The wide classes' form: a lane spreads over blocks of K8S_CHUNK slots
+// (min(B, K8S_CHUNK) a block, K8S_THREADS threads).  A block's rows are
+// those of its chunk of the group, their flags read once, coalesced,
+// into a shared byte a row (1: a new value, flag 0); the chunk's count
+// and last new row come from a block reduction (scan_starts), its
+// flag-1 row (the first) from a shared atomicMin.  To rank its new
+// values, each thread counts a run of consecutive bytes, a block scan
+// gives each run its first rank, and the thread writes the ranks of its
+// run's rows; the copy then reads the values coalesced again.  The
+// chunk of output slots a block fills is the same chunk of the lane's B
+// columns.
+
+// lane `lane` of a class: its group's base row, start and size (0 for
+// an invalid lane)
+__device__ __forceinline__ void k8s_lane(
     const int32_t* start_rows, const int32_t* sizes, const int32_t* members,
-    const int32_t* boff, const int32_t* bcnt, int64_t cap, int G, int B,
-    const char* vals, int64_t vbytes, const int64_t* flags, char* out,
-    char* prev, bool* has_prev, int edge) {
-  __shared__ int sm[32];
-  const int64_t lane = blockIdx.x;
+    const int32_t* boff, const int32_t* bcnt, int64_t cap, int G,
+    int64_t lane, int64_t* base, int32_t* st, int32_t* sz) {
   const int s = (int)(lane / G);
   const int g = (int)(lane % G);
-  const int64_t base = (int64_t)s * cap;
-  int32_t st = 0, sz = 0;
+  *base = (int64_t)s * cap;
+  *st = 0;
+  *sz = 0;
   if (g < bcnt[s]) {
-    const int32_t seg = members[base + boff[s] + g];
-    st = start_rows[base + seg];
-    sz = sizes[base + seg];
+    const int32_t seg = members[*base + boff[s] + g];
+    *st = start_rows[*base + seg];
+    *sz = sizes[*base + seg];
   }
-  char* orow = out + lane * (int64_t)B * vbytes;
-  int n_new = 0;
-  int has = 0;
-  for (int o0 = 0; o0 < sz; o0 += blockDim.x) {
-    const int o = o0 + threadIdx.x;
-    int64_t fl = 2;
-    if (o < sz) fl = flags[base + st + o];
-    int tot;
-    const int slot = block_excl_scan(fl == 0, sm, &tot);
-    if (fl == 0)
-      copy_row(vals + (base + st + o) * vbytes,
-               orow + (int64_t)(n_new + slot) * vbytes, vbytes);
-    else if (fl == 1)
-      copy_row(vals + (base + st + o) * vbytes, prev + lane * vbytes,
-               vbytes);
-    n_new += tot;
-    has |= __syncthreads_or(fl == 1);
+}
+
+// the group's rows o0 + [0, n) of this chunk, each flag read once (the
+// block's threads in turn): s_new[k] (when staged) is 1 for a new value;
+// returns the thread's count of new values, *last its last new row (-1),
+// *first1 the chunk's first flag-1 row (atomicMin)
+template <bool STAGE>
+__device__ __forceinline__ int k8s_load(const int64_t* fl, int64_t o0,
+                                        int n, unsigned char* s_new,
+                                        int* first1, int* last) {
+  int cnt = 0;
+  *last = -1;
+#pragma unroll 4
+  for (int k = threadIdx.x; k < n; k += K8S_THREADS) {
+    const int64_t f = fl[o0 + k];
+    if (STAGE) s_new[k] = f == 0;
+    if (f == 0) {
+      ++cnt;
+      *last = (int)o0 + k;
+    } else if (f == 1) {
+      atomicMin(first1, (int)o0 + k);
+    }
   }
-  __syncthreads();                        // the compacted rows are visible
-  for (int o = n_new + threadIdx.x; o < B; o += blockDim.x) {
-    if (edge && n_new > 0)
-      copy_row(orow + (int64_t)(n_new - 1) * vbytes, orow + o * vbytes,
-               vbytes);
-    else
-      zero_row(orow + o * vbytes, vbytes);
+  return cnt;
+}
+
+// the rows of chunk c of a group of sz rows
+__device__ __forceinline__ int k8s_rows(int64_t c, int chunk, int32_t sz) {
+  const int64_t n = sz - c * chunk;
+  return n <= 0 ? 0 : (n < chunk ? (int)n : chunk);
+}
+
+// first pass of a lane of several chunks: each chunk's record (count of
+// new values, last new row or -1, first flag-1 row or K8S_NONE)
+static __global__ void __launch_bounds__(K8S_THREADS)
+    k8s_count(const int32_t* start_rows, const int32_t* sizes,
+              const int32_t* members, const int32_t* boff,
+              const int32_t* bcnt, int64_t cap, int G, int chunk,
+              int nchunks, const int64_t* flags, int4* rec) {
+  __shared__ int s_c[32], s_l[32];
+  __shared__ int s_first1;
+  const int64_t lane = blockIdx.x / nchunks;
+  const int64_t c = blockIdx.x % nchunks;
+  int64_t base;
+  int32_t st, sz;
+  k8s_lane(start_rows, sizes, members, boff, bcnt, cap, G, lane, &base, &st,
+           &sz);
+  if (threadIdx.x == 0) s_first1 = K8S_NONE;
+  __syncthreads();
+  int last;
+  const int cnt = k8s_load<false>(flags + base + st, c * chunk,
+                                  k8s_rows(c, chunk, sz), nullptr,
+                                  &s_first1, &last);
+  int ex_c, ex_l, tot_c, tot_l;
+  scan_starts(cnt, last, s_c, s_l, &ex_c, &ex_l, &tot_c, &tot_l);
+  if (threadIdx.x == 0) rec[blockIdx.x] = make_int4(tot_c, tot_l, s_first1, 0);
+}
+
+// the lane's chunk c: its new values at their ranks, its part of the pad
+// fill, and (chunk 0) prev and has_prev
+template <typename T>
+static __global__ void __launch_bounds__(K8S_THREADS)
+    k8s_write(const int32_t* start_rows, const int32_t* sizes,
+              const int32_t* members, const int32_t* boff,
+              const int32_t* bcnt, int64_t cap, int G, int64_t B, int chunk,
+              int nchunks, const T* vals, const int64_t* flags,
+              const int4* rec, T* out, T* prev, bool* has_prev, int edge) {
+  __shared__ unsigned char s_new[K8S_CHUNK];
+  __shared__ unsigned short s_rank[K8S_CHUNK];
+  __shared__ int s_c[32], s_l[32];
+  __shared__ int s_first1, s_last, s_f1;
+  __shared__ long long s_before, s_total;
+  const int tid = threadIdx.x;
+  const int64_t lane = blockIdx.x / nchunks;
+  const int64_t c = blockIdx.x % nchunks;
+  int64_t base;
+  int32_t st, sz;
+  k8s_lane(start_rows, sizes, members, boff, bcnt, cap, G, lane, &base, &st,
+           &sz);
+  if (tid == 0) s_first1 = K8S_NONE;
+  __syncthreads();
+  const int64_t o0 = c * chunk;
+  const int n = k8s_rows(c, chunk, sz);
+  int last;
+  k8s_load<true>(flags + base + st, o0, n, s_new, &s_first1, &last);
+  __syncthreads();
+  // this thread's run of consecutive rows, counted in shared memory
+  const int per = (chunk + K8S_THREADS - 1) / K8S_THREADS;
+  const int r0 = tid * per < n ? tid * per : n;
+  const int r1 = r0 + per < n ? r0 + per : n;
+  int cnt = 0;
+  for (int j = r0; j < r1; ++j) cnt += s_new[j];
+  int ex_c, ex_l, tot_c, tot_l;
+  scan_starts(cnt, last, s_c, s_l, &ex_c, &ex_l, &tot_c, &tot_l);
+  for (int j = r0, r = ex_c; j < r1; ++j) {
+    s_rank[j] = (unsigned short)r;
+    r += s_new[j];
   }
-  if (threadIdx.x == 0) {
-    has_prev[lane] = has != 0;
-    if (!has) zero_row(prev + lane * vbytes, vbytes);
+  // the lane's new values before this chunk and in all, its last new row
+  // and its flag-1 row: this chunk's own, or the records of all chunks
+  long long before = 0, total = tot_c;
+  int lastn = tot_l, f1 = s_first1;
+  if (nchunks > 1 && tid < 32) {
+    long long bf = 0, tt = 0;
+    int ln = -1, fr = K8S_NONE;
+    for (int k = tid; k < nchunks; k += 32) {
+      const int4 r = rec[lane * nchunks + k];
+      tt += r.x;
+      if (k < c) bf += r.x;
+      ln = max(ln, r.y);
+      fr = min(fr, r.z);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      bf += __shfl_xor_sync(DPK_FULL, bf, o);
+      tt += __shfl_xor_sync(DPK_FULL, tt, o);
+      ln = max(ln, __shfl_xor_sync(DPK_FULL, ln, o));
+      fr = min(fr, __shfl_xor_sync(DPK_FULL, fr, o));
+    }
+    if (tid == 0) {
+      s_before = bf;
+      s_total = tt;
+      s_last = ln;
+      s_f1 = fr;
+    }
   }
+  __syncthreads();                        // the ranks and the lane's totals
+  if (nchunks > 1) {
+    before = s_before;
+    total = s_total;
+    lastn = s_last;
+    f1 = s_f1;
+  }
+  const T* v = vals + base + st + o0;
+  T* orow = out + lane * B;
+  for (int k = tid; k < n; k += K8S_THREADS)
+    if (s_new[k]) orow[before + s_rank[k]] = v[k];
+  T fill{};
+  if (edge && total > 0) fill = vals[base + st + lastn];
+  fill_span<T>(orow, total > o0 ? total : o0, o0 + chunk, fill, tid,
+               K8S_THREADS);
+  if (c == 0 && tid == 0) {
+    const bool has = f1 != K8S_NONE;
+    T p{};
+    if (has) p = vals[base + st + f1];
+    prev[lane] = p;
+    has_prev[lane] = has;
+  }
+}
+
+template <typename T>
+static int k8s_launch(const int32_t* start_rows, const int32_t* sizes,
+                      const int32_t* members, const int32_t* boff,
+                      const int32_t* bcnt, int64_t nlanes, int64_t cap,
+                      int G, int64_t B, const void* vals,
+                      const int64_t* flags, void* out, void* prev,
+                      bool* has_prev, int edge, void* scratch,
+                      cudaStream_t st) {
+  const int chunk = B < K8S_CHUNK ? (int)B : K8S_CHUNK;
+  const int64_t nchunks = B / chunk;
+  const int64_t nblocks = nlanes * nchunks;
+  if (nblocks > 0x7fffffffLL || (nchunks > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (nchunks > 1)
+    k8s_count<<<(unsigned)nblocks, K8S_THREADS, 0, st>>>(
+        start_rows, sizes, members, boff, bcnt, cap, G, chunk, (int)nchunks,
+        flags, (int4*)scratch);
+  k8s_write<T><<<(unsigned)nblocks, K8S_THREADS, 0, st>>>(
+      start_rows, sizes, members, boff, bcnt, cap, G, B, chunk, (int)nchunks,
+      (const T*)vals, flags, (const int4*)scratch, (T*)out, (T*)prev,
+      has_prev, edge);
+  return (int)cudaGetLastError();
 }
 
 // start_rows, sizes, members: (N, cap) int32; boff, bcnt: (N,) int32;
 // vals: (N, cap) of vbytes-wide elements; flags: (N, cap) int64; out:
-// (N, G, B); prev: (N, G) of vbytes-wide elements; has_prev: (N, G) bool.
+// (N, G, B); prev: (N, G) of vbytes-wide elements; has_prev: (N, G) bool;
+// scratch: for B > K8S_CHUNK, N * G * (B / K8S_CHUNK) int4 records.
 extern "C" int dpk_bucket_gather_state(
     const int32_t* start_rows, const int32_t* sizes, const int32_t* members,
     const int32_t* boff, const int32_t* bcnt, int N, int64_t cap, int G,
     int B, const void* vals, int64_t vbytes, const int64_t* flags, void* out,
-    void* prev, bool* has_prev, int edge, void* stream) {
+    void* prev, bool* has_prev, int edge, void* scratch, void* stream) {
   if (G < 1 || B < 1 || (B & (B - 1)) != 0 || vbytes < 1)
     return (int)cudaErrorInvalidValue;
   const int64_t nlanes = (int64_t)N * G;
   if (nlanes == 0) return (int)cudaGetLastError();
-  if (B > 128) {
-    if (nlanes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    k8_gather_state_block<<<(unsigned)nlanes, B < 1024 ? B : 1024, 0,
-                            (cudaStream_t)stream>>>(
-        start_rows, sizes, members, boff, bcnt, cap, G, B,
-        (const char*)vals, vbytes, flags, (char*)out, (char*)prev, has_prev,
-        edge);
-    return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B > K8S_NARROW) {
+    switch (vbytes) {
+      case 1:
+        return k8s_launch<uint8_t>(start_rows, sizes, members, boff, bcnt,
+                                   nlanes, cap, G, B, vals, flags, out, prev,
+                                   has_prev, edge, scratch, st);
+      case 2:
+        return k8s_launch<uint16_t>(start_rows, sizes, members, boff, bcnt,
+                                    nlanes, cap, G, B, vals, flags, out,
+                                    prev, has_prev, edge, scratch, st);
+      case 4:
+        return k8s_launch<uint32_t>(start_rows, sizes, members, boff, bcnt,
+                                    nlanes, cap, G, B, vals, flags, out,
+                                    prev, has_prev, edge, scratch, st);
+      case 8:
+        return k8s_launch<unsigned long long>(
+            start_rows, sizes, members, boff, bcnt, nlanes, cap, G, B, vals,
+            flags, out, prev, has_prev, edge, scratch, st);
+      case 16:
+        return k8s_launch<uint4>(start_rows, sizes, members, boff, bcnt,
+                                 nlanes, cap, G, B, vals, flags, out, prev,
+                                 has_prev, edge, scratch, st);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   const int T = B < 32 ? B : 32;
   const int64_t total = nlanes * T;
   const int threads = 256;
   k8_gather_state<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                    (cudaStream_t)stream>>>(
-      start_rows, sizes, members, boff, bcnt, cap, G, B, T,
-      (const char*)vals, vbytes, flags, (char*)out, (char*)prev, has_prev,
-      edge, nlanes);
+                    st>>>(start_rows, sizes, members, boff, bcnt, cap, G, B,
+                          T, (const char*)vals, vbytes, flags, (char*)out,
+                          (char*)prev, has_prev, edge, nlanes);
   return (int)cudaGetLastError();
 }

@@ -189,7 +189,7 @@ __device__ __forceinline__ unsigned col_diffs(const char* col, int64_t base,
 }
 
 // v into p[lo, hi) by the nth threads from tid: 16-byte stores between a
-// scalar head and tail
+// scalar head and tail (T of 1, 2, 4, 8 or 16 bytes)
 template <typename T>
 __device__ __forceinline__ void fill_span(T* p, int64_t lo, int64_t hi, T v,
                                           int tid, int nth) {
@@ -201,17 +201,14 @@ __device__ __forceinline__ void fill_span(T* p, int64_t lo, int64_t hi, T v,
   for (int64_t i = tid; i < head; i += nth) p[lo + i] = v;
   const int64_t vlo = lo + head;
   const int64_t nvec = (hi - vlo) / PER;
-  uint4 pat;
-  if constexpr (sizeof(T) == 4) {
-    const unsigned u = (unsigned)v;
-    pat = make_uint4(u, u, u, u);
-  } else {
-    const unsigned lo32 = (unsigned)(unsigned long long)v;
-    const unsigned hi32 = (unsigned)((unsigned long long)v >> 32);
-    pat = make_uint4(lo32, hi32, lo32, hi32);
-  }
+  union {
+    T e[PER];
+    uint4 u;
+  } pat;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) pat.e[i] = v;
   uint4* q = (uint4*)(p + vlo);
-  for (int64_t k = tid; k < nvec; k += nth) q[k] = pat;
+  for (int64_t k = tid; k < nvec; k += nth) q[k] = pat.u;
   for (int64_t i = vlo + nvec * PER + tid; i < hi; i += nth) p[i] = v;
 }
 

@@ -98,7 +98,8 @@ build_seconds = None
 # libraries built with `-Xptxas -v`: their registers, shared memory and
 # spills per kernel land in build_logs[name] once loaded
 VERBOSE_PTXAS = ("radix_sort", "stable_partition", "segment_table",
-                 "reduce_by_key_compact", "edge_gather", "obj_emit_pack")
+                 "reduce_by_key_compact", "edge_gather", "obj_emit_pack",
+                 "join_expand", "bucket_groups")
 build_logs = {}
 
 
@@ -220,7 +221,7 @@ def _bind(name, lib):
         scatter.restype = ctypes.c_int
         state = lib.dpk_bucket_gather_state
         state.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _L, _P,
-                          _P, _P, _P, _I, _P]
+                          _P, _P, _P, _I, _P, _P]
         state.restype = ctypes.c_int
         return gather, scatter, state
     elif name == "monoid_reduce":
@@ -267,8 +268,8 @@ def _bind(name, lib):
                        _L, _P]
     elif name == "join_expand":
         ranges = lib.dpk_join_ranges
-        ranges.argtypes = [_P, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-                           _P]
+        ranges.argtypes = [_P, _P, _P, _I, _I, _L, _L, _P, _P, _P, _P, _P,
+                           _P, _P, _P]
         ranges.restype = ctypes.c_int
         expand = lib.dpk_join_expand
         expand.argtypes = [_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _P,
@@ -1158,6 +1159,11 @@ def bucket_scatter(outs, results, members, boff, bcnt):
     return outs
 
 
+_K8S_CHUNK = 4096     # K8S_CHUNK of csrc/bucket_groups.cu: the slots of a
+                      # wide class's chunk; the wrapper sizes the chunk
+                      # records by it
+
+
 def bucket_gather_state_plain(start_rows, sizes, members, boff, bcnt, G,
                               B, vals, flags, pad):
     N, cap = vals.shape
@@ -1227,11 +1233,16 @@ def bucket_gather_state(start_rows, sizes, members, boff, bcnt, G, B, vals,
     out = torch.empty((N, G, B), dtype=vals.dtype, device=dev)
     prev = torch.empty((N, G), dtype=vals.dtype, device=dev)
     has_prev = torch.empty((N, G), dtype=torch.bool, device=dev)
+    # a record (4 int32) a chunk of the lanes that span several
+    scratch = torch.empty((N * G * (B // _K8S_CHUNK), 4), dtype=torch.int32,
+                          device=dev) if B > _K8S_CHUNK else None
     rc = state_fn(start_rows.data_ptr(), sizes.data_ptr(),
                   members.data_ptr(), boff.data_ptr(), bcnt.data_ptr(), N,
                   cap, int(G), int(B), vals.data_ptr(), vals.element_size(),
                   flags.data_ptr(), out.data_ptr(), prev.data_ptr(),
-                  has_prev.data_ptr(), int(pad == "edge"), _stream())
+                  has_prev.data_ptr(), int(pad == "edge"),
+                  None if scratch is None else scratch.data_ptr(),
+                  _stream())
     _check("bucket_gather_state", rc)
     return out, prev, has_prev
 
@@ -1525,6 +1536,9 @@ def obj_emit_pack(blocks):
 # ---------------------------------------------------------------------
 _JOIN_KEY_KINDS = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
 JOIN_MAX_KEYS = 4
+_K12_TILE = 2048      # K12_TILE of csrc/join_expand.cu (256 x 8): the A
+                      # rows of a tile; the wrapper sizes the status words
+                      # by it
 
 
 def _order_key(col):
@@ -1591,22 +1605,19 @@ def join_ranges(a_keys, a_n, b_keys, b_n):
     ranges_fn, _ = _kernel("join_expand")
     dev = a_keys[0].device
     nk = len(a_keys)
-    pad = [0] * (JOIN_MAX_KEYS - nk)
-    desc = torch.tensor(
-        [k.data_ptr() for k in a_keys] + pad
-        + [k.data_ptr() for k in b_keys] + pad
-        + [_JOIN_KEY_KINDS[k.dtype] for k in a_keys] + pad,
-        dtype=torch.int64).to(dev)
     lo = torch.empty((N, cap_a), dtype=torch.int64, device=dev)
     per = torch.empty_like(lo)
     offs = torch.empty_like(lo)
-    part = torch.empty((N, max(1, -(-cap_a // 1024))), dtype=torch.int64,
-                       device=dev)
-    totals = torch.empty((N,), dtype=torch.int64, device=dev)
-    rc = ranges_fn(desc.data_ptr(), nk, N, cap_a, cap_b, a_n.data_ptr(),
-                   b_n.data_ptr(), lo.data_ptr(), per.data_ptr(),
-                   offs.data_ptr(), part.data_ptr(), totals.data_ptr(),
-                   _stream())
+    # totals, then the status words and the tile counter (zeroed by the
+    # entry)
+    scratch = torch.empty((N + N * -(-cap_a // _K12_TILE) + 1,),
+                          dtype=torch.int64, device=dev)
+    totals = scratch[:N]
+    rc = ranges_fn(_ptrs(a_keys), _ptrs(b_keys), (ctypes.c_int * nk)(
+        *[_JOIN_KEY_KINDS[k.dtype] for k in a_keys]), nk, N, cap_a, cap_b,
+        a_n.data_ptr(), b_n.data_ptr(), lo.data_ptr(), per.data_ptr(),
+        offs.data_ptr(), totals.data_ptr(), scratch[N:].data_ptr(),
+        _stream())
     _check("join_ranges", rc)
     return lo, per, offs, totals
 

@@ -258,3 +258,137 @@ def test_join_kernels_match_plain_on_card():
             assert torch.equal(g.cpu(), w)
         assert kernels.LAUNCHES["join_ranges"] == before["join_ranges"] + 1
         assert kernels.LAUNCHES["join_expand"] == before["join_expand"] + 1
+
+
+def test_k12_tile_matches_source():
+    """The wrapper sizes K12's status words by kernels._K12_TILE: it must
+    be the source's K12_THREADS x K12_ITEMS."""
+    import os
+    import re
+    src = open(os.path.join(kernels.CSRC, "join_expand.cu")).read()
+
+    def define(name):
+        return int(re.search(r"(?m)^#define %s (\d+)" % name, src).group(1))
+    assert kernels._K12_TILE == define("K12_THREADS") * define("K12_ITEMS")
+
+
+# ---------------------------------------------------------------------
+# K12's ranges on the card: the one-sweep merge against the plain version
+# ---------------------------------------------------------------------
+K12_TILE = 2048          # kernels._K12_TILE, held to the source above
+K12_WINDOW = 4096        # B rows of one int64 key in the shared window
+
+
+def _sorted_cols(cols, n):
+    """Each shard's first n[s] rows of `cols` ((N, cap) numpy key columns)
+    sorted lexicographically in K5's order (-0.0 ties +0.0, NaN one value,
+    last), the rest left as they are."""
+    cols = [c.copy() for c in cols]
+    for s in range(cols[0].shape[0]):
+        m = int(n[s])
+        order_keys = [kernels._order_key(torch.from_numpy(
+            np.ascontiguousarray(c[s:s + 1, :m])))[0].numpy() for c in cols]
+        order = np.lexsort(order_keys[::-1])
+        for c in cols:
+            c[s, :m] = c[s, :m][order]
+    return cols
+
+
+def _draw(rng, dt, shape, domain, specials=True):
+    """Keys of dtype dt over `domain` values; float keys with -0.0, +0.0
+    and NaN among them."""
+    v = rng.randint(0, domain, shape)
+    if np.dtype(dt).kind != "f":
+        return (v - domain // 2).astype(dt)
+    v = (v - domain // 2) * 0.5
+    if specials:
+        u = rng.rand(*shape)
+        v[u < 0.05] = -0.0
+        v[(u >= 0.05) & (u < 0.1)] = 0.0
+        v[(u >= 0.1) & (u < 0.13)] = np.nan
+    return v.astype(dt)
+
+
+def _ranges_case(seed, dts, N_, cap_a, cap_b, a_n, b_n, da, db):
+    rng = np.random.RandomState(seed)
+    ak = _sorted_cols([_draw(rng, dt, (N_, cap_a), da) for dt in dts], a_n)
+    bk = _sorted_cols([_draw(rng, dt, (N_, cap_b), db) for dt in dts], b_n)
+    return ak, np.asarray(a_n, np.int32), bk, np.asarray(b_n, np.int32)
+
+
+def _k12_cases():
+    """(id, maker) of the card's K12 ranges cases."""
+    full = [3000, 0, 4100, 2900]
+
+    def mixed(dts):
+        d = {1: 40, 2: 8, 4: 3}[len(dts)]
+        return lambda: _ranges_case(7 + len(dts), dts, 4, 4100, 3000, full,
+                                    [2500, 3000, 0, 1700], d, d)
+    yield "nk1-float64", mixed([np.float64])
+    yield "nk2-int32-float64", mixed([np.int32, np.float64])
+    yield "nk4-int64-float64-int32-float64", mixed(
+        [np.int64, np.float64, np.int32, np.float64])
+    # dense A over a sparse B: narrow windows, many A rows a B key
+    yield "dense-a-sparse-b", lambda: _ranges_case(
+        3, [np.int64], 3, 3 * K12_TILE + 17, 300, [3 * K12_TILE + 17] * 3,
+        [300, 17, 0], 2000, 2000)
+
+    # a sparse A over a dense B: every window past the shared memory
+    def sparse():
+        N_, cap_b, stride = 2, 1 << 17, 97
+        b = np.arange(N_ * cap_b, dtype=np.int64).reshape(N_, cap_b)
+        cap_a = cap_b // stride + 5
+        a = np.full((N_, cap_a), np.iinfo(np.int64).max, np.int64)
+        a[:, :cap_a - 5] = b[:, ::stride][:, :cap_a - 5] + 1
+        return [a], np.array([cap_a - 5, cap_a - 5], np.int32), [b], \
+            np.array([cap_b, cap_b - 3], np.int32)
+    yield "sparse-a-dense-b", sparse
+
+    # one hot key on both sides, inside the shared window and past it
+    def hot(rows_b):
+        def make():
+            a = np.full((2, 6000), 7, np.int64)
+            b = np.full((2, rows_b), 7, np.int64)
+            return [a], np.array([6000, 1], np.int32), [b], \
+                np.array([rows_b, rows_b], np.int32)
+        return make
+    yield "hot-key-in-window", hot(K12_WINDOW - 1)
+    yield "hot-key-past-window", hot(K12_WINDOW + 905)
+
+    # disjoint sides: A below B on one shard, above it on the next
+    def disjoint():
+        a = np.stack([np.arange(5000), np.arange(5000) + 10 ** 6])
+        b = np.stack([np.arange(3000) + 10 ** 5, np.arange(3000)])
+        return [a.astype(np.int64)], np.array([5000, 5000], np.int32), \
+            [b.astype(np.int64)], np.array([3000, 3000], np.int32)
+    yield "disjoint", disjoint
+    # an empty shard on each side and a full one, caps off the tile
+    yield "empty-and-full-shards", lambda: _ranges_case(
+        5, [np.int32], 3, 2 * K12_TILE + 1, 999, [0, 2 * K12_TILE + 1, 40],
+        [999, 0, 999], 500, 500)
+    # enough tiles a shard that the look-back crosses many of them
+    yield "many-tiles", lambda: _ranges_case(
+        9, [np.int64], 2, 300 * K12_TILE + 3, 50_000,
+        [300 * K12_TILE + 3, 123_457], [50_000, 49_999], 60_000, 60_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c, _ in _k12_cases()])
+def test_join_ranges_cases_on_card(case):
+    """K12's ranges (lo, per, offs, totals) launched on the card equal
+    the plain version exactly over the shapes its tiles and windows
+    meet; one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    ak, a_n, bk, b_n = dict(_k12_cases())[case]()
+    cpu = ([_t(k) for k in ak], _t(a_n), [_t(k) for k in bk], _t(b_n))
+    gpu = [[k.to(dev) for k in cpu[0]], cpu[1].to(dev),
+           [k.to(dev) for k in cpu[2]], cpu[3].to(dev)]
+    before = kernels.LAUNCHES["join_ranges"]
+    got = kernels.join_ranges(*gpu)
+    want = kernels.join_ranges_plain(*cpu)
+    assert kernels.LAUNCHES["join_ranges"] == before + 1
+    for name, g, w in zip(("lo", "per", "offs", "totals"), got, want):
+        assert torch.equal(g.cpu(), w), name
+    assert torch.equal(kernels.join_ranges(*gpu)[2].cpu(), want[2])

@@ -158,3 +158,13 @@ def test_state_gather_keeps_the_carried_bits():
                                 counts, 2, 8, 3, _t(vals), _t(flags),
                                 "zero")
 
+
+
+def test_k8s_chunk_matches_source():
+    """The wrapper sizes the wide classes' chunk records by
+    kernels._K8S_CHUNK: it must be the source's K8S_CHUNK."""
+    import os
+    import re
+    src = open(os.path.join(kernels.CSRC, "bucket_groups.cu")).read()
+    assert kernels._K8S_CHUNK == int(re.search(
+        r"(?m)^#define K8S_CHUNK (\d+)", src).group(1))

@@ -1,24 +1,30 @@
 """Time K2 (stable_partition), K7 (segment_table), K3
 (reduce_by_key_compact), K9 (edge_gather), K11 (obj_emit_pack), K1
-(hash_dst_hist) or K16 (union_concat) built with other tile constants,
+(hash_dst_hist), K16 (union_concat), K12's ranges (join_ranges) or K8's
+state gather (bucket_gather_state) built with other tile constants,
 each variant held against the plain version, at the shapes of
 tools/partition_profile.py (K2, K7), tools/k3_profile.py (K3),
 tools/graph_kernels_profile.py (K9, K11) or chip_smoke.py's phases (K1:
-hash_phase_cases, K16: union_phase_cases).
+hash_phase_cases, K16: union_phase_cases, K12: join_phase_cases over
+TPC-H SF 10, K8: state_gather_inputs, the 20 classes in one call and the
+widest alone).
 
-    python3 tools/tile_sweep.py k2|k7|k3|k9|k11|k1|k16 [NAME=VALUE,...] ...
+    python3 tools/tile_sweep.py k2|k7|k3|k9|k11|k1|k16|k12|k8s \
+        [NAME=VALUE,...] ...
 
 Each argument after the kernel is one variant: the `#define NAME ...`
 lines of its source (stable_partition.cu, segment_table.cu,
-reduce_by_key.cu, edge_gather.cu, obj_emit_pack.cu, hash_dst_hist.cu or
-union_concat.cu) rewritten with the values given (an empty variant, "",
-is the checkout's source).
+reduce_by_key.cu, edge_gather.cu, obj_emit_pack.cu, hash_dst_hist.cu,
+union_concat.cu, join_expand.cu or bucket_groups.cu) rewritten with the
+values given (an empty variant, "", is the checkout's source).
 Every variant is built beside the others (nvcc with -Xptxas -v, all
 started together) under build/tile_sweep/, bound as kernels.py binds the
 checkout's library, and timed through the wrapper (the wrapper's tile
-constant set to the variant's THREADS x ITEMS), in the order given and
+constant set to the variant's THREADS x ITEMS, K8's to its K8S_CHUNK),
+in the order given and
 then reversed.  Prints each variant's ptxas registers and spills and its
-ms a shape.  Needs a card.
+ms a shape (for K12 and K8 also its device ms, the call replayed from a
+CUDA graph).  Needs a card.
 """
 
 import ctypes
@@ -39,6 +45,7 @@ import chip_smoke as smoke                                  # noqa: E402
 import graph_kernels_profile as graph                       # noqa: E402
 import k3_profile                                           # noqa: E402
 import partition_profile as prof                            # noqa: E402
+import union_hash_profile as uh                             # noqa: E402
 from dpark_tpu_torch.backend.cuda import kernels as K       # noqa: E402
 
 KERNELS = {"k2": ("stable_partition", "K2", "_K2_TILE"),
@@ -47,7 +54,11 @@ KERNELS = {"k2": ("stable_partition", "K2", "_K2_TILE"),
            "k9": ("edge_gather", "K9", None),
            "k11": ("obj_emit_pack", "K11", "K11_TILE"),
            "k1": ("hash_dst_hist", "K1", None),
-           "k16": ("union_concat", "K16", None)}
+           "k16": ("union_concat", "K16", None),
+           "k12": ("join_expand", "K12", "_K12_TILE"),
+           "k8s": ("bucket_groups", "K8S", "_K8S_CHUNK")}
+# kernels whose calls a CUDA graph captures: their device ms printed too
+DEVICE = ("k12", "k8s")
 
 
 def variant_source(text, defs):
@@ -100,6 +111,8 @@ def tile_of(name, defs, prefix):
         if key in defs:
             return int(defs[key])
         return int(re.search(r"(?m)^#define %s (\d+)" % key, src).group(1))
+    if prefix == "K8S":
+        return value("K8S_CHUNK")
     return value(prefix + "_THREADS") * value(prefix + "_ITEMS")
 
 
@@ -142,6 +155,24 @@ def cases(kernel, dev):
             yield (label, outputs(K.union_concat_plain(branches)),
                    lambda: outputs(K.union_concat(branches)), prof.same)
             del branches
+        return
+    if kernel == "k12":
+        for label, sides, _ in smoke.join_phase_cases(dev, smoke.tpch_data()):
+            AK, _, a_n, BK, _, b_n = sides
+            yield (label, list(K.join_ranges_plain(AK, a_n, BK, b_n)),
+                   lambda: list(K.join_ranges(AK, a_n, BK, b_n)), prof.same)
+            del sides, AK, BK
+        return
+    if kernel == "k8s":
+        vt, ft, table, classes, _ = smoke.state_gather_inputs(K, dev)
+
+        def run(fn, which):
+            return [x for b, G, B, boff, bcnt, _, _ in which
+                    for x in fn(*table, boff, bcnt, G, B, vt, ft, "zero")]
+        for label, which in (("20 classes", classes),
+                             ("widest", classes[-1:])):
+            yield (label, run(K.bucket_gather_state_plain, which),
+                   lambda: run(K.bucket_gather_state, which), prof.same)
         return
     if kernel == "k3":
         for label, make in k3_profile.CASES:
@@ -194,7 +225,7 @@ def main():
     saved = (K._libs[name], getattr(K, const) if const else None)
     try:
         for label, want, call, check in cases(kernel, dev):
-            times = {}
+            times, device = {}, {}
             for order in (libs, libs[::-1]):
                 for vlabel, fn, tile in order:
                     K._libs[name] = fn
@@ -203,9 +234,15 @@ def main():
                     if vlabel not in times:
                         check("%s %s" % (vlabel, label), call(), want)
                     times.setdefault(vlabel, []).append(smoke.timed(call))
+                    if kernel in DEVICE:
+                        device.setdefault(vlabel, []).append(
+                            uh.graph_ms(call))
             for vlabel, _, _ in libs:
-                print("%s %s %s: ms=%s" % (kernel, label, vlabel, ",".join(
-                    "%.4f" % x for x in times[vlabel])), flush=True)
+                print("%s %s %s: ms=%s%s" % (
+                    kernel, label, vlabel, ",".join(
+                        "%.4f" % x for x in times[vlabel]),
+                    " device_ms=" + ",".join("%.4f" % x for x in device[
+                        vlabel]) if vlabel in device else ""), flush=True)
             del want, call
             torch.cuda.empty_cache()
     finally:
