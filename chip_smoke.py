@@ -342,9 +342,9 @@ PATH_MIN_LAUNCHES = {
     # returns the exact counts of both runs)
     "pregel gpu:8": {"edge_gather": 21, "pregel_deliver": 20,
                      "monoid_reduce": 21},
-    # one K11 a superstep that emits (PageRank's first 20); K10 once per
-    # class a superstep with mail (bagel_path returns 20 x the classes);
-    # K17 once per class a superstep
+    # one K11 a superstep that emits (PageRank's first 20); one K10 a
+    # superstep with mail, over every class (bagel_path returns the exact
+    # count, PATH_EXACT_LAUNCHES); K17 once per class a superstep
     "bagel gpu:8": {"obj_emit_pack": 20, "monoid_reduce": 21},
     # one K12 ranges and one expansion a join action (count, revenue)
     "join gpu:8": {"join_ranges": 2, "join_expand": 2},
@@ -355,6 +355,8 @@ PATH_MIN_LAUNCHES = {
     "tpch q1 gpu:8": {"segmented_merge": 2},
     "reduceByKey spilled gpu:8": {"segmented_merge": 2 * 4},
 }
+# kernels whose launches on a path must equal what its function returns
+PATH_EXACT_LAUNCHES = {"bagel gpu:8": ("pregel_deliver",)}
 # the path whose launches the kernels line reports for each kernel
 LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "segment_table": "groupByKey gpu:8 segmap",
@@ -521,23 +523,8 @@ def kernel_phases(K, dev):
 
     # K4: the exchange of the combined map output
     ks, vs, counts, offs = a[0][1], a[1][0], a[3], a[4]
-    cap_out = int(counts.sum(0).max().item())
-    x = K.shard_exchange([ks, vs], counts, offs, cap_out, 0, K.KEY_SENTINEL)
-    y = K.shard_exchange_plain([ks, vs], counts, offs, cap_out, 0,
-                               K.KEY_SENTINEL)
-    err = max_err([("K4 key", x[0][0], y[0][0]), ("K4 val", x[0][1], y[0][1]),
-                   ("K4 counts", x[1], y[1])])
-    moved = int(counts.sum().item())
-    out["shard_exchange"] = {
-        "max_abs_err": err,
-        "ms": timed(lambda: K.shard_exchange([ks, vs], counts, offs,
-                                             cap_out)),
-        "plain_ms": timed(lambda: K.shard_exchange_plain(
-            [ks, vs], counts, offs, cap_out, 0, K.KEY_SENTINEL), reps=3),
-        "bound_ms": bound_ms(moved * 16 * 2 + nbytes(counts, offs)
-                             + (N_SHARDS * cap_out - moved) * 16),
-        "library_ms": None,
-    }
+    out["shard_exchange"] = exchange_case(
+        K, [ks, vs], counts, offs, int(counts.sum(0).max().item()))
     for name, rec in out.items():
         print_phase(name, rec)
     for op in ("min", "max"):
@@ -545,7 +532,10 @@ def kernel_phases(K, dev):
         print_phase("reduce_by_key_compact float64 %s with NaN" % op, rec)
     _, rec = k3_case(K, *k3_q1_inputs(dev), "last", 0, N_SHARDS)
     print_phase("reduce_by_key_compact last, q1 6 leaves", rec)
-    del keys, vals, order, src, bucket, a, x, y, sd, sk, sv
+    del keys, vals, order, src, bucket, a, sd, sk, sv
+    torch.cuda.empty_cache()
+    rec = exchange_case(K, *sort_exchange_inputs(dev))
+    print_phase("shard_exchange sort path", rec)
     torch.cuda.empty_cache()
     for name, args in (("stable_partition (b) sort validity",
                         sort_validity_inputs(K, dev)),
@@ -557,6 +547,88 @@ def kernel_phases(K, dev):
         del args
         torch.cuda.empty_cache()
     return out
+
+
+def exchange_bound_ms(leaves, counts, cap_out):
+    """K4's bound: each exchanged row read once and written once, each
+    tail row written once, the counts and offsets read."""
+    row = sum(x.element_size() * math.prod(x.shape[2:]) for x in leaves)
+    moved = int(counts.sum().item())
+    N = counts.shape[0]
+    return bound_ms(moved * row * 2 + (N * cap_out - moved) * row
+                    + 2 * nbytes(counts))
+
+
+def exchange_floor(leaves, counts, cap_out):
+    """torch moving K4's bytes without its arithmetic: per leaf one
+    Tensor.copy_ of the moved rows (as one flat span) and one fill_ of
+    the tail rows."""
+    moved = int(counts.sum().item())
+    N = counts.shape[0]
+    outs = [torch.empty((N * cap_out,) + tuple(x.shape[2:]), dtype=x.dtype,
+                        device=x.device) for x in leaves]
+    srcs = [x.reshape((-1,) + tuple(x.shape[2:])) for x in leaves]
+
+    def floor():
+        for o, x in zip(outs, srcs):
+            o[:moved].copy_(x[:moved])
+            o[moved:].fill_(0)
+    return timed(floor, reps=10)
+
+
+def exchange_case(K, leaves, counts, offs, cap_out):
+    """K4 against its plain version (bit for bit; leaf 0 the key, its
+    tail the sentinel of its dtype) and timed; returns its record."""
+    fill = (float("inf") if leaves[0].dtype.is_floating_point
+            else torch.iinfo(leaves[0].dtype).max)
+    x = K.shard_exchange(leaves, counts, offs, cap_out, 0, fill)
+    y = K.shard_exchange_plain(leaves, counts, offs, cap_out, 0, fill)
+    err = max_err([("K4 leaf %d" % i, a, b) for i, (a, b) in enumerate(
+        zip(x[0], y[0]))] + [("K4 counts", x[1], y[1])])
+    del x, y
+    moved = int(counts.sum().item())
+    rec = {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.shard_exchange(leaves, counts, offs, cap_out,
+                                             0, fill)),
+        "plain_ms": timed(lambda: K.shard_exchange_plain(
+            leaves, counts, offs, cap_out, 0, fill), reps=3),
+        "bound_ms": exchange_bound_ms(leaves, counts, cap_out),
+        # no single torch call exchanges; torch moving the same bytes is
+        # the floor of the notes
+        "library_ms": None,
+        "notes": {"N": counts.shape[0], "cap_in": leaves[0].shape[1],
+                  "cap_out": cap_out, "rows": moved,
+                  "row_bytes": sum(x.element_size() * math.prod(x.shape[2:])
+                                   for x in leaves),
+                  "floor_ms": "%.4f" % exchange_floor(leaves, counts,
+                                                      cap_out)},
+    }
+    return rec
+
+
+def sort_exchange_inputs(dev):
+    """The sort path's exchange: 8 x 8,388,608 random int64 (key, value)
+    rows, range destinations by 7 bounds drawn from the keys (K6), no
+    combine, bucketed by K2; cap_out the fine class of the largest
+    destination, as collectives.exchange sizes it."""
+    from dpark_tpu_torch.backend.cuda import collectives as C
+    from dpark_tpu_torch.backend.cuda import layout
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261030)
+    shape = (N_SHARDS, CAP)
+    keys = torch.randint(INT64_MIN, INT64_MAX, shape, generator=gen,
+                         device=dev)
+    vals = torch.randint(INT64_MIN, INT64_MAX, shape, generator=gen,
+                         device=dev)
+    n = torch.full((N_SHARDS,), CAP, dtype=torch.int32, device=dev)
+    bounds = torch.sort(keys[0, :4096:512].clone()).values[1:, None]
+    dst, hist = C.range_dst_cols([keys], bounds.contiguous(), True,
+                                 N_SHARDS, n)
+    leaves, counts, offs = C.bucketize([keys, vals], n, N_SHARDS, dst, hist)
+    del keys, vals, dst, hist
+    cap_out = layout.round_capacity_fine(int(counts.sum(0).max().item()))
+    return leaves, counts, offs, cap_out
 
 
 def hash_case(K, key_cols, n, r, n_dst, want_hist, want_hash):
@@ -1711,19 +1783,37 @@ def dijkstra_numpy(n, src, dst, w, source):
     return dijkstra(g, directed=True, indices=source)
 
 
+def pregel_after_step0(dev, graph):
+    """A PageRank DevicePregel on the graph after superstep 0."""
+    from dpark_tpu_torch.backend.cuda.bagel import DevicePregel
+    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
+    n, src, dst = graph[:3]
+    dp = DevicePregel(TorchExecutor(N_SHARDS, dev), np.arange(n),
+                      np.full(n, 1.0 / n), (src, dst), *pagerank_fns(n),
+                      max_superstep=PR_STEPS + 1)
+    dp._p_step(0, None)
+    return dp
+
+
+def pregel_deliver_inputs(dp, pending):
+    """K10's inputs at the delivery of `pending` (K4, K5 + K3 first):
+    (vid, vcnt, uk, n_unique, message leaves)."""
+    from dpark_tpu_torch.backend.cuda import collectives as C
+    counts, offsets, kk, vv = pending
+    recv, rn = C.exchange([kk] + vv, counts, offsets)
+    uk, uv, nu = C.segment_reduce_keys([recv[0]], recv[1:], rn, dp._merge,
+                                       monoid="add")
+    return dp.vid, dp.vcnt, uk[0], nu, uv
+
+
 def pregel_kernel_phases(K, dev, graph):
     """K9 and K10 against their plain versions at the PageRank run's
     shapes on the Graph500 graph (a DevicePregel after superstep 0: K9
     over every edge slot; K10 on the messages superstep 1 delivers),
     then one PageRank superstep under the profiler."""
     from dpark_tpu_torch.backend.cuda import collectives as C
-    from dpark_tpu_torch.backend.cuda.bagel import DevicePregel
-    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
-    n, src, dst, _ = graph
-    dp = DevicePregel(TorchExecutor(N_SHARDS, dev), np.arange(n),
-                      np.full(n, 1.0 / n), (src, dst), *pagerank_fns(n),
-                      max_superstep=PR_STEPS + 1)
-    dp._p_step(0, None)
+    from dpark_tpu_torch.backend.cuda import layout
+    dp = pregel_after_step0(dev, graph)
     out = {}
     V, E = int(dp.vcnt.sum().item()), int(dp.ecnt.sum().item())
     slot, ecnt, vals, gate = dp.e_slot, dp.ecnt, dp.values, dp.active
@@ -1758,12 +1848,12 @@ def pregel_kernel_phases(K, dev, graph):
     print_phase("edge_gather", out["edge_gather"])
     pending, _ = dp._p_gen()
     counts, offsets, kk, vv = pending
-    recv, rn = C.exchange([kk] + vv, counts, offsets)
-    uk, uv, nu = C.segment_reduce_keys([recv[0]], recv[1:], rn, dp._merge,
-                                       monoid="add")
-    uk = uk[0]
-    del recv
-    vid, vcnt = dp.vid, dp.vcnt
+    # K4 at superstep 1's message exchange, as collectives.exchange sizes it
+    rec = exchange_case(K, [kk] + vv, counts, offsets,
+                           layout.round_capacity_fine(
+                               int(counts.sum(0).max().item())))
+    print_phase("shard_exchange pregel superstep 1", rec)
+    vid, vcnt, uk, nu, uv = pregel_deliver_inputs(dp, pending)
     a = K.pregel_deliver(vid, vcnt, uk, nu, uv, "add")
     b = K.pregel_deliver_plain(vid, vcnt, uk, nu, uv, "add")
     err = max_err([("K10 msg", a[0][0], b[0][0]), ("K10 has", a[1], b[1])])
@@ -1782,11 +1872,13 @@ def pregel_kernel_phases(K, dev, graph):
         "plain_ms": timed(lambda: K.pregel_deliver_plain(
             vid, vcnt, uk, nu, uv, "add"), reps=3),
         # ids, unique keys and their messages read once; a message and a
-        # flag written per vertex
+        # flag written per vertex (padded: every (N, cap_v) slot)
         "bound_ms": bound_ms(V * (8 + 8 + 1) + U * (8 + 8)),
         "library_ms": timed(library_k10),
         "notes": {"vertices": V, "unique_targets": U,
-                  "cap_v": dp.cap_v, "cap_u": uk.shape[1]},
+                  "cap_v": dp.cap_v, "cap_u": uk.shape[1],
+                  "bound_padded_ms": "%.4f" % bound_ms(
+                      vid.numel() * (8 + 8 + 1) + U * (8 + 8))},
     }
     print_phase("pregel_deliver", out["pregel_deliver"])
     del uk, uv, nu, a, b
@@ -1993,10 +2085,10 @@ def bagel_pagerank_numpy(n, src, dst):
     return r
 
 
-def bagel_kernel_phase(K, dev, graph):
-    """K11 against its plain version on the emission blocks of PageRank's
-    superstep 1 on the urand graph (a DeviceObjectPregel built from the
-    object walk's numpy output), then one superstep under the profiler."""
+def bagel_after_step0(dev, graph):
+    """An object PageRank DeviceObjectPregel built from the object walk's
+    numpy output over the urand graph, after superstep 0; returns it and
+    superstep 1's pending messages."""
     from dpark_tpu_torch.backend.cuda.bagel_obj import DeviceObjectPregel
     from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
     from dpark_tpu_torch.utils import pytree
@@ -2007,8 +2099,16 @@ def bagel_kernel_phase(K, dev, graph):
         np.arange(n, dtype=np.int64), [np.full(n, 1.0 / n)],
         np.ones(n, bool), deg, tgt, ev, None, PR_STEPS + 1,
         combine_op=operator.add)
-    del deg, tgt, ev
     pending, _, _ = dop._p_step(0, None)
+    return dop, pending
+
+
+def bagel_kernel_phase(K, dev, graph):
+    """K11 against its plain version on the emission blocks of PageRank's
+    superstep 1 on the urand graph (a DeviceObjectPregel built from the
+    object walk's numpy output), then one superstep under the profiler."""
+    dop, pending = bagel_after_step0(dev, graph)
+    deliver_rec = bagel_deliver_case(K, dop, pending)
     blocks, _ = dop._step_blocks(1, pending)
     a = K.obj_emit_pack(blocks)
     b = K.obj_emit_pack_plain(blocks)
@@ -2052,13 +2152,73 @@ def bagel_kernel_phase(K, dev, graph):
                    lambda: dop._p_step(1, pending))
     del dop, pending
     torch.cuda.empty_cache()
-    return {"obj_emit_pack": rec}
+    return {"obj_emit_pack": rec, "pregel_deliver classes": deliver_rec}
+
+
+def bagel_deliver_inputs(dop, pending):
+    """Superstep 1's delivery of an object PageRank: every class table
+    and the exchanged and combined messages.  The tables hold each
+    shard's ids in input order, which is id order for this graph's
+    vertices; here each shard's valid ids are permuted (a seeded
+    permutation), as a user's input in any order leaves them."""
+    from dpark_tpu_torch.backend.cuda import collectives as C
+    counts, offsets, kk, vv = pending
+    recv, rn = C.exchange([kk] + vv, counts, offsets)
+    uk, uv, nu = C.segment_reduce_keys([recv[0]], recv[1:], rn, dop._merge,
+                                       monoid=dop.monoid)
+    gen = torch.Generator(device=nu.device)
+    gen.manual_seed(20261031)
+    classes = []
+    for t in dop.tables:
+        vid, vcnt = t["vid"], t["vcnt"]
+        r = torch.rand(vid.shape, generator=gen, device=vid.device)
+        r = torch.where(C.valid_rows(vcnt, vid.shape[1]), r, 2.0)
+        classes.append((torch.gather(vid, 1, torch.argsort(r, dim=1))
+                        .contiguous(), vcnt))
+    return classes, uk[0], nu, uv, dop.monoid, dop.idents
+
+
+def bagel_deliver_case(K, dop, pending):
+    """K10's batched entry at superstep 1 of the object PageRank (each
+    shard's ids unsorted), against the per-class plain calls, bit for
+    bit."""
+    args = bagel_deliver_inputs(dop, pending)
+    classes, uk, nu, uv = args[:4]
+    ordered = all(bool((v[:, 1:] >= v[:, :-1]).all().item())
+                  for v, _ in classes)
+    got = K.pregel_deliver_classes(*args)
+    want = K.pregel_deliver_classes_plain(*args)
+    err = max_err([("K10 class %d %s" % (c, what), a, b)
+                   for c, ((gm, gh), (wm, wh)) in enumerate(zip(got, want))
+                   for what, a, b in [("has", gh, wh)] + [
+                       ("leaf %d" % i, x, y)
+                       for i, (x, y) in enumerate(zip(gm, wm))]])
+    del got, want
+    row = sum(x.element_size() * math.prod(x.shape[2:]) for x in uv)
+    V = sum(int(c.sum().item()) for _, c in classes)
+    slots = sum(v.numel() for v, _ in classes)
+    U = int(nu.sum().item())
+    rec = {
+        "max_abs_err": err,
+        "ms": timed(lambda: K.pregel_deliver_classes(*args)),
+        "plain_ms": timed(lambda: K.pregel_deliver_classes_plain(*args),
+                          reps=3),
+        "bound_ms": bound_ms(V * (8 + row + 1) + U * (8 + row)),
+        "library_ms": None,
+        "notes": {"classes": len(classes), "vertices": V, "slots": slots,
+                  "unique_targets": U, "sorted_ids": ordered,
+                  "bound_padded_ms": "%.4f" % bound_ms(
+                      slots * (8 + row + 1) + U * (8 + row))},
+    }
+    print_phase("pregel_deliver classes (bagel superstep 1)", rec)
+    return rec
 
 
 def bagel_path(graph):
     """Object PageRank through Bagel.run on gpu:8 over the urand graph,
     checked against numpy's power iteration (rtol PR_RTOL).  Returns the
-    least K10 launches: one per class a superstep with mail."""
+    K10 launches (exact: one a superstep with mail, for up to
+    K10_MAX_CLASSES classes) and the least K17 launches."""
     from dpark_tpu_torch import BasicCombiner, DparkContext
     from dpark_tpu_torch.backend.cuda import bagel_obj
     n, src, dst = graph
@@ -2105,7 +2265,9 @@ def bagel_path(graph):
     print("bagel object PageRank: max rel err vs numpy %.3g (rtol %g)" % (
         np.max(np.abs(ranks - want[ids]) / want[ids]), PR_RTOL), flush=True)
     ctx.stop()
-    return {"pregel_deliver": st["delivered"] * st["classes"],
+    from dpark_tpu_torch.backend.cuda import kernels as K
+    return {"pregel_deliver": st["delivered"] * -(
+                -st["classes"] // K.K10_MAX_CLASSES),
             "monoid_reduce": st["supersteps"] * st["classes"]}
 
 
@@ -3538,10 +3700,11 @@ def profile_first_action(label, build, top=14):
     ctx.stop()
 
 
-def check_launches(path, fn, *args):
+def check_launches(path, fn, *args, exact=True):
     """One path's run with the launch counts set to 0 just before it and
-    read just after; every kernel of the path must launch.  Returns the
-    counts."""
+    read just after; every kernel of the path must launch, as often as
+    the path needs (and, where PATH_EXACT_LAUNCHES names the kernel and
+    `exact` holds, exactly as often).  Returns the counts."""
     from dpark_tpu_torch.backend.cuda import kernels as K
     K.reset_launches()
     need = fn(*args)
@@ -3554,6 +3717,10 @@ def check_launches(path, fn, *args):
     for k, least in mins.items():
         if got[k] < least:
             fail("%s launched %d times on the %s path, want >= %d"
+                 % (k, got[k], path, least))
+        if exact and k in PATH_EXACT_LAUNCHES.get(path, ()) \
+                and got[k] != least:
+            fail("%s launched %d times on the %s path, want exactly %d"
                  % (k, got[k], path, least))
     return got
 

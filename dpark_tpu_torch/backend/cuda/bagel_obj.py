@@ -23,7 +23,7 @@ The model is the reference's:
   value-leaf) columns; K11 packs the kept ones of every (class, mail)
   block, K1-K5 pre-combine them per target and bucket them by hash(dst),
   K4 exchanges them, K5 + K3 (K14 first for a traced merge) combine
-  them, and K10 delivers them into every class slice.
+  them, and K10 delivers them into every class slice in one launch.
 
 What falls back and what propagates (ROADMAP C8): the host loop answers
 when a check refuses the program (_NotColumnarizable, _DegreeDependent,
@@ -819,9 +819,9 @@ class DeviceObjectPregel:
 
     def _step_blocks(self, s, pending):
         """Deliver the combined messages into every class slice (K4, K5 +
-        K3, K10 per class), run the vmapped compute per class (mail and
-        no-mail calls), commit the new state once every class has passed
-        its checks.  Returns (the emission blocks, in the reference's
+        K3, one K10 launch for all classes), run the vmapped compute per
+        class (mail and no-mail calls), commit the new state once every
+        class has passed its checks.  Returns (the emission blocks, in the reference's
         order, and the active count as a device scalar)."""
         t0 = time.perf_counter()
         self._bucket_canary(s)
@@ -832,17 +832,18 @@ class DeviceObjectPregel:
             recv, n = collectives.exchange([kk] + vv, counts, offsets)
             uk, uv, n_unique = collectives.segment_reduce_keys(
                 [recv[0]], recv[1:], n, self._merge, monoid=self.monoid)
-            uk = uk[0]
+            # one K10 launch delivers into every class
+            mail = kernels.pregel_deliver_classes(
+                [(t["vid"], t["vcnt"]) for t in self.tables], uk[0],
+                n_unique, uv, self.monoid, fills=self.idents)
         n_active = torch.zeros((), dtype=torch.int64, device=dev)
         blocks, committed = [], []
-        for t in self.tables:
+        for ci, t in enumerate(self.tables):
             cap, d = t["cap"], t["d"]
             vid, act, vals = t["vid"], t["act"], t["vals"]
             valid = collectives.valid_rows(t["vcnt"], cap) & (vid != _SENT)
             if pending is not None:
-                msg, has = kernels.pregel_deliver(
-                    vid, t["vcnt"], uk, n_unique, uv, self.monoid,
-                    fills=self.idents)
+                msg, has = mail[ci]
             else:
                 has = torch.zeros((N, cap), dtype=torch.bool, device=dev)
                 msg = [torch.full((N, cap) + shp, ident,

@@ -33,10 +33,12 @@
 // where the source and output offsets differ mod 16 (a branch starting
 // at an odd row of 8 B, rows of 6 B), as the two aligned source words
 // that cover it, shifted into place by funnel shifts.  The fill is
-// 16-byte words of the key fill (or of zero).  The branches' leaves and
+// 16-byte words of the key fill (or of zero); span_copy.cuh holds both
+// moves, which K4 shares.  The branches' leaves and
 // counts and the output leaves reach the kernel by value, as one
 // __grid_constant__ parameter (nothing copied to the device).
 #include "common.cuh"
+#include "span_copy.cuh"
 
 #define K16_THREADS 256
 #define K16_ROWS 2048            // output rows of a tile
@@ -54,84 +56,6 @@ struct K16Args {
   int64_t cap_out, tiles;              // tiles a shard
   int k, key_leaf;
 };
-
-// bytes [off, off + 16) of the 32 bytes a:b, off = 4 * Q + sh / 8
-template <int Q>
-__device__ __forceinline__ uint4 k16_shift(uint4 a, uint4 b, unsigned sh) {
-  const unsigned u[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  return make_uint4(__funnelshift_r(u[Q], u[Q + 1], sh),
-                    __funnelshift_r(u[Q + 1], u[Q + 2], sh),
-                    __funnelshift_r(u[Q + 2], u[Q + 3], sh),
-                    __funnelshift_r(u[Q + 3], u[Q + 4], sh));
-}
-
-// nw 16-byte words to q from src (src - off 16-byte aligned, 0 < off <
-// 16 when Q >= 0: each word from the two aligned words that cover it;
-// Q < 0: src aligned)
-template <int Q>
-__device__ __forceinline__ void k16_words(const char* src, uint4* q,
-                                          int64_t nw, unsigned sh) {
-  const uint4* s = (const uint4*)(src - (Q < 0 ? 0 : 4 * Q + sh / 8));
-  for (int64_t w0 = threadIdx.x; w0 < nw;
-       w0 += (int64_t)K16_THREADS * K16_UNROLL) {
-    uint4 v[K16_UNROLL];
-#pragma unroll
-    for (int u = 0; u < K16_UNROLL; ++u) {
-      const int64_t w = w0 + (int64_t)u * K16_THREADS;
-      if (w < nw) {
-        if constexpr (Q < 0)
-          v[u] = __ldg(s + w);
-        else
-          v[u] = k16_shift<Q>(__ldg(s + w), __ldg(s + w + 1), sh);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < K16_UNROLL; ++u) {
-      const int64_t w = w0 + (int64_t)u * K16_THREADS;
-      if (w < nw) q[w] = v[u];
-    }
-  }
-}
-
-// len bytes from src to out by the block: a head and a tail of fewer
-// than 16 bytes, 16-byte words between them
-__device__ __forceinline__ void k16_copy_span(const char* src, char* out,
-                                              int64_t len) {
-  int64_t head = (int64_t)((16 - ((uintptr_t)out & 15)) & 15);
-  if (head > len) head = len;
-  const int64_t nw = (len - head) >> 4, tail0 = head + (nw << 4);
-  if (threadIdx.x < head)
-    out[threadIdx.x] = src[threadIdx.x];
-  else if (threadIdx.x >= 32 && threadIdx.x - 32 < len - tail0)
-    out[tail0 + threadIdx.x - 32] = src[tail0 + threadIdx.x - 32];
-  const char* s = src + head;
-  uint4* q = (uint4*)(out + head);
-  const unsigned off = (unsigned)((uintptr_t)s & 15), sh = (off & 3) * 8;
-  switch (off == 0 ? -1 : (int)(off >> 2)) {
-    case -1: k16_words<-1>(s, q, nw, 0); break;
-    case 0: k16_words<0>(s, q, nw, sh); break;
-    case 1: k16_words<1>(s, q, nw, sh); break;
-    case 2: k16_words<2>(s, q, nw, sh); break;
-    default: k16_words<3>(s, q, nw, sh); break;
-  }
-}
-
-// len bytes of the pattern p at out by the block; a byte's place in the
-// pattern is its offset from the 16-byte aligned leaf base
-__device__ __forceinline__ void k16_fill_span(const char* base, char* out,
-                                              int64_t len, uint4 p) {
-  int64_t head = (int64_t)((16 - ((uintptr_t)out & 15)) & 15);
-  if (head > len) head = len;
-  const int64_t nw = (len - head) >> 4, tail0 = head + (nw << 4);
-  const unsigned char* pb = (const unsigned char*)&p;
-  if (threadIdx.x < head)
-    out[threadIdx.x] = pb[(out + threadIdx.x - base) & 15];
-  else if (threadIdx.x >= 32 && threadIdx.x - 32 < len - tail0)
-    out[tail0 + threadIdx.x - 32] =
-        pb[(out + tail0 + threadIdx.x - 32 - base) & 15];
-  uint4* q = (uint4*)(out + head);
-  for (int64_t w = threadIdx.x; w < nw; w += K16_THREADS) q[w] = p;
-}
 
 static __global__ void __launch_bounds__(K16_THREADS)
     k16_copy(const __grid_constant__ K16Args a) {
@@ -153,15 +77,16 @@ static __global__ void __launch_bounds__(K16_THREADS)
     const int64_t p0 = lo > at ? lo : at;
     const int64_t p1 = hi < at + c ? hi : at + c;
     if (p0 < p1)
-      k16_copy_span(a.src[j][l] + (s * a.cap[j] + p0 - at) * by,
-                    out + p0 * by, (p1 - p0) * by);
+      span_copy<K16_THREADS, K16_UNROLL>(
+          a.src[j][l] + (s * a.cap[j] + p0 - at) * by, out + p0 * by,
+          (p1 - p0) * by);
     at += c;
   }
   if (t == 0 && l == 0 && threadIdx.x == 0) a.totals[s] = (int32_t)at;
   if (at < hi)
-    k16_fill_span(base, out + (lo > at ? lo : at) * by,
-                  (hi - (lo > at ? lo : at)) * by,
-                  l == a.key_leaf ? a.fill : make_uint4(0, 0, 0, 0));
+    span_fill<K16_THREADS>(base, out + (lo > at ? lo : at) * by,
+                           (hi - (lo > at ? lo : at)) * by,
+                           l == a.key_leaf ? a.fill : make_uint4(0, 0, 0, 0));
 }
 
 // k branches: src the k x nleaves source leaves (branch-major), n the k
@@ -198,17 +123,10 @@ extern "C" int dpk_union_concat(const void* const* src, int k,
                         ? (const char*)src[(int64_t)j * nleaves + l]
                         : nullptr;
   }
-  uint64_t f = 0;
-  if (key_leaf >= 0) {
-    if (bytes[key_leaf] == 8)
-      f = key_fill;
-    else if (bytes[key_leaf] == 4)
-      f = (key_fill & 0xffffffffull) | (key_fill << 32);
-    else
-      return (int)cudaErrorInvalidValue;
-  }
-  a.fill = make_uint4((unsigned)f, (unsigned)(f >> 32), (unsigned)f,
-                      (unsigned)(f >> 32));
+  if (key_leaf >= 0 && bytes[key_leaf] != 8 && bytes[key_leaf] != 4)
+    return (int)cudaErrorInvalidValue;
+  a.fill = span_pattern(key_leaf >= 0 ? key_fill : 0,
+                        key_leaf >= 0 ? (int)bytes[key_leaf] : 8);
   const int64_t grid = (int64_t)N * a.tiles;
   if (grid == 0) return (int)cudaGetLastError();
   if (grid > (int64_t)INT32_MAX) return (int)cudaErrorInvalidValue;

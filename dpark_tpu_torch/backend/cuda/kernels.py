@@ -12,7 +12,9 @@ Kernels (sources under csrc/, one shared library each):
   K7 segment_table          csrc/segment_table.cu
   K8 bucket_gather          csrc/bucket_groups.cu (with bucket_scatter)
   K9 edge_gather            csrc/edge_gather.cu
-  K10 pregel_deliver        csrc/pregel_deliver.cu
+  K10 pregel_deliver        csrc/pregel_deliver.cu (with
+                            pregel_deliver_classes, every class of the
+                            object Bagel in one launch)
   K11 obj_emit_pack         csrc/obj_emit_pack.cu
   K12 join_ranges           csrc/join_expand.cu (with join_expand)
   K13 rid_fold              csrc/rid_fold.cu
@@ -22,7 +24,8 @@ Kernels (sources under csrc/, one shared library each):
                             one device code, segmented_merge.cuh; a traced
                             merge's register program, merge_program.py)
   K15 column_ranges         csrc/column_ranges.cu
-  K16 union_concat          csrc/union_concat.cu
+  K16 union_concat          csrc/union_concat.cu (its span copy and
+                            fill, csrc/span_copy.cuh, shared with K4)
   K17 monoid_reduce         csrc/monoid_reduce.cu (with
                             distinct_key_counts)
   K18 topk_select           csrc/topk_select.cu
@@ -99,7 +102,8 @@ build_seconds = None
 # spills per kernel land in build_logs[name] once loaded
 VERBOSE_PTXAS = ("radix_sort", "stable_partition", "segment_table",
                  "reduce_by_key_compact", "edge_gather", "obj_emit_pack",
-                 "join_expand", "bucket_groups")
+                 "join_expand", "bucket_groups", "shard_exchange",
+                 "pregel_deliver")
 build_logs = {}
 
 
@@ -247,6 +251,12 @@ def _bind(name, lib):
         fn = lib.dpk_pregel_deliver
         fn.argtypes = [_P, _P, _I, _L, _P, _P, _L, _P, _P, _P, _P, _P, _I,
                        _P, _P]
+        fn.restype = ctypes.c_int
+        classes = lib.dpk_pregel_deliver_classes
+        classes.argtypes = [_I, _P, _P, _P, _P, _I, _P, _P, _L, _P, _P, _P,
+                            _P, _P, _I, _P, _P]
+        classes.restype = ctypes.c_int
+        return fn, classes
     elif name == "obj_emit_pack":
         count = lib.dpk_obj_emit_count
         count.argtypes = [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P]
@@ -661,7 +671,8 @@ def shard_exchange(leaves, counts, offsets, cap_out, key_leaf=0,
     receives bucket d (rows offsets[s, d] .. + counts[s, d]) of every
     source s, source-major, packed to the front of a (N, cap_out) leaf;
     the key leaf's tail holds `key_fill`, other tails 0.  Returns
-    (received leaves, recv_counts (N,) int32)."""
+    (received leaves, recv_counts (N,) int32).  The kernel reads the
+    counts on the card (no host read here) and writes recv_counts."""
     leaves = list(leaves)
     N, cap_in = leaves[0].shape[:2]
     _check_cols(leaves, N, cap_in, "leaves")
@@ -684,9 +695,7 @@ def shard_exchange(leaves, counts, offsets, cap_out, key_leaf=0,
     fill_bits = 0
     if key_leaf is not None:
         # the kernel stores the fill's bit pattern at the leaf's width
-        fill_bits = int(torch.tensor(key_fill, dtype=leaves[key_leaf].dtype)
-                        .view(torch.int64 if leaves[key_leaf].element_size()
-                              == 8 else torch.int32))
+        fill_bits = _fill_bits(key_fill, leaves[key_leaf].dtype)[0]
     rc = fn(_ptrs(leaves), _ptrs(out),
             (ctypes.c_int64 * len(leaves))(*[_row_bytes(l) for l in leaves]),
             len(leaves), counts.data_ptr(), offsets.data_ptr(), N, cap_in,
@@ -1319,6 +1328,11 @@ def _elem_bits(value, dtype):
     return int(iv.item()) & ((1 << (8 * w)) - 1), w
 
 
+# the fills of K4, K10 and K16 (a sentinel, a monoid's identity) recur
+# on every call: their bits are computed once a process
+_fill_bits = functools.lru_cache(maxsize=256)(_elem_bits)
+
+
 def _deliver_fills(leaves, combine, fills):
     """The value written where a slot has no mail, one per leaf: `fills`
     when given, else the combine monoid's identity."""
@@ -1376,26 +1390,110 @@ def pregel_deliver(vid, vcnt, uk, n_unique, leaves, combine, fills=None):
     if not _on_cuda([vid, vcnt, uk, n_unique] + leaves):
         return pregel_deliver_plain(vid, vcnt, uk, n_unique, leaves,
                                     combine, fills)
-    fn = _kernel("pregel_deliver")
+    fn = _kernel("pregel_deliver")[0]
     dev = vid.device
     out = [torch.empty((N, cap_v) + tuple(u.shape[2:]), dtype=u.dtype,
                        device=dev) for u in leaves]
     has = torch.empty((N, cap_v), dtype=torch.bool, device=dev)
-    all_fills = _deliver_fills(leaves, combine, fills)
-    for i in range(0, max(1, len(leaves)), MAX_LEAVES):
-        part = leaves[i:i + MAX_LEAVES]
-        idents = [_elem_bits(f, u.dtype)
-                  for f, u in zip(all_fills[i:i + MAX_LEAVES], part)]
-        k = max(1, len(part))
+    for part, dst, leaf_args in _deliver_groups(
+            leaves, out, _deliver_fills(leaves, combine, fills)):
         rc = fn(vid.data_ptr(), vcnt.data_ptr(), N, cap_v, uk.data_ptr(),
-                n_unique.data_ptr(), cap_u, _ptrs(part),
-                _ptrs(out[i:i + MAX_LEAVES]),
-                (ctypes.c_int64 * k)(*[_row_bytes(u) for u in part]),
-                (ctypes.c_uint64 * k)(*[b for b, _ in idents]),
-                (ctypes.c_int * k)(*[w for _, w in idents]), len(part),
-                has.data_ptr(), _stream())
+                n_unique.data_ptr(), cap_u, *leaf_args, has.data_ptr(),
+                _stream())
         _check("pregel_deliver", rc)
     return out, has
+
+
+def _deliver_groups(leaves, out, fills):
+    """(leaves, outputs, the C entry's leaf arguments) a launch: at most
+    MAX_LEAVES leaves each (one launch with none where there are no
+    leaves; each launch writes the same flags)."""
+    for i in range(0, max(1, len(leaves)), MAX_LEAVES):
+        part, dst = leaves[i:i + MAX_LEAVES], out[i:i + MAX_LEAVES]
+        idents = [_fill_bits(f, u.dtype)
+                  for f, u in zip(fills[i:i + MAX_LEAVES], part)]
+        k = max(1, len(part))
+        yield part, dst, (
+            _ptrs(part), _ptrs(dst),
+            (ctypes.c_int64 * k)(*[_row_bytes(u) for u in part]),
+            (ctypes.c_uint64 * k)(*[b for b, _ in idents]),
+            (ctypes.c_int * k)(*[w for _, w in idents]), len(part))
+
+
+K10_MAX_CLASSES = 32       # K10_MAX_CLASSES of csrc/pregel_deliver.cu
+# a class's rows in the batched outputs start at a multiple of this
+_K10_ROW_ALIGN = 16
+
+
+def pregel_deliver_classes_plain(classes, uk, n_unique, leaves, combine,
+                                 fills=None):
+    return [pregel_deliver_plain(vid, vcnt, uk, n_unique, leaves, combine,
+                                 fills) for vid, vcnt in classes]
+
+
+def pregel_deliver_classes(classes, uk, n_unique, leaves, combine,
+                           fills=None):
+    """pregel_deliver into several vertex tables at once (the object
+    Bagel's degree classes): `classes` is a list of (vid (N, cap_c)
+    int64 in any order, vcnt (N,) int32) sharing the shard's unique keys
+    and message leaves.  Returns one (message leaves, has) per class,
+    each equal to pregel_deliver's for that class.  On the card one
+    launch serves up to K10_MAX_CLASSES classes and MAX_LEAVES leaves;
+    the outputs of all classes share one allocation a leaf (each class's
+    rows a contiguous view)."""
+    classes = [(vid, vcnt) for vid, vcnt in classes]
+    leaves = list(leaves)
+    _need(len(classes) >= 1, "at least one class")
+    N = uk.shape[0]
+    cap_u = uk.shape[1] if uk.dim() == 2 else 0
+    if fills is None:
+        _need(combine in ("add", "min", "max", "mul"),
+              "unknown monoid %r" % (combine,))
+    else:
+        _need(len(fills) == len(leaves), "one fill per message leaf")
+    _need(uk.dtype == torch.int64 and uk.is_contiguous() and cap_u >= 1,
+          "uk (N, cap_u) must be contiguous int64")
+    _need(n_unique.dtype == torch.int32 and n_unique.shape == (N,),
+          "n_unique must be (N,) int32")
+    for vid, vcnt in classes:
+        _need(vid.dtype == torch.int64 and vid.is_contiguous()
+              and vid.dim() == 2 and vid.shape[0] == N,
+              "each class's vid must be a contiguous (N, cap) int64")
+        _need(vcnt.dtype == torch.int32 and vcnt.shape == (N,),
+              "each class's vcnt must be (N,) int32")
+    _check_cols(leaves, N, cap_u, "message leaves")
+    tensors = [uk, n_unique] + leaves + [t for c in classes for t in c]
+    if not _on_cuda(tensors):
+        # the per-class wrapper, which runs its plain version here
+        return [pregel_deliver(vid, vcnt, uk, n_unique, leaves, combine,
+                               fills) for vid, vcnt in classes]
+    fn = _kernel("pregel_deliver")[1]
+    dev = uk.device
+    caps = [vid.shape[1] for vid, _ in classes]
+    row0, rows = [], 0
+    for cap in caps:
+        row0.append(rows)
+        rows += -(-N * cap // _K10_ROW_ALIGN) * _K10_ROW_ALIGN
+    flat = [torch.empty((rows,) + tuple(u.shape[2:]), dtype=u.dtype,
+                        device=dev) for u in leaves]
+    has = torch.empty((rows,), dtype=torch.bool, device=dev)
+    all_fills = _deliver_fills(leaves, combine, fills)
+    for c0 in range(0, len(classes), K10_MAX_CLASSES):
+        part = classes[c0:c0 + K10_MAX_CLASSES]
+        nc = len(part)
+        cls = ((ctypes.c_void_p * nc)(*[v.data_ptr() for v, _ in part]),
+               (ctypes.c_void_p * nc)(*[n.data_ptr() for _, n in part]),
+               (ctypes.c_int64 * nc)(*caps[c0:c0 + nc]),
+               (ctypes.c_int64 * nc)(*row0[c0:c0 + nc]))
+        for _, _, leaf_args in _deliver_groups(leaves, flat, all_fills):
+            rc = fn(nc, *cls, N, uk.data_ptr(), n_unique.data_ptr(), cap_u,
+                    *leaf_args, has.data_ptr(), _stream())
+            _check("pregel_deliver", rc)
+    out = []
+    for cap, r in zip(caps, row0):
+        out.append(([x[r:r + N * cap].view((N, cap) + tuple(x.shape[1:]))
+                     for x in flat], has[r:r + N * cap].view(N, cap)))
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -1956,12 +2054,6 @@ def _union_cap_out(counts):
     return round_capacity(max(map(sum, zip(*hc)), default=0) or 1)
 
 
-@functools.lru_cache(maxsize=64)
-def _union_fill_bits(value, dtype):
-    """The key fill's bit pattern (a few sentinels recur on every call)."""
-    return _elem_bits(value, dtype)[0]
-
-
 def union_concat(branches, key_leaf=0, key_fill=KEY_SENTINEL):
     """The device union's concatenation.  `branches` is a list of k (<=
     MAX_UNION_BRANCHES) (leaves, n) pairs with the same leaves (dtypes and
@@ -2015,7 +2107,7 @@ def union_concat(branches, key_leaf=0, key_fill=KEY_SENTINEL):
     row_bytes = (ctypes.c_int64 * nl)(*[_row_bytes(x) for x in lv0])
     fill_bits = 0
     if key_leaf is not None:
-        fill_bits = _union_fill_bits(key_fill, lv0[key_leaf].dtype)
+        fill_bits = _fill_bits(key_fill, lv0[key_leaf].dtype)[0]
     totals = torch.empty((N,), dtype=torch.int32, device=dev)
     cap_out = _union_cap_out(counts)
     out = [torch.empty((N, cap_out) + shp, dtype=dt, device=dev)

@@ -200,3 +200,59 @@ def test_obj_emit_pack_matches_plain_on_card():
         assert kernels.LAUNCHES["obj_emit_pack"] == before + 1
         for x, y in zip([a[0]] + a[1] + [a[2]], [b[0]] + b[1] + [b[2]]):
             assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("fills", [None, [0.0, 0]])
+def test_pregel_deliver_classes_match_reference(fills, jnp):
+    """The batched class delivery (its CPU route and its plain version)
+    against the reference's per-class delivery, bagel_obj.py:856-869:
+    `pos = clip(searchsorted(uk, vid))`, `has = (uk[pos] == vid) & (vid
+    != SENT)`, `where(has, u[pos], ident)`, over degree classes whose ids
+    are grouped by shard in input order (unsorted), the sentinel past each
+    shard's count."""
+    rng = np.random.RandomState(11)
+    N, cap_u, caps = 3, 24, (4, 16, 1, 8)
+    pool = rng.choice(1000, N * sum(caps), replace=False).astype(np.int64)
+    classes, at, mine = [], 0, [[] for _ in range(N)]
+    for cap in caps:
+        vid = np.full((N, cap), SENT, np.int64)
+        vcnt = np.zeros(N, np.int32)
+        for s in range(N):
+            c = 0 if (s == 2 and cap == 16) else rng.randint(0, cap + 1)
+            vid[s, :c] = pool[at:at + c] * N + s
+            at += c
+            vcnt[s] = c
+            mine[s] += list(vid[s, :c])
+        classes.append((vid, vcnt))
+    uk = np.full((N, cap_u), SENT, np.int64)
+    nu = np.zeros(N, np.int32)
+    for s in range(N):
+        keys = np.unique(np.concatenate([
+            rng.choice(mine[s], min(len(mine[s]), 10), replace=False),
+            rng.choice(1000, 6) * N + s + 3000 * N]).astype(np.int64))
+        uk[s, :len(keys)] = keys[:cap_u]
+        nu[s] = min(len(keys), cap_u)
+    leaves = [rng.randn(N, cap_u), rng.randint(-9, 9, (N, cap_u, 2))]
+    idents = fills if fills is not None else [0, 0]
+    args = ([(_t(v), _t(c)) for v, c in classes], _t(uk), _t(nu),
+            [_t(l) for l in leaves], "add", fills)
+    got = kernels.pregel_deliver_classes(*args)
+    plain = kernels.pregel_deliver_classes_plain(*args)
+    assert len(got) == len(plain) == len(caps)
+    any_mail = False
+    for (vid, _), (msg, has), (pmsg, phas) in zip(classes, got, plain):
+        assert torch.equal(has, phas)
+        for s in range(N):
+            u, ids = jnp.asarray(uk[s]), jnp.asarray(vid[s])
+            pos = jnp.clip(jnp.searchsorted(u, ids), 0, cap_u - 1)
+            want_has = (u[pos] == ids) & (ids != SENT)
+            assert np.array_equal(has[s].numpy(), np.asarray(want_has))
+            any_mail |= bool(np.asarray(want_has).any())
+            for g, p, l, ident in zip(msg, pmsg, leaves, idents):
+                lv = jnp.asarray(l[s])
+                h = want_has.reshape(want_has.shape + (1,) * (lv.ndim - 1))
+                want = np.asarray(jnp.where(h, lv[pos],
+                                            np.asarray(ident, l.dtype)))
+                assert np.array_equal(g[s].numpy(), want)
+                assert torch.equal(g[s], p[s])
+    assert any_mail

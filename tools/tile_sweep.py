@@ -1,30 +1,34 @@
 """Time K2 (stable_partition), K7 (segment_table), K3
 (reduce_by_key_compact), K9 (edge_gather), K11 (obj_emit_pack), K1
-(hash_dst_hist), K16 (union_concat), K12's ranges (join_ranges) or K8's
-state gather (bucket_gather_state) built with other tile constants,
-each variant held against the plain version, at the shapes of
-tools/partition_profile.py (K2, K7), tools/k3_profile.py (K3),
-tools/graph_kernels_profile.py (K9, K11) or chip_smoke.py's phases (K1:
-hash_phase_cases, K16: union_phase_cases, K12: join_phase_cases over
-TPC-H SF 10, K8: state_gather_inputs, the 20 classes in one call and the
-widest alone).
+(hash_dst_hist), K16 (union_concat), K12's ranges (join_ranges), K8's
+state gather (bucket_gather_state), K4 (shard_exchange) or K10
+(pregel_deliver) built with other tile constants, each variant held
+against the plain version, at the shapes of tools/partition_profile.py
+(K2, K7), tools/k3_profile.py (K3), tools/graph_kernels_profile.py (K9,
+K11), tools/union_hash_profile.py (K4: k4_cases, K10: k10_cases) or
+chip_smoke.py's phases (K1: hash_phase_cases, K16: union_phase_cases,
+K12: join_phase_cases over TPC-H SF 10, K8: state_gather_inputs, the 20
+classes in one call and the widest alone).
 
-    python3 tools/tile_sweep.py k2|k7|k3|k9|k11|k1|k16|k12|k8s \
+    python3 tools/tile_sweep.py k2|k7|k3|k9|k11|k1|k16|k12|k8s|k4|k10 \
         [NAME=VALUE,...] ...
 
 Each argument after the kernel is one variant: the `#define NAME ...`
 lines of its source (stable_partition.cu, segment_table.cu,
 reduce_by_key.cu, edge_gather.cu, obj_emit_pack.cu, hash_dst_hist.cu,
-union_concat.cu, join_expand.cu or bucket_groups.cu) rewritten with the
-values given (an empty variant, "", is the checkout's source).
+union_concat.cu, join_expand.cu, bucket_groups.cu, shard_exchange.cu:
+K4_ROWS, K4_THREADS, K4_UNROLL; or pregel_deliver.cu: K10_ITEMS,
+K10_SPLITTERS, the splitter table and so its stride, K10_MIN_STRIDE,
+K10_BLOCKS, K10_THREADS) rewritten with the values given (an empty
+variant, "", is the checkout's source).
 Every variant is built beside the others (nvcc with -Xptxas -v, all
 started together) under build/tile_sweep/, bound as kernels.py binds the
 checkout's library, and timed through the wrapper (the wrapper's tile
 constant set to the variant's THREADS x ITEMS, K8's to its K8S_CHUNK),
 in the order given and
 then reversed.  Prints each variant's ptxas registers and spills and its
-ms a shape (for K12 and K8 also its device ms, the call replayed from a
-CUDA graph).  Needs a card.
+ms a shape (for K12, K8, K4 and K10 also its device ms, the call
+replayed from a CUDA graph).  Needs a card.
 """
 
 import ctypes
@@ -56,9 +60,11 @@ KERNELS = {"k2": ("stable_partition", "K2", "_K2_TILE"),
            "k1": ("hash_dst_hist", "K1", None),
            "k16": ("union_concat", "K16", None),
            "k12": ("join_expand", "K12", "_K12_TILE"),
-           "k8s": ("bucket_groups", "K8S", "_K8S_CHUNK")}
+           "k8s": ("bucket_groups", "K8S", "_K8S_CHUNK"),
+           "k4": ("shard_exchange", "K4", None),
+           "k10": ("pregel_deliver", "K10", None)}
 # kernels whose calls a CUDA graph captures: their device ms printed too
-DEVICE = ("k12", "k8s")
+DEVICE = ("k12", "k8s", "k4", "k10")
 
 
 def variant_source(text, defs):
@@ -173,6 +179,22 @@ def cases(kernel, dev):
                              ("widest", classes[-1:])):
             yield (label, run(K.bucket_gather_state_plain, which),
                    lambda: run(K.bucket_gather_state, which), prof.same)
+        return
+    if kernel == "k4":
+        def outputs(res):
+            return list(res[0]) + [res[1]]
+        for label, (leaves, counts, offs, cap_out) in uh.k4_cases(dev):
+            args = (leaves, counts, offs, cap_out, 0, K.KEY_SENTINEL)
+            yield (label, outputs(K.shard_exchange_plain(*args)),
+                   lambda: outputs(K.shard_exchange(*args)), prof.same)
+            del leaves, args
+        return
+    if kernel == "k10":
+        for label, call, want, _ in uh.k10_cases(dev):
+            yield (label, want, lambda: call(K.pregel_deliver,
+                                             K.pregel_deliver_classes),
+                   prof.same)
+            del want
         return
     if kernel == "k3":
         for label, make in k3_profile.CASES:

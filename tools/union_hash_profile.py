@@ -1,49 +1,62 @@
 """Where K16 (union_concat), K1 (hash_dst_hist), K12's ranges
-(join_ranges) and K8's state gather (bucket_gather_state) spend their
-time on the card, call by call where the smoke's paths run them, and the
-checkout's kernels against another tree's in one process.
+(join_ranges), K8's state gather (bucket_gather_state), K4
+(shard_exchange) and K10 (pregel_deliver) spend their time on the card,
+call by call where the smoke's paths run them, and the checkout's
+kernels against another tree's in one process.
 
     python3 tools/union_hash_profile.py census [--old-csrc DIR] [--out FILE]
                                                [--paths union,window,...]
+                                               [--kernels k4,k10,...]
     python3 tools/union_hash_profile.py compare [--old-csrc DIR]
-                                                [--kernels k16,k1,k12,k8s]
+                                                [--kernels k16,k1,k12,k8s,
+                                                           k4,k10]
 
-census: drives chip_smoke.py's paths (union, window, reduce = reduceByKey
-gpu:8, group = partitionBy/groupByKey/distinct gpu:8, pregel, bagel,
-join; all by default) with the launch counts set to 0 around each, as
-the smoke's check_launches does, and records every K16, K1, K12 ranges
-and K8 state-gather call on them: its shape (K16: branches, rows, row
-bytes, cap_out; K1: the key columns, N x cap, r, n_dst, whether the
-histogram and the hash are kept; K12: nk, N, cap_a, cap_b and the valid
-rows of each side; K8: the class width B, G, the live lanes and their
-rows), its time by CUDA events around the call, its host time, and the
+census: drives chip_smoke.py's paths (union, window, reduce =
+reduceByKey gpu:8, group = partitionBy/groupByKey/distinct gpu:8, sort =
+sortByKey gpu:8, pregel, bagel, join; all by default) with the launch
+counts set to 0 around each, as the smoke's check_launches does, and
+records every call of the kernels named in --kernels (all six by
+default) on them: its shape (K16: branches, rows, row bytes, cap_out;
+K1: the key columns, N x cap, r, n_dst, whether the histogram and the
+hash are kept; K12: nk, N, cap_a, cap_b and the valid rows of each side;
+K8: the class width B, G, the live lanes and their rows; K4: N, cap_in,
+cap_out, the rows moved and each leaf's row bytes; K10: the classes, N,
+each class's cap_v, cap_u, the unique keys, the valid slots, whether the
+ids are sorted, each leaf's row bytes), its bound (bytes over 3.35
+TB/s), its time by CUDA events around the call, its host time, and the
 call split by CUDA events into its stages (K16: the one host read of the
-counts, the earlier wrapper's Python descriptor table and its two
-pageable copies or the checkout's arguments, the kernel, the totals;
-K12: the host part before the launch, with the earlier wrapper's
-pageable copy of the key table, then the earlier kernel's three
-launches, ranges, scan and offsets, or the checkout's one; K8: the host
-part, then the launch).  Prints one line a path, kernel and shape (the
-mean, least and most ms) and writes every call as a JSON line to --out
-(build/union_hash_profile/census.jsonl by default).
+counts, the arguments, the kernel, the totals; K12: the host part before
+the launch, with the earlier wrapper's pageable copy of the key table,
+then the earlier kernel's three launches, ranges, scan and offsets, or
+the checkout's one; K8: the host part, then the launch).  Prints one
+line a path, kernel and shape (the mean, least and most ms), one a path
+and kernel with their sums (calls, ms, host ms, bound ms), and writes
+every call as a JSON line to --out (build/union_hash_profile/census.jsonl
+by default).
 With --old-csrc the paths run the other tree's kernels named in
---old-kernels (all four by default; built with
-their earlier C interfaces: K16's descriptor table and source pointers
-copied to the device; K12's key table copied to the device and its
-three launches one at a time, through a shim that includes the other
-tree's join_expand.cu; K8's state gather without scratch) in place of
-the checkout's.
+--old-kernels (those of --kernels by default) in place of the
+checkout's: K1, K16, K4 and K10 as the checkout's wrappers over the
+other tree's library (its C interfaces must be the checkout's; the
+object Bagel's batched K10 as one call a class of the single-class
+entry), K12 and K8 with their first C interfaces (K12's key table
+copied to the device and its three launches one at a time, through a
+shim that includes the other tree's join_expand.cu; K8's state gather
+without scratch).
 
 compare: at the smoke's phase shapes (K16: union_phase_cases, K1:
 hash_phase_cases, K12: join_phase_cases over TPC-H SF 10, K8:
-state_gather_inputs, class by class), each call's CUDA-event time in the
-order old, new, new, old, its bound (bytes over 3.35 TB/s), the torch
-composite or library call's time, K1's floor (torch moving the same
-bytes: the valid keys converted to int32, the rest filled), the K16 and
-K12 calls' stages, every output held against the plain version bit for
-bit and two calls of the new kernel against each other; K8's class
-times summed.  Without --old-csrc, the checkout's kernels alone.  Needs
-a card; builds into build/union_hash_profile/.
+state_gather_inputs, class by class; K4: the combined reduceByKey
+output, the sort path's 8 x 8,388,608 rows and a PageRank superstep's
+message exchange; K10: the PageRank superstep's delivery and the object
+PageRank's class tables, the batched entry against one call a class),
+each call's CUDA-event time in the order old, new, new, old, its bound
+(bytes over 3.35 TB/s), the torch composite or library call's time,
+K1's and K4's floor (torch moving the same bytes), the K16 and K12
+calls' stages, K4's, K10's and K12's device ms (the call replayed from
+a CUDA graph), every output held against the plain version bit for bit
+and two calls of the new kernel against each other; K8's class times
+summed.  Without --old-csrc, the checkout's kernels alone.  Needs a
+card; builds into build/union_hash_profile/.
 """
 
 import argparse
@@ -69,10 +82,16 @@ N = smoke.N_SHARDS
 OUT = os.path.join(ROOT, "build", "union_hash_profile", "census.jsonl")
 # the checkout's wrappers (census patches K's with its recorders)
 CHECKOUT = {name: getattr(K, name) for name in (
-    "union_concat", "hash_dst_hist", "join_ranges", "bucket_gather_state")}
+    "union_concat", "hash_dst_hist", "join_ranges", "bucket_gather_state",
+    "shard_exchange", "pregel_deliver", "pregel_deliver_classes")}
+# each kernel's library (the source named lib + ".cu")
+LIBS = {"k1": "hash_dst_hist", "k16": "union_concat", "k12": "join_expand",
+        "k8s": "bucket_groups", "k4": "shard_exchange",
+        "k10": "pregel_deliver"}
+ALL = "k16,k1,k12,k8s,k4,k10"
 # the stages a report line prints (their mean device ms)
-STAGES = ("read", "table", "copies", "arguments", "launch", "totals",
-          "setup", "host_setup", "ranges", "scan", "offsets")
+STAGES = ("read", "arguments", "launch", "totals", "setup", "host_setup",
+          "ranges", "scan", "offsets")
 
 
 # the earlier K12 ranges' three launches one at a time (ranges, scan,
@@ -99,20 +118,20 @@ extern "C" int dpk_k12_step(int step, const int64_t* desc, int nk, int N,
 '''
 
 
-def build_old(csrc):
-    """K1, K16, K12's ranges and K8's state gather of another tree as
-    ctypes functions: K1 with the checkout's C interface, K16 with the
-    earlier one (a device descriptor table and a device table of source
-    pointers), K12 with its device key table (the whole entry and its
-    three launches apart), K8 without scratch."""
+def build_old(csrc, which):
+    """The kernels `which` (of k1, k16, k12, k8s, k4, k10) of another tree
+    as ctypes functions: K1, K4 and K10 with the checkout's C interfaces
+    (K10's single-class entry), K16 with the earlier one (a device
+    descriptor table and a device table of source pointers), K12 with
+    its device key table (the whole entry and its three launches apart),
+    K8 without scratch."""
     out = os.path.join(ROOT, "build", "union_hash_profile")
     os.makedirs(out, exist_ok=True)
     shim = os.path.join(out, "k12_old_shim.cu")
     with open(shim, "w") as f:
         f.write(K12_SHIM)
     procs = {}
-    for name in ("hash_dst_hist", "union_concat", "join_expand",
-                 "bucket_groups"):
+    for name in (LIBS[k] for k in which):
         so = os.path.join(out, "lib%s_old.so" % name)
         src = shim if name == "join_expand" else \
             os.path.join(csrc, name + ".cu")
@@ -125,21 +144,32 @@ def build_old(csrc):
         if p.wait() != 0:
             raise SystemExit("old %s failed to build" % name)
         libs[name] = ctypes.CDLL(so)
-    old = {"k1": libs["hash_dst_hist"].dpk_hash_dst_hist,
-           "k16": libs["union_concat"].dpk_union_concat,
-           "k12": libs["join_expand"].dpk_join_ranges,
-           "k12_step": libs["join_expand"].dpk_k12_step,
-           "k8s": libs["bucket_groups"].dpk_bucket_gather_state}
-    old["k1"].argtypes = [_P, _P, _I, _P, _I, _L, _I, _I, _P, _P, _P, _P]
-    old["k16"].argtypes = [_P, _I, _L, _P, _P, _P, _I, _I, ctypes.c_uint64,
-                           _P]
-    old["k12"].argtypes = [_P, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-                           _P]
-    old["k12_step"].argtypes = [_I] + old["k12"].argtypes
-    old["k8s"].argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _L, _P,
-                           _P, _P, _P, _I, _P]
-    for fn in old.values():
-        fn.restype = ctypes.c_int
+    old = {}
+    if "k1" in which:
+        old["k1"] = K._bind("hash_dst_hist", libs["hash_dst_hist"])
+    if "k4" in which:
+        old["k4"] = K._bind("shard_exchange", libs["shard_exchange"])
+    if "k10" in which:
+        # the single-class entry (the earlier tree has no batched one)
+        one = libs["pregel_deliver"].dpk_pregel_deliver
+        one.argtypes = [_P, _P, _I, _L, _P, _P, _L, _P, _P, _P, _P, _P, _I,
+                        _P, _P]
+        one.restype = ctypes.c_int
+        old["k10"] = (one, None)
+    if "k16" in which:
+        old["k16"] = K._bind("union_concat", libs["union_concat"])
+    if "k12" in which:
+        old["k12"] = libs["join_expand"].dpk_join_ranges
+        old["k12_step"] = libs["join_expand"].dpk_k12_step
+        old["k12"].argtypes = [_P, _I, _I, _L, _L, _P, _P, _P, _P, _P, _P,
+                               _P, _P]
+        old["k12_step"].argtypes = [_I] + old["k12"].argtypes
+        old["k12"].restype = old["k12_step"].restype = ctypes.c_int
+    if "k8s" in which:
+        old["k8s"] = libs["bucket_groups"].dpk_bucket_gather_state
+        old["k8s"].argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _L,
+                               _P, _P, _P, _P, _I, _P]
+        old["k8s"].restype = ctypes.c_int
     return old
 
 
@@ -148,68 +178,6 @@ def _mark(marks, label):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         marks.append((label, ev, time.perf_counter()))
-
-
-def old_union_concat(fn, branches, key_leaf=0, key_fill=K.KEY_SENTINEL,
-                     marks=None):
-    """The earlier K16 wrapper: its checks, one host read, a Python
-    descriptor loop, two pageable copies, the kernel, the totals' copy;
-    `marks` collects (stage, CUDA event, host clock) after each."""
-    _mark(marks, "start")
-    # the earlier wrapper's checks
-    branches = [(list(lv), n) for lv, n in branches]
-    lv0 = branches[0][0]
-    N_ = lv0[0].shape[0]
-    nl = len(lv0)
-    spec = [(leaf.dtype, tuple(leaf.shape[2:])) for leaf in lv0]
-    tensors = []
-    for lv, n in branches:
-        K._need(len(lv) == nl and all(
-            (leaf.dtype, tuple(leaf.shape[2:])) == sp
-            for leaf, sp in zip(lv, spec)), "branches differ")
-        K._check_cols(lv, N_, lv[0].shape[1], "branch leaves")
-        K._need(n.dtype == torch.int32 and n.shape == (N_,), "counts")
-        tensors += lv + [n]
-    K._on_cuda(tensors)
-    host, totals, cap_out = K._union_sizes([n for _, n in branches])
-    _mark(marks, "read")
-    dev = lv0[0].device
-    out = [torch.empty((N_, cap_out) + shp, dtype=dt, device=dev)
-           for dt, shp in spec]
-    rows, longest = [], 0
-    hc = host.tolist()
-    tot = totals.tolist()
-    for s in range(N_):
-        at = 0
-        for j, (lv, _) in enumerate(branches):
-            c = hc[j][s]
-            if c:
-                rows += [j, s * lv[0].shape[1], s * cap_out + at, c]
-                longest = max(longest, c)
-                at += c
-        if cap_out > tot[s]:
-            rows += [-1, 0, s * cap_out + tot[s], cap_out - tot[s]]
-            longest = max(longest, cap_out - tot[s])
-    _mark(marks, "table")
-    desc = torch.tensor(rows, dtype=torch.int64).to(dev)
-    srcp = torch.tensor([leaf.data_ptr() for lv, _ in branches
-                         for leaf in lv], dtype=torch.int64).to(dev)
-    _mark(marks, "copies")
-    fill_bits = 0
-    if key_leaf is not None:
-        fill_bits = K._elem_bits(key_fill, lv0[key_leaf].dtype)[0]
-    rc = fn(desc.data_ptr(), len(rows) // 4, longest, srcp.data_ptr(),
-            K._ptrs(out), (ctypes.c_int64 * nl)(*[K._row_bytes(o)
-                                                  for o in out]),
-            nl, -1 if key_leaf is None else int(key_leaf), fill_bits,
-            K._stream())
-    if rc:
-        raise RuntimeError("old K16 failed to launch: %d" % rc)
-    K.LAUNCHES["union_concat"] += 1
-    _mark(marks, "launch")
-    res = out, totals.to(torch.int32).to(dev)
-    _mark(marks, "totals")
-    return res
 
 
 @contextlib.contextmanager
@@ -227,14 +195,16 @@ def patched(obj, name, value):
 
 
 def new_union_concat(branches, key_leaf=0, key_fill=K.KEY_SENTINEL,
-                     marks=None):
-    """The checkout's K16 wrapper, with a CUDA event after its host read
-    of the counts (K._union_cap_out), its arguments and the kernel (the
-    library's entry)."""
+                     marks=None, lib=None):
+    """The checkout's K16 wrapper (over `lib`, another tree's library, if
+    given), with a CUDA event after its host read of the counts
+    (K._union_cap_out), its arguments and the kernel (the library's
+    entry)."""
+    fn = lib or K._kernel("union_concat")
     if marks is None:
-        return CHECKOUT["union_concat"](branches, key_leaf, key_fill)
+        with patched(K._libs, "union_concat", fn):
+            return CHECKOUT["union_concat"](branches, key_leaf, key_fill)
     read = K._union_cap_out
-    fn = K._kernel("union_concat")
 
     def read_m(*a):
         res = read(*a)
@@ -372,7 +342,7 @@ def split_ms(marks):
 # census: every K16 and K1 call on the smoke's paths
 # ---------------------------------------------------------------------
 class Census:
-    def __init__(self, k16, k1_lib, k12, k8s):
+    def __init__(self, k16, k1_lib, k12, k8s, k4_lib, k10_lib):
         self.path = None
         self.calls = []
         self.k16_impl = k16
@@ -380,6 +350,73 @@ class Census:
         self.k1_impl = CHECKOUT["hash_dst_hist"]
         self.k12_impl = k12
         self.k8s_impl = k8s
+        self.k4_lib = k4_lib
+        # the other tree's K10 has no batched entry: one call a class
+        self.k10_lib = k10_lib
+        self.k10_old = k10_lib[1] is None
+
+    def shard_exchange(self, leaves, counts, offsets, cap_out, key_leaf=0,
+                       key_fill=K.KEY_SENTINEL):
+        leaves = list(leaves)
+        args = (leaves, counts, offsets, cap_out, key_leaf, key_fill)
+        if not leaves[0].is_cuda:
+            return CHECKOUT["shard_exchange"](*args)
+        marks = []
+        _mark(marks, "start")
+        with patched(K._libs, "shard_exchange", self.k4_lib):
+            out = CHECKOUT["shard_exchange"](*args)
+        _mark(marks, "call")
+        self.calls.append({
+            "kernel": "K4", "path": self.path, "N": counts.shape[0],
+            "cap_in": leaves[0].shape[1], "cap_out": int(cap_out),
+            "row_bytes": [K._row_bytes(x) for x in leaves],
+            "_rows": counts.sum(), "_marks": marks})
+        return out
+
+    def pregel_deliver(self, vid, vcnt, uk, n_unique, leaves, combine,
+                       fills=None):
+        args = (vid, vcnt, uk, n_unique, leaves, combine, fills)
+        if not vid.is_cuda:
+            return CHECKOUT["pregel_deliver"](*args)
+        marks = []
+        _mark(marks, "start")
+        with patched(K._libs, "pregel_deliver", self.k10_lib):
+            out = CHECKOUT["pregel_deliver"](*args)
+        _mark(marks, "call")
+        self._k10_record([(vid, vcnt)], uk, n_unique, leaves, marks)
+        return out
+
+    def pregel_deliver_classes(self, classes, uk, n_unique, leaves, combine,
+                               fills=None):
+        classes = list(classes)
+        if not uk.is_cuda:
+            return CHECKOUT["pregel_deliver_classes"](
+                classes, uk, n_unique, leaves, combine, fills)
+        marks = []
+        _mark(marks, "start")
+        with patched(K._libs, "pregel_deliver", self.k10_lib):
+            if self.k10_old:
+                out = [CHECKOUT["pregel_deliver"](vid, vcnt, uk, n_unique,
+                                                  leaves, combine, fills)
+                       for vid, vcnt in classes]
+            else:
+                out = CHECKOUT["pregel_deliver_classes"](
+                    classes, uk, n_unique, leaves, combine, fills)
+        _mark(marks, "call")
+        self._k10_record(classes, uk, n_unique, leaves, marks)
+        return out
+
+    def _k10_record(self, classes, uk, n_unique, leaves, marks):
+        self.calls.append({
+            "kernel": "K10", "path": self.path, "classes": len(classes),
+            "N": uk.shape[0], "caps": [v.shape[1] for v, _ in classes],
+            "cap_u": uk.shape[1],
+            "row_bytes": [K._row_bytes(x) for x in leaves],
+            "_unique": n_unique.sum(),
+            "_valid": sum(c.sum() for _, c in classes),
+            "_sorted": torch.stack([(v[:, 1:] >= v[:, :-1]).all()
+                                    for v, _ in classes]).all(),
+            "_marks": marks})
 
     def join_ranges(self, a_keys, a_n, b_keys, b_n):
         a_keys, b_keys = list(a_keys), list(b_keys)
@@ -459,6 +496,19 @@ class Census:
             elif c["kernel"] == "K12":
                 c["a_rows"] = int(c.pop("_a_rows").item())
                 c["b_rows"] = c["rows"] = int(c.pop("_b_rows").item())
+            elif c["kernel"] == "K4":
+                c["rows"] = int(c.pop("_rows").item())
+                rb = sum(c["row_bytes"])
+                c["bound"] = smoke.bound_ms(
+                    c["rows"] * rb * 2 + (c["N"] * c["cap_out"] - c["rows"])
+                    * rb + 8 * c["N"] * c["N"])
+            elif c["kernel"] == "K10":
+                c["unique"] = int(c.pop("_unique").item())
+                c["rows"] = int(c.pop("_valid").item())
+                c["sorted"] = bool(c.pop("_sorted").item())
+                rb = sum(c["row_bytes"])
+                c["bound"] = smoke.bound_ms(c["rows"] * (8 + rb + 1)
+                                            + c["unique"] * (8 + rb))
             else:
                 c["live"] = int(c.pop("_live").item())
                 c["rows"] = int(c.pop("_rows").item())
@@ -479,25 +529,46 @@ class Census:
             elif c["kernel"] == "K8s":
                 key = ("K8s", "B=%07d G=%d N=%d pad=%s" % (
                     c["B"], c["G"], c["N"], c["pad"]))
+            elif c["kernel"] == "K4":
+                key = ("K4", "N=%d cap_in=%d cap_out=%d row_bytes=%s" % (
+                    c["N"], c["cap_in"], c["cap_out"], c["row_bytes"]))
+            elif c["kernel"] == "K10":
+                key = ("K10", "classes=%d N=%d caps=%s cap_u=%d row_bytes=%s "
+                       "sorted=%d" % (c["classes"], c["N"], c["caps"],
+                                      c["cap_u"], c["row_bytes"],
+                                      c["sorted"]))
             else:
                 key = ("K1", "cols=%s N=%d cap=%d r=%d n_dst=%d hist=%d "
                        "hash=%d" % (",".join(c["cols"]), c["N"], c["cap"],
                                     c["r"], c["n_dst"], c["hist"],
                                     c["hash"]))
             groups.setdefault(key, []).append(c)
+        totals = {}
         for (kernel, shape), cs in sorted(groups.items()):
             ms = [c["ms"] for c in cs]
             stages = [s for s in STAGES if s in cs[0]]
+            bound = sum(c.get("bound", 0.0) for c in cs)
+            t = totals.setdefault(kernel, [0, 0.0, 0.0, 0.0])
+            t[0] += len(cs)
+            t[1] += sum(ms)
+            t[2] += sum(c["host"] for c in cs)
+            t[3] += bound
             print("census %s %s %s: launches=%d ms=%.4f (%.4f-%.4f) "
-                  "total_ms=%.4f host_ms=%.4f rows=%d-%d%s%s" % (
+                  "total_ms=%.4f host_ms=%.4f rows=%d-%d%s%s%s" % (
                       path, kernel, shape, len(cs), np.mean(ms), min(ms),
                       max(ms), sum(ms), np.mean([c["host"] for c in cs]),
                       min(c["rows"] for c in cs), max(c["rows"] for c in cs),
                       (" live=%d-%d" % (min(c["live"] for c in cs),
                                         max(c["live"] for c in cs))
                        if kernel == "K8s" else ""),
+                      (" bound_total_ms=%.4f" % bound
+                       if "bound" in cs[0] else ""),
                       "".join(" %s=%.4f" % (s, np.mean([c[s] for c in cs]))
                               for s in stages)), flush=True)
+        for kernel, (n, ms, host, bound) in sorted(totals.items()):
+            print("census %s %s sum: calls=%d total_ms=%.4f host_ms=%.4f "
+                  "bound_ms=%.4f" % (path, kernel, n, ms, host, bound),
+                  flush=True)
 
 
 def census_paths(which):
@@ -517,6 +588,9 @@ def census_paths(which):
         return ("partition/group/distinct gpu:8", smoke.group_paths,
                 smoke.bench_data())
 
+    def sort():
+        return ("sort gpu:8", smoke.sort_path, ("gpu:8",) + smoke.sort_data())
+
     def pregel():
         graph = smoke.kronecker_graph(smoke.GRAPH_SCALE, smoke.EDGE_FACTOR)
         weights = np.random.default_rng(20261022).integers(
@@ -530,48 +604,49 @@ def census_paths(which):
     def join():
         return ("join gpu:8", smoke.join_path, (smoke.tpch_data(),))
     makers = {"union": union, "window": window, "reduce": reduce,
-              "group": group, "pregel": pregel, "bagel": bagel,
-              "join": join}
+              "group": group, "sort": sort, "pregel": pregel,
+              "bagel": bagel, "join": join}
     for name in which:
         yield makers[name]
 
 
 def census(args, old):
-    use = set(args.old_kernels.split(",")) if old is not None else set()
-    if use:
-        k1_lib = old["k1"]
-
+    kernels = args.kernels.split(",")
+    use = set(old) if old is not None else set()
+    k1_lib = old["k1"] if "k1" in use else K._kernel("hash_dst_hist")
+    k4_lib = old["k4"] if "k4" in use else K._kernel("shard_exchange")
+    k10_lib = old["k10"] if "k10" in use else K._kernel("pregel_deliver")
+    k16, k12, k8s = new_union_concat, new_join_ranges, new_state_gather
+    if "k16" in use:
         def k16(branches, key_leaf=0, key_fill=K.KEY_SENTINEL, marks=None):
-            return old_union_concat(old["k16"], branches, key_leaf,
-                                    key_fill, marks)
-
+            return new_union_concat(branches, key_leaf, key_fill, marks,
+                                    lib=old["k16"])
+    if "k12" in use:
         def k12(*a, marks=None):
             return old_join_ranges(old, *a, marks=marks)
-
+    if "k8s" in use:
         def k8s(*a, marks=None):
             return old_state_gather(old, *a, marks=marks)
-    if "k1" not in use:
-        k1_lib = K._kernel("hash_dst_hist")
-    if "k16" not in use:
-        k16 = new_union_concat
-    if "k12" not in use:
-        k12 = new_join_ranges
-    if "k8s" not in use:
-        k8s = new_state_gather
-    rec = Census(k16, k1_lib, k12, k8s)
+    rec = Census(k16, k1_lib, k12, k8s, k4_lib, k10_lib)
+    recorders = {"k16": ["union_concat"], "k1": ["hash_dst_hist"],
+                 "k12": ["join_ranges"], "k8s": ["bucket_gather_state"],
+                 "k4": ["shard_exchange"],
+                 "k10": ["pregel_deliver", "pregel_deliver_classes"]}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with patched(K, "union_concat", rec.union_concat), \
-            patched(K, "hash_dst_hist", rec.hash_dst_hist), \
-            patched(K, "join_ranges", rec.join_ranges), \
-            patched(K, "bucket_gather_state", rec.bucket_gather_state), \
-            open(args.out, "w") as f:
+    with contextlib.ExitStack() as stack:
+        for k in kernels:
+            for name in recorders[k]:
+                stack.enter_context(patched(K, name, getattr(rec, name)))
+        f = stack.enter_context(open(args.out, "w"))
         for make in census_paths(args.paths.split(",")):
             t0 = time.perf_counter()
             path, fn, fargs = make()
             rec.path = path
             print("census %s: inputs in %.1f s" % (
                 path, time.perf_counter() - t0), flush=True)
-            smoke.check_launches(path, fn, *fargs)
+            # the other tree's K10 launches once a class on the object
+            # Bagel, where the checkout's launches once a superstep
+            smoke.check_launches(path, fn, *fargs, exact=not rec.k10_old)
             del fargs
             rec.resolve()
             rec.report(path)
@@ -719,15 +794,15 @@ def compare_k16(dev, old):
             return list(res[0]) + [res[1]]
         versions = []
         if old is not None:
-            versions.append(("old", lambda: old_union_concat(
-                old["k16"], branches)))
+            versions.append(("old", lambda: new_union_concat(
+                branches, lib=old["k16"])))
         versions.append(("new", lambda: K.union_concat(branches)))
         profile("k16", label, versions, outputs, want, {
             "bound_ms": rec["bound_ms"], **rec["notes"]})
         splits = [("new", new_union_concat)]
         if old is not None:
-            splits.insert(0, ("old", lambda b, marks: old_union_concat(
-                old["k16"], b, marks=marks)))
+            splits.insert(0, ("old", lambda b, marks: new_union_concat(
+                b, marks=marks, lib=old["k16"])))
         for name, call in splits:
             print("k16 split %s %s: %s" % (name, label,
                                            split(call, branches)),
@@ -822,8 +897,148 @@ def compare_k8s(dev, old):
         "%s=%.4f" % kv for kv in sums.items())), flush=True)
 
 
+_PREGEL = {}
+
+
+def pregel_state(dev):
+    """The smoke's PageRank DevicePregel after superstep 0 on the Graph500
+    graph and superstep 1's pending messages (built once a process)."""
+    if not _PREGEL:
+        t0 = time.perf_counter()
+        graph = smoke.kronecker_graph(smoke.GRAPH_SCALE, smoke.EDGE_FACTOR)
+        dp = smoke.pregel_after_step0(dev, graph)
+        _PREGEL["dp"], _PREGEL["pending"] = dp, dp._p_gen()[0]
+        print("pregel: graph and superstep 0 in %.1f s" % (
+            time.perf_counter() - t0), flush=True)
+    return _PREGEL["dp"], _PREGEL["pending"]
+
+
+def k4_cases(dev):
+    """(label, (leaves, counts, offsets, cap_out)): the smoke's K4 phases
+    (the combined reduceByKey output of bench.py's data, the sort path's
+    exchange, a PageRank superstep's message exchange)."""
+    from dpark_tpu_torch.backend.cuda import collectives as C
+    from dpark_tpu_torch.backend.cuda import layout
+    keys, vals, n = smoke.bench_columns(dev)
+    kk, vv, counts, offs = C.bucketize_combine_keys([keys], [vals], n, N,
+                                                    None, monoid="add")
+    del keys, vals
+    yield "bench", ([kk[0]] + vv, counts, offs,
+                    int(counts.sum(0).max().item()))
+    del kk, vv
+    torch.cuda.empty_cache()
+    yield "sort path", smoke.sort_exchange_inputs(dev)
+    torch.cuda.empty_cache()
+    _, (counts, offs, kk, vv) = pregel_state(dev)
+    yield "pregel superstep 1", ([kk] + vv, counts, offs,
+                                 layout.round_capacity_fine(
+                                     int(counts.sum(0).max().item())))
+
+
+def compare_k4(dev, old):
+    for label, (leaves, counts, offs, cap_out) in k4_cases(dev):
+        args = (leaves, counts, offs, cap_out, 0, K.KEY_SENTINEL)
+        out, recv = K.shard_exchange_plain(*args)
+        want = list(out) + [recv]
+        del out
+
+        def outputs(res):
+            return list(res[0]) + [res[1]]
+        versions = []
+        if old is not None:
+            def old_call():
+                with patched(K._libs, "shard_exchange", old["k4"]):
+                    return K.shard_exchange(*args)
+            versions.append(("old", old_call))
+        versions.append(("new", lambda: K.shard_exchange(*args)))
+        profile("k4", label, versions, outputs, want, {
+            "bound_ms": smoke.exchange_bound_ms(leaves, counts, cap_out),
+            "floor_ms": smoke.exchange_floor(leaves, counts, cap_out),
+            "N": counts.shape[0], "cap_in": leaves[0].shape[1],
+            "cap_out": cap_out, "rows": int(counts.sum().item()),
+            "row_bytes": [K._row_bytes(x) for x in leaves]},
+            graph=("old", "new"))
+        del want, leaves, args
+        torch.cuda.empty_cache()
+
+
+def k10_cases(dev):
+    """(label, call(fn) -> outputs, the plain outputs, notes): the smoke's
+    K10 phases (the PageRank superstep-1 delivery, one call with sorted
+    ids; the object PageRank's superstep-1 class tables, unsorted, one
+    batched call).  call(one, batched) runs the case through the
+    single-class and the batched wrapper."""
+    dp, pending = pregel_state(dev)
+    vid, vcnt, uk, nu, uv = smoke.pregel_deliver_inputs(dp, pending)
+    args = (vid, vcnt, uk, nu, uv, "add")
+    out, has = K.pregel_deliver_plain(*args)
+    V, U = int(vcnt.sum().item()), int(nu.sum().item())
+    yield ("pregel superstep 1",
+           lambda one, batched: flat([one(*args)]), flat([(out, has)]), {
+               "bound_ms": smoke.bound_ms(V * 17 + U * 16),
+               "bound_padded_ms": smoke.bound_ms(vid.numel() * 17 + U * 16),
+               "vertices": V, "unique": U, "cap_v": vid.shape[1],
+               "cap_u": uk.shape[1]})
+    del out, has, args, vid, uk, uv
+    _PREGEL.clear()
+    torch.cuda.empty_cache()
+    graph = smoke.urand_graph(smoke.URAND_SCALE, smoke.URAND_EDGE_FACTOR)
+    dop, pending = smoke.bagel_after_step0(dev, graph)
+    args = smoke.bagel_deliver_inputs(dop, pending)
+    classes, uk, nu, uv = args[:4]
+    rb = sum(K._row_bytes(x) for x in uv)
+    V = sum(int(c.sum().item()) for _, c in classes)
+    slots = sum(v.numel() for v, _ in classes)
+    U = int(nu.sum().item())
+    yield ("bagel classes superstep 1",
+           lambda one, batched: flat(batched(*args)),
+           flat(K.pregel_deliver_classes_plain(*args)), {
+               "bound_ms": smoke.bound_ms(V * (8 + rb + 1) + U * (8 + rb)),
+               "bound_padded_ms": smoke.bound_ms(slots * (8 + rb + 1)
+                                                 + U * (8 + rb)),
+               "classes": len(classes),
+               "caps": [v.shape[1] for v, _ in classes],
+               "vertices": V, "unique": U})
+
+
+def flat(res):
+    """[leaves..., has] of each (message leaves, has) in turn."""
+    return [x for msg, has in res for x in list(msg) + [has]]
+
+
+def compare_k10(dev, old):
+    """K10 at k10_cases: the old kernel (one call a class on the object
+    Bagel), the new one a class, and the new batched entry."""
+    def per_class(lib):
+        def batched(classes, *rest):
+            with patched(K._libs, "pregel_deliver", lib):
+                return [K.pregel_deliver(v, c, *rest) for v, c in classes]
+        return batched
+
+    def version(lib, batched):
+        def run(call):
+            def one(*a):
+                with patched(K._libs, "pregel_deliver", lib):
+                    return K.pregel_deliver(*a)
+            return lambda: call(one, batched)
+        return run
+    new = K._kernel("pregel_deliver")
+    for label, call, want, notes in k10_cases(dev):
+        makers = []
+        if old is not None:
+            makers.append(("old", version(old["k10"], per_class(old["k10"]))))
+        if label.startswith("bagel"):
+            makers.append(("new_per_class", version(new, per_class(new))))
+        makers.append(("new", version(new, K.pregel_deliver_classes)))
+        versions = [(name, make(call)) for name, make in makers]
+        profile("k10", label, versions, list, want, notes,
+                graph=tuple(n for n, _ in versions))
+        del want, versions
+        torch.cuda.empty_cache()
+
+
 COMPARE = {"k16": compare_k16, "k1": compare_k1, "k12": compare_k12,
-           "k8s": compare_k8s}
+           "k8s": compare_k8s, "k4": compare_k4, "k10": compare_k10}
 
 
 def compare(args, old):
@@ -836,16 +1051,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("census", "compare"))
     ap.add_argument("--old-csrc", help="a csrc/ holding the earlier "
-                    "hash_dst_hist.cu, union_concat.cu, join_expand.cu and "
-                    "bucket_groups.cu")
-    ap.add_argument("--paths", default="union,window,reduce,group,pregel,"
-                    "bagel,join")
+                    "sources of the kernels compared")
+    ap.add_argument("--paths", default="union,window,reduce,group,sort,"
+                    "pregel,bagel,join")
     ap.add_argument("--out", default=OUT, help="census: the calls' JSON "
                     "lines")
-    ap.add_argument("--old-kernels", default="k16,k1,k12,k8s",
-                    help="census: the kernels the other tree's replace")
-    ap.add_argument("--kernels", default="k16,k1,k12,k8s",
-                    help="compare: the kernels, of k16, k1, k12 and k8s")
+    ap.add_argument("--old-kernels", help="census: the kernels the other "
+                    "tree's replace (those of --kernels by default)")
+    ap.add_argument("--kernels", default=ALL,
+                    help="the kernels, of k16, k1, k12, k8s, k4 and k10")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -854,7 +1068,10 @@ def main():
                          text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
     K.build()
-    old = build_old(args.old_csrc) if args.old_csrc else None
+    which = (args.old_kernels or args.kernels).split(",")
+    if args.mode == "compare":
+        which = args.kernels.split(",")
+    old = build_old(args.old_csrc, which) if args.old_csrc else None
     print("build: %.2f s" % (time.perf_counter() - t0), flush=True)
     if args.mode == "census":
         census(args, old)
