@@ -25,7 +25,10 @@ NVIDIA GPU.
    version at 8 x 8,388,608 rows (bench values: int64 add, min, max;
    float64 and float32 adds; a bool count; ragged shards with an empty
    one) and its distinct-key count over keys sorted per shard (nk = 1
-   and 2), with the library calls beside it; holds K14 (B8, a
+   and 2), with the library calls beside it; holds K8's scatter over
+   every size class of the power-law table in one launch against its
+   plain version and the per-class calls it replaced, with a
+   Tensor.scatter_ of the same values as its floor; holds K14 (B8, a
    traced merge's register program over each run) against its plain
    version in five cases (bench runs with a (v, 1) add, one run a shard,
    TPC-H Q1's six leaves over its four runs, an argmax, an empty
@@ -58,7 +61,8 @@ NVIDIA GPU.
    squares) -> count / collect over bench.py's data (65,536 groups of
    1,024) and over 67,107,840 power-law rows (16,384 groups, group g of
    2^(g mod 16) rows: 1,024 groups in each of 16 size classes), checked
-   exactly against numpy (SegMapOp: K7, K2, K8); then mapValues(sum /
+   exactly against numpy (SegMapOp: K7, K2, K8's gather a class and
+   one K8 scatter an apply); then mapValues(sum /
    len / min / max / mean) with the combiner rewrite off (SegAggOp: K3
    once a job) and, as a path of its own, sum with it on (a combining
    shuffle); a tuple-value reduceByKey (the traced merge, lowered: K14
@@ -67,16 +71,19 @@ NVIDIA GPU.
    Kronecker graph at scale 22, edge factor 16 (4,194,304 vertices,
    67,108,864 directed edges): PageRank (20 supersteps, checked against
    a numpy power iteration, rtol 1e-10) and SSSP (min combine, integer
-   weights, checked exactly against scipy's Dijkstra), after holding K9
-   and K10 against their plain versions on that graph (K9 with its
-   bound over every padded slot and its launch split);
+   weights, checked exactly against scipy's Dijkstra), after holding K9,
+   K10 and K17's active count against their plain versions on that
+   graph (K9 with its bound over every padded slot and its launch
+   split);
 7. drives the object Bagel on gpu:8 through Bagel.run over a GAP urand
    graph at scale 19, edge factor 16 (524,288 Vertex objects,
    8,388,608 Edge objects, both endpoints uniform): PageRank with
    Message(target, rank * Edge.value), 20 updates, checked against a
    numpy power iteration (rtol 1e-10), on bucketed degree classes, after
    holding K11 against its plain version on one superstep's emission
-   blocks (with its launch split);
+   blocks (with its launch split) and K17's active count over every
+   class in one launch against its plain version and the per-class
+   calls it replaced;
 8. drives the device join on gpu:8 over TPC-H lineitem and orders at
    scale factor 10, generated from a seed by the specification's row
    rules (15,000,000 orders, about 60,000,000 lines): the join's count,
@@ -135,8 +142,11 @@ NVIDIA GPU.
    kernel of a path must launch during that path's run (counts reset
    just before it, read just after), as often as PATH_MIN_LAUNCHES (or
    the path itself: one K9 launch a superstep, one K10 launch a
-   superstep with mail, or a class with mail) asks where a path must
-   launch a kernel more than once;
+   superstep with mail) asks where a path must launch a kernel more
+   than once, and exactly as often as PATH_EXACT_LAUNCHES says where the
+   count is the design's: one K10 and one K17 active count a superstep
+   (over every class on the object Bagel), one K8 scatter a SegMapOp
+   apply;
 12. profiles the first action of each gpu:8 path and one PageRank
    superstep of each Pregel, holds K18 (B7, the top path's per-shard
    top-n) against its plain version at 8 x 8,388,608 rows and times it
@@ -229,6 +239,8 @@ SOURCES = {
         "dpark_tpu/backend/tpu/fuse.py:803"),
     "monoid_reduce": ("dpark_tpu_torch/backend/cuda/csrc/monoid_reduce.cu",
                       "dpark_tpu/backend/tpu/executor.py:1799"),
+    "active_count": ("dpark_tpu_torch/backend/cuda/csrc/monoid_reduce.cu",
+                     "dpark_tpu/backend/tpu/bagel_obj.py:887"),
     "distinct_key_counts": (
         "dpark_tpu_torch/backend/cuda/csrc/monoid_reduce.cu",
         "dpark_tpu/backend/tpu/executor.py:1827"),
@@ -276,13 +288,13 @@ PATH_KERNELS = {
     # active count
     "pregel gpu:8": ["hash_dst_hist", "stable_partition",
                      "reduce_by_key_compact", "shard_exchange", "radix_sort",
-                     "edge_gather", "pregel_deliver", "monoid_reduce"],
-    # an object superstep: K10 per class, the vmapped compute, K11 pack,
-    # K1 + K5 + K2 + K3 pre-combine, K4 exchange, K5 + K3 combine, K17's
-    # active count per class
+                     "edge_gather", "pregel_deliver", "active_count"],
+    # an object superstep: K10 for every class, the vmapped compute, K11
+    # pack, K1 + K5 + K2 + K3 pre-combine, K4 exchange, K5 + K3 combine,
+    # K17's active count over every class
     "bagel gpu:8": ["hash_dst_hist", "stable_partition",
                     "reduce_by_key_compact", "shard_exchange", "radix_sort",
-                    "pregel_deliver", "obj_emit_pack", "monoid_reduce"],
+                    "pregel_deliver", "obj_emit_pack", "active_count"],
     # the traced tuple merge: K1 + K5 + K2, K14, K3 "last"; K4; K5, K14,
     # K3 "last"
     "tuple reduceByKey gpu:8": ["hash_dst_hist", "stable_partition",
@@ -341,11 +353,11 @@ PATH_MIN_LAUNCHES = {
     # superstep with mail: PageRank's 21 and 20 at least (pregel_path
     # returns the exact counts of both runs)
     "pregel gpu:8": {"edge_gather": 21, "pregel_deliver": 20,
-                     "monoid_reduce": 21},
+                     "active_count": 21},
     # one K11 a superstep that emits (PageRank's first 20); one K10 a
-    # superstep with mail, over every class (bagel_path returns the exact
-    # count, PATH_EXACT_LAUNCHES); K17 once per class a superstep
-    "bagel gpu:8": {"obj_emit_pack": 20, "monoid_reduce": 21},
+    # superstep with mail and one K17 a superstep, each over every class
+    # (bagel_path returns the exact counts, PATH_EXACT_LAUNCHES)
+    "bagel gpu:8": {"obj_emit_pack": 20, "active_count": 21},
     # one K12 ranges and one expansion a join action (count, revenue)
     "join gpu:8": {"join_ranges": 2, "join_expand": 2},
     # K14 wherever the plain scan ran before: the map side's pre-combine
@@ -355,15 +367,21 @@ PATH_MIN_LAUNCHES = {
     "tpch q1 gpu:8": {"segmented_merge": 2},
     "reduceByKey spilled gpu:8": {"segmented_merge": 2 * 4},
 }
-# kernels whose launches on a path must equal what its function returns
-PATH_EXACT_LAUNCHES = {"bagel gpu:8": ("pregel_deliver",)}
+# kernels whose launches on a path must equal what its function returns:
+# the active count once a superstep, K8's scatter once a SegMapOp apply
+PATH_EXACT_LAUNCHES = {"bagel gpu:8": ("pregel_deliver", "active_count"),
+                       "pregel gpu:8": ("active_count",),
+                       "groupByKey gpu:8 segmap": ("bucket_scatter",),
+                       "groupByKey gpu:8 segmap power-law": (
+                           "bucket_scatter",),
+                       "window gpu:8": ("bucket_scatter",)}
 # the path whose launches the kernels line reports for each kernel
 LINE_PATH = {"range_dst_hist": "sort gpu:8", "radix_sort": "sort gpu:8",
              "segment_table": "groupByKey gpu:8 segmap",
              "bucket_gather": "groupByKey gpu:8 segmap",
-             "bucket_scatter": "groupByKey gpu:8 segmap",
+             "bucket_scatter": "groupByKey gpu:8 segmap power-law",
              "edge_gather": "pregel gpu:8", "pregel_deliver": "pregel gpu:8",
-             "obj_emit_pack": "bagel gpu:8",
+             "obj_emit_pack": "bagel gpu:8", "active_count": "bagel gpu:8",
              "join_ranges": "join gpu:8", "join_expand": "join gpu:8",
              "rid_fold": "reduceByKey spilled gpu:8",
              "segmented_merge": "tpch q1 gpu:8",
@@ -1310,6 +1328,71 @@ def seg_group_cases(K, C, table, vals, b, pads):
     return out
 
 
+def scatter_classes_case(K, C, table):
+    """K8's batched scatter over every size class of `table` in one
+    launch (each class's results random int64, as SegMapOp.apply hands
+    them over), against its plain version (zeros, then each class's
+    scatter) and the per-class calls it replaced (torch.zeros of the
+    output, then one bucket_scatter a class on its columns of offsets and
+    counts), exactly.  Bound: each lane's member id and result read
+    once, every output slot written once (a pad slot's member id is its
+    own slot: bucket_members keeps the ids past n_seg in order; the bound
+    with every member id read is printed beside it); library (the
+    floor): one Tensor.scatter_ of a members-ordered buffer of the same
+    values."""
+    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
+    _, _, bucket, n_seg, hist, _ = table
+    members, counts, offsets = C.bucket_members(bucket, hist, n_seg)
+    lay = TorchExecutor._seg_bucket_layout(hist)
+    classes = [b for b, _, _ in lay]
+    gen = torch.Generator(device=members.device)
+    gen.manual_seed(20261101)
+    results = [[torch.randint(-2 ** 40, 2 ** 40, (N_SHARDS, G),
+                              generator=gen, device=members.device)]
+               for _, _, G in lay]
+    dts = [torch.int64]
+    N, cap = members.shape
+
+    def per_class():
+        outs = [torch.zeros((N, cap), dtype=torch.int64,
+                            device=members.device)]
+        for b, res in zip(classes, results):
+            K.bucket_scatter(outs, res, members, offsets[:, b].contiguous(),
+                             counts[:, b].contiguous())
+        return outs
+    got = K.bucket_scatter_classes(results, members, offsets, counts,
+                                   classes, dts)
+    err = max_err([
+        ("K8 scatter classes", got[0], K.bucket_scatter_classes_plain(
+            results, members, offsets, counts, classes, dts)[0]),
+        ("K8 scatter classes per class", got[0], per_class()[0])])
+    idx = members.long()
+    buf = torch.gather(got[0], 1, idx)
+    floor = torch.empty_like(got[0])
+    floor.scatter_(1, idx, buf)
+    max_err([("K8 scatter floor", floor, got[0])])
+    lanes = int(counts[:, classes].sum().item())
+    rec = {"max_abs_err": err,
+           "ms": timed(lambda: K.bucket_scatter_classes(
+               results, members, offsets, counts, classes, dts), reps=10),
+           "plain_ms": timed(lambda: K.bucket_scatter_classes_plain(
+               results, members, offsets, counts, classes, dts), reps=3),
+           "bound_ms": bound_ms(N * cap * 8 + lanes * (4 + 8)
+                                + nbytes(offsets, counts)),
+           "library_ms": timed(lambda: floor.scatter_(1, idx, buf),
+                               reps=10),
+           "notes": {"classes": len(classes), "lanes": lanes,
+                     "per_class_ms": "%.4f" % timed(per_class, reps=10),
+                     "bound_members_ms": "%.4f" % bound_ms(
+                         N * cap * (4 + 8) + lanes * 8),
+                     "bound_per_class_ms": "%.4f" % bound_ms(
+                         N * cap * 8 + lanes * (4 + 8 + 8)),
+                     "split": launch_split(lambda: K.bucket_scatter_classes(
+                         results, members, offsets, counts, classes,
+                         dts))}}
+    return rec
+
+
 def valid_lanes(members, boff, bcnt):
     """(N, cap) bool: the member slots of one size class."""
     i = torch.arange(members.shape[1], device=members.device)[None, :]
@@ -1376,7 +1459,7 @@ def seg_kernel_phases(K, dev):
     cases = seg_group_cases(K, C, table, vals, width, ("zero", "edge"))
     add("bucket_gather", cases["zero"])
     add("bucket_gather edge", cases["edge"])
-    add("bucket_scatter", cases["scatter"])
+    add("bucket_scatter one class", cases["scatter"])
     del keys, table, cases
     pk, pn = power_law_columns(K, dev)
     table, rec = seg_table_case(K, pk, pn, K7_OLD_MS["power-law"])
@@ -1386,7 +1469,8 @@ def seg_kernel_phases(K, dev):
     widest = int(table[4].sum(0).nonzero().max().item())
     cases = seg_group_cases(K, C, table, vals, widest, ("zero",))
     add("bucket_gather power-law widest class", cases["zero"])
-    add("bucket_scatter power-law", cases["scatter"])
+    add("bucket_scatter power-law widest class", cases["scatter"])
+    add("bucket_scatter", scatter_classes_case(K, C, table))
     del pk, vals, table, cases
     torch.cuda.empty_cache()
     return out
@@ -1593,18 +1677,23 @@ def check_groups(what, got, want):
 
 def segmap_path(label, keys, vals, want):
     """groupByKey(8).mapValues(sum of squares) -> count / collect on
-    gpu:8, every stage on the tensor path, checked against numpy."""
+    gpu:8, every stage on the tensor path, checked against numpy.
+    Returns the K8 scatter launches it needs: one a SegMapOp apply."""
     from dpark_tpu_torch import Columns, DparkContext
+    from dpark_tpu_torch.backend.cuda import fuse
     ctx = DparkContext("gpu:8")
     r = ctx.parallelize(Columns(keys, vals), 8).groupByKey(8) \
         .mapValues(sumsq)
-    if act("gpu:8 %s count" % label, r.count) != len(want):
-        fail("%s count" % label)
-    check_stages(ctx, label + " count")
-    got = act("gpu:8 %s collect" % label, r.collect)
+    calls = {}
+    with counting(fuse.SegMapOp, "apply", calls):
+        if act("gpu:8 %s count" % label, r.count) != len(want):
+            fail("%s count" % label)
+        check_stages(ctx, label + " count")
+        got = act("gpu:8 %s collect" % label, r.collect)
     check_stages(ctx, label + " collect")
     check_groups(label, got, want)
     ctx.stop()
+    return {"bucket_scatter": calls.get("apply", 0)}
 
 
 def segagg_wants(keys, vals):
@@ -1846,6 +1935,10 @@ def pregel_kernel_phases(K, dev, graph):
                       slot.numel() * (4 + row + 1) + V * (row + 1))},
     }
     print_phase("edge_gather", out["edge_gather"])
+    # superstep 0's active flags (False past vcnt): one class
+    out["active_count pregel"] = active_count_case(
+        K, "pregel superstep 0", [dp.active], [dp.vcnt],
+        library=lambda: dp.active.sum())
     pending, _ = dp._p_gen()
     counts, offsets, kk, vv = pending
     # K4 at superstep 1's message exchange, as collectives.exchange sizes it
@@ -1966,8 +2059,9 @@ def topk_phase(dev):
 def pregel_path(graph, weights):
     """PageRank and SSSP through run_pregel on gpu:8, checked against
     numpy's power iteration (rtol PR_RTOL) and scipy's Dijkstra
-    (exactly).  Returns the least K9 and K10 launches the runs need: one
-    K9 a superstep, one K10 a superstep with mail."""
+    (exactly).  Returns the least K9 and K10 launches the runs need, one
+    K9 a superstep and one K10 a superstep with mail, and the exact K17
+    active-count launches, one a superstep."""
     from dpark_tpu_torch import DparkContext, run_pregel
     n, src, dst, source = graph
     ctx = DparkContext("gpu:8")
@@ -2023,7 +2117,7 @@ def pregel_path(graph, weights):
           flush=True)
     ctx.stop()
     return {"edge_gather": steps, "pregel_deliver": delivered,
-            "monoid_reduce": steps}
+            "active_count": steps}
 
 
 def urand_graph(scale, edge_factor, seed=20261023):
@@ -2109,6 +2203,10 @@ def bagel_kernel_phase(K, dev, graph):
     object walk's numpy output), then one superstep under the profiler."""
     dop, pending = bagel_after_step0(dev, graph)
     deliver_rec = bagel_deliver_case(K, dop, pending)
+    # superstep 0's active flags of every degree class
+    count_rec = active_count_case(
+        K, "bagel superstep 0", [t["act"] for t in dop.tables],
+        [t["vcnt"] for t in dop.tables])
     blocks, _ = dop._step_blocks(1, pending)
     a = K.obj_emit_pack(blocks)
     b = K.obj_emit_pack_plain(blocks)
@@ -2152,7 +2250,8 @@ def bagel_kernel_phase(K, dev, graph):
                    lambda: dop._p_step(1, pending))
     del dop, pending
     torch.cuda.empty_cache()
-    return {"obj_emit_pack": rec, "pregel_deliver classes": deliver_rec}
+    return {"obj_emit_pack": rec, "pregel_deliver classes": deliver_rec,
+            "active_count": count_rec}
 
 
 def bagel_deliver_inputs(dop, pending):
@@ -2218,7 +2317,8 @@ def bagel_path(graph):
     """Object PageRank through Bagel.run on gpu:8 over the urand graph,
     checked against numpy's power iteration (rtol PR_RTOL).  Returns the
     K10 launches (exact: one a superstep with mail, for up to
-    K10_MAX_CLASSES classes) and the least K17 launches."""
+    K10_MAX_CLASSES classes) and the K17 active-count launches (exact:
+    one a superstep, for up to K17C_MAX_CLASSES classes)."""
     from dpark_tpu_torch import BasicCombiner, DparkContext
     from dpark_tpu_torch.backend.cuda import bagel_obj
     n, src, dst = graph
@@ -2268,7 +2368,8 @@ def bagel_path(graph):
     from dpark_tpu_torch.backend.cuda import kernels as K
     return {"pregel_deliver": st["delivered"] * -(
                 -st["classes"] // K.K10_MAX_CLASSES),
-            "monoid_reduce": st["supersteps"] * st["classes"]}
+            "active_count": st["supersteps"] * -(
+                -st["classes"] // K.K17C_MAX_CLASSES)}
 
 
 def _bagel_run(ctx, rows, compute, combiner):
@@ -2386,6 +2487,41 @@ def k17_case(K, label, col, n, op, library=None):
               label, rec["ms"], rec["bound_ms"], rec["plain_ms"],
               "%.4f" % rec["library_ms"] if rec["library_ms"] else "null",
               "%.4f" % aminmax if aminmax else "null", err), flush=True)
+    return rec
+
+
+def active_count_case(K, label, masks, ns, library=None):
+    """K17's active_count over every class's mask in one launch, against
+    its plain version and the per-class calls it replaced (a bool
+    monoid_reduce a class, its [0].sum() and a running add), exactly;
+    bound: each mask's valid bytes and each n read once, the count
+    written once; library: `library`'s one PyTorch call over the same
+    inputs, where one computes the count (a mask that is False past n)."""
+    def per_class():
+        total = torch.zeros((), dtype=torch.int64, device=masks[0].device)
+        for m, n in zip(masks, ns):
+            total = total + K.monoid_reduce(m, n, "add")[0].sum()
+        return total
+    got = K.active_count(masks, ns)
+    want = K.active_count_plain(masks, ns)
+    old = per_class()
+    if not (got.dtype == torch.int64 and got.dim() == 0
+            and int(got) == int(want) == int(old)):
+        fail("active_count %s: %d, plain %d, per class %d"
+             % (label, int(got), int(want), int(old)))
+    valid = sum(int(n.long().clamp(max=m.shape[1]).sum().item())
+                * m[0, 0].numel() for m, n in zip(masks, ns))
+    rec = {"ms": timed(lambda: K.active_count(masks, ns), reps=20),
+           "plain_ms": timed(lambda: K.active_count_plain(masks, ns),
+                             reps=3),
+           "bound_ms": bound_ms(valid + nbytes(*ns) + 8),
+           "max_abs_err": 0.0,
+           "library_ms": timed(library, reps=20) if library else None,
+           "notes": {"classes": len(masks), "valid": valid,
+                     "active": int(got), "caps": [m.shape[1]
+                                                  for m in masks],
+                     "per_class_ms": "%.4f" % timed(per_class, reps=20)}}
+    print_phase("active_count %s" % label, rec)
     return rec
 
 
@@ -4113,7 +4249,16 @@ def window_path(batches):
     WINDOW_BATCHES batches; then the decayed counter 0.9 * prev + sum(vs)
     (the state mode) over the first DECAY_BATCHES, on a fresh context.
     Every output is checked each tick against numpy (counts exactly,
-    the decayed counter within DECAY_RTOL relative)."""
+    the decayed counter within DECAY_RTOL relative).  Returns the K8
+    scatter launches it needs: one a SegMapOp apply."""
+    from dpark_tpu_torch.backend.cuda import fuse
+    calls = {}
+    with counting(fuse.SegMapOp, "apply", calls):
+        _window_path(batches)
+    return {"bucket_scatter": calls.get("apply", 0)}
+
+
+def _window_path(batches):
     from dpark_tpu_torch import Columns, DparkContext
     from dpark_tpu_torch.dstream import StreamingContext
     ones = np.ones(N_SHARDS * WINDOW_ROWS, np.int64)

@@ -431,7 +431,7 @@ class DevicePregel:
                         torch.zeros((), dtype=l.dtype, device=dev))
             for l in (shaped(x) for x in as_leaves(nv_)[0])]
         self.active = new_act
-        return int(_local_reduce("add", new_act, self.vcnt).sum())
+        return int(kernels.active_count([new_act], [self.vcnt]))
 
     # ------------------------------------------------------------------
     def run(self):

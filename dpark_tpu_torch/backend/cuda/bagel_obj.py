@@ -836,7 +836,6 @@ class DeviceObjectPregel:
             mail = kernels.pregel_deliver_classes(
                 [(t["vid"], t["vcnt"]) for t in self.tables], uk[0],
                 n_unique, uv, self.monoid, fills=self.idents)
-        n_active = torch.zeros((), dtype=torch.int64, device=dev)
         blocks, committed = [], []
         for ci, t in enumerate(self.tables):
             cap, d = t["cap"], t["d"]
@@ -875,8 +874,6 @@ class DeviceObjectPregel:
                 new_vals.append(torch.where(bc(invoked, pick), pick,
                                             vals[li]).contiguous())
             new_act = invoked & torch.where(has, om[nvl], on[nvl])
-            n_active = n_active + kernels.monoid_reduce(
-                new_act.contiguous(), t["vcnt"], "add")[0].sum()
             # the mail call's messages from invoked rows with mail, the
             # no-mail call's from invoked rows without
             for blk, gate, cell in ((om, invoked & has, cm),
@@ -887,6 +884,10 @@ class DeviceObjectPregel:
                                    [blk[nvl + 2 + li].contiguous()
                                     for li in range(nm)]))
             committed.append((new_vals, new_act))
+        # one K17 launch counts every class's active vertices
+        n_active = kernels.active_count(
+            [new_act.contiguous() for _, new_act in committed],
+            [t["vcnt"] for t in self.tables])
         for t, (new_vals, new_act) in zip(self.tables, committed):
             t["vals"], t["act"] = new_vals, new_act
         return blocks, n_active

@@ -373,14 +373,6 @@ def gather_bucket_state(start_rows, sizes, members, offsets, counts, b, G,
                                        flag_col.contiguous(), pad)
 
 
-def scatter_bucket_groups(outs, results, members, offsets, counts, b):
-    """K8: each valid lane's (N, G) results written into the (N, cap)
-    `outs` at its segment id, in place."""
-    return kernels.bucket_scatter(outs, [r.contiguous() for r in results],
-                                  members, offsets[:, b].contiguous(),
-                                  counts[:, b].contiguous())
-
-
 # ----------------------------------------------------------------------
 # the device join: match ranges of two exchanged, key-sorted sides and
 # the expansion of the key-matched pairs (K12)

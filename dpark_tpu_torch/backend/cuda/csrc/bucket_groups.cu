@@ -17,12 +17,36 @@
 // pads write 0 and "edge" pads repeat the group's last row; an invalid
 // lane writes 0 everywhere.  Neighbouring threads read neighbouring rows
 // of one group, so reads and writes coalesce except at group ends.
-// Scatter: one thread per (shard, group lane) copies each result leaf
-// res[l][s, g] to out[l][s, segment id]; invalid lanes write nothing.
+// Scatter (k8_scatter_classes): the results of every listed class in one
+// launch.  A block serves K8X_THREADS x K8X_ITEMS consecutive member
+// slots of one shard, its row of the class offsets and counts staged in
+// shared memory (at most SIZE_CLASSES + 1 = 33 entries); a slot's class
+// is the last whose offset is at or below it (a binary search there),
+// its lane the slot less that offset.  A slot of a listed class copies
+// its lane's result res[k][l][s, lane] of each leaf to out[l][s,
+// members[s, slot]]; with `fill`, every other slot (the pad class
+// SIZE_CLASSES, the slots past n_seg, and any unlisted class) writes 0
+// there, so that one launch writes every (N, cap) output slot exactly
+// once (members is a permutation of each shard's slots) and the caller
+// allocates the outputs with torch.empty: the reference's zeros and
+// .at[tgt].set (fuse.py:880-886) in one pass.  The pad class, the last
+// table column, is most of the slots where groups are large; its slot j
+// holds segment id j (bucket_members' stable partition keeps the ids
+// past n_seg in order after every class), so it writes 0 at out[l][s, j]
+// without reading members: 8 bytes a slot, as the zero fill it replaces.  Without `fill` (the
+// single-class entry: one table column, boff/bcnt) the block covers that
+// class's lanes alone and other slots are left as they are.  The
+// classes' result pointers and G go by value (__grid_constant__); a
+// layout past K8X_MAX_RESULTS (class, leaf) pointers is split by leaves
+// over several launches by the wrapper.  It takes the place of one
+// launch a class after a torch.zeros of every output, each launch with a
+// column copy of offsets and counts.
 //
 // Bound: bytes.  The gather writes the padded (N, G, B) matrix once and
 // reads each group's rows once (plus 12 B of member, start and size per
-// lane); the scatter reads (N, G) results and writes as many elements.
+// lane); the scatter reads each member id of a real class and each
+// lane's results once and writes every output slot once (with `fill`;
+// without it, the class's lanes alone).
 //
 // State gather (bucket_gather_state), the state mode of the segmented
 // apply (updateStateByKey's update(values, prev) over (k, (v, flag))
@@ -96,23 +120,6 @@ static __global__ void k8_gather(const int32_t* start_rows,
   copy_row(vals + (base + row) * vbytes, dst, vbytes);
 }
 
-static __global__ void k8_scatter(const int32_t* members,
-                                  const int32_t* boff, const int32_t* bcnt,
-                                  int64_t cap, int G, LeafSet L,
-                                  int64_t total) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int g = (int)(t % G);
-  const int s = (int)(t / G);
-  if (g >= bcnt[s]) return;
-  const int64_t base = (int64_t)s * cap;
-  const int64_t seg = members[base + boff[s] + g];
-  for (int l = 0; l < L.n; ++l) {
-    const int64_t by = L.bytes[l];
-    copy_row(L.src[l] + t * by, L.dst[l] + (base + seg) * by, by);
-  }
-}
-
 // start_rows, sizes, members: (N, cap) int32; boff, bcnt: (N,) int32;
 // vals: (N, cap) of vbytes-wide elements; out: (N, G, B).
 extern "C" int dpk_bucket_gather(const int32_t* start_rows,
@@ -133,23 +140,118 @@ extern "C" int dpk_bucket_gather(const int32_t* start_rows,
   return (int)cudaGetLastError();
 }
 
-// res: nleaves (N, G) result leaves; out: nleaves (N, cap) leaves,
-// updated in place at the members' segment ids.
-extern "C" int dpk_bucket_scatter(const int32_t* members,
-                                  const int32_t* boff, const int32_t* bcnt,
-                                  int N, int64_t cap, int G,
-                                  const void* const* res, void* const* out,
-                                  const int64_t* bytes, int nleaves,
-                                  void* stream) {
-  if (nleaves < 1 || nleaves > DPK_MAX_LEAVES || G < 1)
+#define K8X_THREADS 256
+#define K8X_ITEMS 4                       // slots a thread, K8X_THREADS apart
+#define K8X_TABLE 33                      // SIZE_CLASSES + 1: a shard's row
+#define K8X_MAX_CLASSES 32
+#define K8X_MAX_RESULTS 256               // (class, leaf) result pointers
+
+struct ScatterClasses {
+  const char* res[K8X_MAX_RESULTS];       // listed class k's leaf l: k * nl + l
+  char* out[DPK_MAX_LEAVES];
+  int64_t G[K8X_MAX_CLASSES];
+  signed char slot[K8X_TABLE];            // table class -> listed k, or -1
+  unsigned char bytes[DPK_MAX_LEAVES];    // 1, 2, 4 or 8
+  int nl;                                 // leaves
+  int nt;                                 // table entries a row
+  int ostride;                            // row stride of off and cnt
+  int fill;                               // 0 to every slot not listed
+};
+
+__device__ __forceinline__ void put_elem(const char* src, char* dst, int by) {
+  switch (by) {
+    case 8: *(uint64_t*)dst = src ? *(const uint64_t*)src : 0; break;
+    case 4: *(uint32_t*)dst = src ? *(const uint32_t*)src : 0; break;
+    case 2: *(uint16_t*)dst = src ? *(const uint16_t*)src : 0; break;
+    default: *dst = src ? *src : 0; break;
+  }
+}
+
+static __global__ void __launch_bounds__(K8X_THREADS)
+k8_scatter_classes(const __grid_constant__ ScatterClasses S,
+                   const int32_t* members, const int32_t* off,
+                   const int32_t* cnt, int64_t cap) {
+  __shared__ int64_t so[K8X_TABLE];
+  __shared__ int64_t hi;
+  const int s = blockIdx.y;
+  const int64_t row = (int64_t)s * S.ostride;
+  if (threadIdx.x < S.nt) so[threadIdx.x] = off[row + threadIdx.x];
+  if (threadIdx.x == 0)
+    hi = (int64_t)off[row + S.nt - 1] + cnt[row + S.nt - 1];
+  __syncthreads();
+  const int64_t base = (int64_t)s * cap;
+  const int64_t t0 = so[0] + (int64_t)blockIdx.x * K8X_THREADS * K8X_ITEMS;
+#pragma unroll
+  for (int i = 0; i < K8X_ITEMS; ++i) {
+    const int64_t j = t0 + i * K8X_THREADS + threadIdx.x;
+    if (j >= hi) break;
+    // the last class whose offset is at or below j (empty classes share
+    // their successor's offset and lose to it)
+    int c = 0;
+#pragma unroll
+    for (int w = 32; w; w >>= 1)
+      if (c + w < S.nt && so[c + w] <= j) c += w;
+    const int k = S.slot[c];
+    const int64_t lane = j - so[c];
+    const bool have = k >= 0 && lane < S.G[k];
+    if (!have && !S.fill) continue;
+    // the pad class's slot j holds segment id j (K2 keeps the ids past
+    // n_seg in order at the end): no member read for most of the slots
+    const int64_t seg = S.fill && c == S.nt - 1 ? j : members[base + j];
+    for (int l = 0; l < S.nl; ++l) {
+      const int by = S.bytes[l];
+      put_elem(have ? S.res[k * S.nl + l] + ((int64_t)s * S.G[k] + lane) * by
+                    : nullptr,
+               S.out[l] + (base + seg) * by, by);
+    }
+  }
+}
+
+// members: (N, cap) int32, each shard's segment ids grouped by class;
+// off, cnt: (N, ostride) int32 tables of which the first nt columns are
+// the classes' offsets and counts in members; span: the most slots a
+// shard's table covers (cap, or G for one class); classes[k] (k < nc)
+// the table column of listed class k, G[k] its lanes; res: nc * nleaves
+// (N, G[k]) results, class-major; out: nleaves (N, cap) leaves of
+// bytes[l] (1, 2, 4 or 8) bytes an element; fill: write 0 at every slot
+// not listed.
+extern "C" int dpk_bucket_scatter_classes(
+    const int32_t* members, const int32_t* off, const int32_t* cnt,
+    int ostride, int nt, int N, int64_t cap, int64_t span, int nc,
+    const int* classes, const int64_t* G, const void* const* res,
+    int nleaves, void* const* out, const int64_t* bytes, int fill,
+    void* stream) {
+  if (nt < 1 || nt > K8X_TABLE || ostride < nt || nc < 0 ||
+      nc > K8X_MAX_CLASSES || nleaves < 1 || nleaves > DPK_MAX_LEAVES ||
+      nc * nleaves > K8X_MAX_RESULTS || N < 0 || N > 65535 || span < 0)
     return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)N * G;
-  if (total == 0) return (int)cudaGetLastError();
-  LeafSet L = make_leafset(res, out, bytes, nleaves);
-  const int threads = 256;
-  k8_scatter<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-               (cudaStream_t)stream>>>(members, boff, bcnt, cap, G, L,
-                                       total);
+  ScatterClasses S;
+  S.nl = nleaves;
+  S.nt = nt;
+  S.ostride = ostride;
+  S.fill = fill;
+  for (int c = 0; c < K8X_TABLE; ++c) S.slot[c] = -1;
+  for (int k = 0; k < K8X_MAX_CLASSES; ++k) S.G[k] = k < nc ? G[k] : 0;
+  for (int k = 0; k < nc; ++k) {
+    if (classes[k] < 0 || classes[k] >= nt || S.slot[classes[k]] != -1 ||
+        G[k] < 0)
+      return (int)cudaErrorInvalidValue;
+    S.slot[classes[k]] = (signed char)k;
+  }
+  for (int i = 0; i < K8X_MAX_RESULTS; ++i)
+    S.res[i] = i < nc * nleaves ? (const char*)res[i] : nullptr;
+  for (int l = 0; l < DPK_MAX_LEAVES; ++l) {
+    const int64_t b = l < nleaves ? bytes[l] : 1;
+    if (b != 1 && b != 2 && b != 4 && b != 8)
+      return (int)cudaErrorInvalidValue;
+    S.out[l] = l < nleaves ? (char*)out[l] : nullptr;
+    S.bytes[l] = (unsigned char)b;
+  }
+  const int64_t tile = (int64_t)K8X_THREADS * K8X_ITEMS;
+  const int64_t gx = (span + tile - 1) / tile;
+  if (N == 0 || gx == 0) return (int)cudaGetLastError();
+  k8_scatter_classes<<<dim3((unsigned)gx, (unsigned)N), K8X_THREADS, 0,
+                       (cudaStream_t)stream>>>(S, members, off, cnt, cap);
   return (int)cudaGetLastError();
 }
 

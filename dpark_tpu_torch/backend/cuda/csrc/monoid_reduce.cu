@@ -13,12 +13,12 @@
 // monoid_reduce: for each shard s of an (N, cap, ...) column, over its
 // first n[s] rows and every trailing lane, the monoid's reduction (add,
 // min, max or mul) together with the min and the max.  Empty shards give
-// the identities.  Types: int64, int32, bool (uint8; an add is a count),
-// float64, float32.  Integers and bools accumulate in int64 (wrapping, as
-// torch's int64 sum does), floats in double; min and max propagate NaN,
-// as torch.amin and torch.amax do.  The reduction comes out as int64 for
-// an integer or bool add or mul and in the column's type otherwise; the
-// min and max in the column's type.
+// the identities.  Types: int64, int32, float64, float32 here (bools take
+// the count below).  Integers accumulate in int64 (wrapping, as torch's
+// int64 sum does), floats in double; min and max propagate NaN, as
+// torch.amin and torch.amax do.  The reduction comes out as int64 for an
+// integer add or mul and in the column's type otherwise; the min and max
+// in the column's type.
 //
 // Bound: bytes.  Each valid element is read once, the rows past n[s]
 // never: at 8 x 8,388,608 int64 that is 537 MB, 0.160 ms at 3.35 TB/s.
@@ -30,6 +30,30 @@
 // shard, folds the partials in a fixed order, so that a float sum is the
 // same from run to run.  Validity comes from n on the device: no host
 // read.
+//
+// The bool count (k17_count, k17_bool): the True elements among a
+// shard's first n[s] rows of a bool column, whose bytes are 0 or 1 as
+// torch stores them, so that __popc of a 32-bit word counts its True
+// bytes.  Bound: bytes (each valid byte read once: 0.0200 ms for 8 x
+// 8,388,608 bools at 3.35 TB/s); the bytes are few, so the work a byte
+// must be small.  Design: a block counts its share of a shard's valid
+// bytes in 16-byte words, four in flight a thread, the unaligned head
+// and the tail on the shard's block 0, sums them with warp shuffles and
+// adds them to the output with one integer atomicAdd (exact in any
+// order): no scratch of partials and no fold launch.
+// - active_count (k17_count): the count summed over every shard of every
+//   listed class in one launch: the Pregel active count (bagel.py:390)
+//   and the object Bagel's sum over its degree classes (bagel_obj.py:887,
+//   which the port's first cut reduced with two launches, a torch sum and
+//   an add a class).  The classes go by value (__grid_constant__), each
+//   with its blocks a shard; the entry zeroes the output first
+//   (cudaMemsetAsync), and a later launch of a layout split by the
+//   wrapper adds to it.
+// - monoid_reduce over bool (k17_bool): the count a shard, then the
+//   shard's last block to finish (a ticket a shard) writes the results:
+//   add the count, max count > 0, min count == the valid elements, mul
+//   (int64) the same; an empty shard gives False and True.  The entry
+//   zeroes the counts and tickets first.
 //
 // distinct_key_counts: for each shard, the rows j < n[s] whose nk key
 // columns differ from row j - 1 (row 0 counts): the distinct keys of a
@@ -45,7 +69,8 @@
 #include <type_traits>
 
 enum { K17_ADD = 0, K17_MIN = 1, K17_MAX = 2, K17_MUL = 3 };
-enum { K17_I64 = 0, K17_I32 = 1, K17_BOOL = 2, K17_F64 = 3, K17_F32 = 4 };
+// kind 2, bool, is counted by dpk_bool_reduce
+enum { K17_I64 = 0, K17_I32 = 1, K17_F64 = 3, K17_F32 = 4 };
 
 template <typename T> struct Acc { typedef int64_t type; };
 template <> struct Acc<double> { typedef double type; };
@@ -64,12 +89,6 @@ template <> __device__ __forceinline__ int32_t type_max<int32_t>() {
 }
 template <> __device__ __forceinline__ int32_t type_min<int32_t>() {
   return INT32_MIN;
-}
-template <> __device__ __forceinline__ uint8_t type_max<uint8_t>() {
-  return 1;
-}
-template <> __device__ __forceinline__ uint8_t type_min<uint8_t>() {
-  return 0;
 }
 template <> __device__ __forceinline__ double type_max<double>() {
   return HUGE_VAL;
@@ -272,8 +291,8 @@ static int launch_reduce(const void* col, int64_t lanes, const int32_t* n,
   return (int)cudaGetLastError();
 }
 
-// col: contiguous (N, cap, lanes...) of `kind`; n: (N,) int32 valid rows;
-// red, lo, hi: (N,) outputs (red int64 for an integer or bool add or
+// col: contiguous (N, cap, lanes...) of `kind` (not bool); n: (N,) int32
+// valid rows; red, lo, hi: (N,) outputs (red int64 for an integer add or
 // mul, else the column's type; lo, hi the column's type); scratch: N *
 // blocks partials of 24 bytes.
 extern "C" int dpk_monoid_reduce(const void* col, int kind, int64_t lanes,
@@ -291,9 +310,6 @@ extern "C" int dpk_monoid_reduce(const void* col, int kind, int64_t lanes,
     case K17_I32:
       return launch_reduce<int32_t>(col, lanes, n, N, cap, op, red, lo, hi,
                                     scratch, blocks, st);
-    case K17_BOOL:
-      return launch_reduce<uint8_t>(col, lanes, n, N, cap, op, red, lo, hi,
-                                    scratch, blocks, st);
     case K17_F64:
       return launch_reduce<double>(col, lanes, n, N, cap, op, red, lo, hi,
                                    scratch, blocks, st);
@@ -302,6 +318,176 @@ extern "C" int dpk_monoid_reduce(const void* col, int kind, int64_t lanes,
                                   scratch, blocks, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+#define K17C_THREADS 256
+#define K17C_MAX_CLASSES 32
+#define K17C_BLOCKS 1056                  // 132 SMs x 8 blocks in flight
+
+__device__ __forceinline__ unsigned popc16(uint4 x) {
+  return __popc(x.x) + __popc(x.y) + __popc(x.z) + __popc(x.w);
+}
+
+// The True bytes among the m bytes at p that block b of nb covers: words
+// v = b * threads + t stepping by nb * threads; block 0 also takes the
+// bytes before p's first 16-byte boundary and past the last whole word.
+// Every thread of the block must call it; thread 0 gets the block's sum.
+__device__ __forceinline__ unsigned long long block_count(const uint8_t* p,
+                                                          int64_t m, int b,
+                                                          int nb) {
+  int64_t head = (int64_t)((16 - ((uintptr_t)p & 15)) & 15);
+  if (head > m) head = m;
+  const int64_t nvec = (m - head) >> 4;
+  const int64_t tail0 = head + (nvec << 4);
+  const uint4* vp = (const uint4*)(p + head);
+  const int64_t step = (int64_t)nb * blockDim.x;
+  int64_t i = (int64_t)b * blockDim.x + threadIdx.x;
+  unsigned long long c = 0;
+  for (; i + 3 * step < nvec; i += 4 * step) {
+    const uint4 x0 = __ldg(vp + i), x1 = __ldg(vp + i + step),
+                x2 = __ldg(vp + i + 2 * step), x3 = __ldg(vp + i + 3 * step);
+    c += popc16(x0) + popc16(x1) + popc16(x2) + popc16(x3);
+  }
+  for (; i < nvec; i += step) c += popc16(__ldg(vp + i));
+  if (b == 0) {
+    if (threadIdx.x < head) c += p[threadIdx.x];
+    if (tail0 + threadIdx.x < m) c += p[tail0 + threadIdx.x];
+  }
+  for (int d = 16; d > 0; d >>= 1) c += __shfl_down_sync(DPK_FULL, c, d);
+  __shared__ unsigned long long sm[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) sm[warp] = c;
+  __syncthreads();
+  c = 0;
+  if (warp == 0) {
+    c = lane < (int)(blockDim.x >> 5) ? sm[lane] : 0;
+    for (int d = 16; d > 0; d >>= 1) c += __shfl_down_sync(DPK_FULL, c, d);
+  }
+  return c;
+}
+
+// the valid bytes of shard s: its first n[s] rows (clamped to cap)
+__device__ __forceinline__ int64_t valid_bytes(const int32_t* n, int s,
+                                               int64_t cap, int64_t lanes) {
+  int64_t rows = n[s];
+  if (rows > cap) rows = cap;
+  if (rows < 0) rows = 0;
+  return rows * lanes;
+}
+
+struct CountClasses {
+  const uint8_t* col[K17C_MAX_CLASSES];   // (N, cap, lanes...) bool
+  const int32_t* n[K17C_MAX_CLASSES];     // (N,) valid rows
+  int64_t cap[K17C_MAX_CLASSES];
+  int64_t lanes[K17C_MAX_CLASSES];        // bytes a row
+  int first[K17C_MAX_CLASSES + 1];        // the class's first block
+  int blocks[K17C_MAX_CLASSES];           // its blocks a shard
+  int nc;
+};
+
+static __global__ void __launch_bounds__(K17C_THREADS)
+k17_count(const __grid_constant__ CountClasses C, unsigned long long* out) {
+  const int bid = blockIdx.x;
+  int c = 0;
+  while (c + 1 < C.nc && C.first[c + 1] <= bid) ++c;
+  const int local = bid - C.first[c];
+  const int s = local / C.blocks[c], b = local % C.blocks[c];
+  const int64_t row = C.cap[c] * C.lanes[c];
+  const unsigned long long k = block_count(
+      C.col[c] + (int64_t)s * row, valid_bytes(C.n[c], s, C.cap[c],
+                                               C.lanes[c]), b, C.blocks[c]);
+  if (threadIdx.x == 0 && k) atomicAdd(out, k);
+}
+
+// the blocks a shard for `bytes` a shard: a block's four words a thread
+// at least, the grid at most K17C_BLOCKS over `shards` shards
+static int count_blocks(int64_t bytes, int64_t shards) {
+  const int64_t per = (int64_t)K17C_THREADS * 16 * 4;
+  int64_t b = (bytes + per - 1) / per;
+  int64_t most = K17C_BLOCKS / (shards > 0 ? shards : 1);
+  if (most < 1) most = 1;
+  if (b > most) b = most;
+  return b < 1 ? 1 : (int)b;
+}
+
+// cols[c], ns[c]: nc (N, caps[c], lanes[c] bytes) bool masks and their
+// (N,) int32 valid rows; out: one int64, zeroed here when `zero`, the
+// True elements of every class's valid rows added to it.
+extern "C" int dpk_active_count(int nc, const void* const* cols,
+                                const int32_t* const* ns,
+                                const int64_t* caps, const int64_t* lanes,
+                                int N, int zero, int64_t* out,
+                                void* stream) {
+  if (nc < 1 || nc > K17C_MAX_CLASSES || N < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (zero) {
+    cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int64_t), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  CountClasses C;
+  C.nc = nc;
+  C.first[0] = 0;
+  for (int c = 0; c < K17C_MAX_CLASSES; ++c) {
+    const bool on = c < nc;
+    if (on && (caps[c] < 0 || lanes[c] < 0)) return (int)cudaErrorInvalidValue;
+    C.col[c] = on ? (const uint8_t*)cols[c] : nullptr;
+    C.n[c] = on ? ns[c] : nullptr;
+    C.cap[c] = on ? caps[c] : 0;
+    C.lanes[c] = on ? lanes[c] : 0;
+    C.blocks[c] = on ? count_blocks(caps[c] * lanes[c], (int64_t)N * nc) : 1;
+    const int64_t next = (int64_t)C.first[c] + (on ? (int64_t)N * C.blocks[c]
+                                                   : 0);
+    if (next > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    C.first[c + 1] = (int)next;
+  }
+  k17_count<<<C.first[nc], K17C_THREADS, 0, st>>>(
+      C, (unsigned long long*)out);
+  return (int)cudaGetLastError();
+}
+
+static __global__ void __launch_bounds__(K17C_THREADS)
+k17_bool(const uint8_t* col, const int32_t* n, int64_t cap, int64_t lanes,
+         int op, unsigned long long* part, void* red, bool* lo, bool* hi) {
+  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
+  const int64_t m = valid_bytes(n, s, cap, lanes);
+  const unsigned long long k = block_count(col + (int64_t)s * cap * lanes, m,
+                                           b, nb);
+  if (threadIdx.x != 0) return;
+  if (k) atomicAdd(part + 2 * s, k);
+  __threadfence();
+  if (atomicAdd(part + 2 * s + 1, 1ULL) != (unsigned long long)(nb - 1))
+    return;
+  // the shard's last block: every other block's count has landed
+  const unsigned long long total = atomicAdd(part + 2 * s, 0ULL);
+  const bool any = total > 0, all = total == (unsigned long long)m;
+  lo[s] = all;
+  hi[s] = any;
+  switch (op) {
+    case K17_ADD: ((int64_t*)red)[s] = (int64_t)total; break;
+    case K17_MUL: ((int64_t*)red)[s] = all; break;
+    case K17_MIN: ((bool*)red)[s] = all; break;
+    default: ((bool*)red)[s] = any; break;
+  }
+}
+
+// col: contiguous (N, cap, lanes...) bool; n: (N,) int32 valid rows; red:
+// (N,) int64 for add and mul, bool for min and max; lo, hi: (N,) bool;
+// part: (N, 2) int64 scratch (counts and tickets), zeroed here.
+extern "C" int dpk_bool_reduce(const void* col, int64_t lanes,
+                               const int32_t* n, int N, int64_t cap, int op,
+                               void* red, void* lo, void* hi, void* part,
+                               void* stream) {
+  if (N < 1 || N > 65535 || lanes < 0 || cap < 0 || op < 0 || op > 3)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(part, 0, (size_t)N * 16, st);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)count_blocks(cap * lanes, N), (unsigned)N);
+  k17_bool<<<grid, K17C_THREADS, 0, st>>>(
+      (const uint8_t*)col, n, cap, lanes, op, (unsigned long long*)part, red,
+      (bool*)lo, (bool*)hi);
+  return (int)cudaGetLastError();
 }
 
 struct KeySet {

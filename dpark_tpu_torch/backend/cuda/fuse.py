@@ -846,10 +846,10 @@ class SegMapOp:
     and sorts their sizes into power-of-two classes, K2 lists each
     class's members, K8 gathers each class's groups into a padded
     (N*G, B) matrix (the admission-verified fill past each group's
-    size), torch.func.vmap applies f across its rows, and K8 scatters the
-    results back to the segment ids.  Output rows are (key, f(group)) in
-    key order; the rest of the chain (and any shuffle write) continues on
-    the device.
+    size), torch.func.vmap applies f across its rows, and one K8 launch
+    scatters every class's results back to the segment ids.  Output rows
+    are (key, f(group)) in key order; the rest of the chain (and any
+    shuffle write) continues on the device.
 
     REQUIRES key-sorted valid-prefix input, like SegAggOp: the executor's
     _run_seg_map feeds it the exchange-sorted batch and sets `table` (K7's
@@ -908,9 +908,8 @@ class SegMapOp:
         self.table = None
         members, counts, offsets = collectives.bucket_members(bucket, hist,
                                                               n_seg)
-        N, cap = vcol.shape
-        outs = [torch.zeros((N, cap), dtype=dt, device=vcol.device)
-                for dt in self._out_dtypes]
+        N = vcol.shape[0]
+        results = []
         for b, width, G in self.layout:
             if self.state_mode:
                 lanes = (torch.arange(G, device=vcol.device)[None, :]
@@ -924,10 +923,12 @@ class SegMapOp:
                     width, vcol, self.pad)
                 with python_float_semantics():
                     res = vmap(self._fn)(vals.view(N * G, width))
-            res = [r.reshape(N, G).to(dt)
-                   for r, dt in zip(res, self._out_dtypes)]
-            collectives.scatter_bucket_groups(outs, res, members, offsets,
-                                              counts, b)
+            results.append([r.reshape(N, G).to(dt).contiguous()
+                            for r, dt in zip(res, self._out_dtypes)])
+        # every class's results in one launch, 0 past n_seg
+        outs = kernels.bucket_scatter_classes(
+            results, members, offsets, counts,
+            [b for b, _, _ in self.layout], self._out_dtypes)
         return list(keys) + outs, n_seg
 
     def _apply_state(self, gathered, lanes, width):

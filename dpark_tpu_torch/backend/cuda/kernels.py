@@ -10,7 +10,9 @@ Kernels (sources under csrc/, one shared library each):
   K5 radix_sort             csrc/radix_sort.cu
   K6 range_dst_hist         csrc/range_dst_hist.cu
   K7 segment_table          csrc/segment_table.cu
-  K8 bucket_gather          csrc/bucket_groups.cu (with bucket_scatter)
+  K8 bucket_gather          csrc/bucket_groups.cu (with bucket_scatter
+                            and bucket_scatter_classes, the results of
+                            every size class in one launch)
   K9 edge_gather            csrc/edge_gather.cu
   K10 pregel_deliver        csrc/pregel_deliver.cu (with
                             pregel_deliver_classes, every class of the
@@ -27,7 +29,8 @@ Kernels (sources under csrc/, one shared library each):
   K16 union_concat          csrc/union_concat.cu (its span copy and
                             fill, csrc/span_copy.cuh, shared with K4)
   K17 monoid_reduce         csrc/monoid_reduce.cu (with
-                            distinct_key_counts)
+                            distinct_key_counts, and active_count, the
+                            bool count of every class in one launch)
   K18 topk_select           csrc/topk_select.cu
 
 K8's library also holds bucket_gather_state, the state mode's gather of
@@ -80,13 +83,15 @@ SOURCES = {
     "monoid_reduce": "monoid_reduce.cu",
     "topk_select": "topk_select.cu",
 }
-# launch counters: one per entry point (K8's library holds three, K12's
-# and K17's two; K14's two libraries count as one)
+# launch counters: one per kernel (K8's library holds three, K12's two,
+# K17's three; K14's two libraries count as one; K8's scatter counts
+# both its entries, as K10 does)
 LAUNCHES = {name: 0 for name in SOURCES
             if name not in ("bucket_groups", "join_expand",
                             "segmented_merge_wide")}
 LAUNCHES.update(bucket_gather=0, bucket_scatter=0, bucket_gather_state=0,
-                join_ranges=0, join_expand=0, distinct_key_counts=0)
+                join_ranges=0, join_expand=0, distinct_key_counts=0,
+                active_count=0)
 SIZE_CLASSES = 32
 KEY_SENTINEL = 2 ** 63 - 1
 OPS = {"add": 0, "min": 1, "max": 2, "mul": 3, "last": 4}
@@ -103,7 +108,7 @@ build_seconds = None
 VERBOSE_PTXAS = ("radix_sort", "stable_partition", "segment_table",
                  "reduce_by_key_compact", "edge_gather", "obj_emit_pack",
                  "join_expand", "bucket_groups", "shard_exchange",
-                 "pregel_deliver")
+                 "pregel_deliver", "monoid_reduce")
 build_logs = {}
 
 
@@ -220,8 +225,9 @@ def _bind(name, lib):
         gather.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _L, _P,
                            _I, _P]
         gather.restype = ctypes.c_int
-        scatter = lib.dpk_bucket_scatter
-        scatter.argtypes = [_P, _P, _P, _I, _L, _I, _P, _P, _P, _I, _P]
+        scatter = lib.dpk_bucket_scatter_classes
+        scatter.argtypes = [_P, _P, _P, _I, _I, _I, _L, _L, _I, _P, _P, _P,
+                            _I, _P, _P, _I, _P]
         scatter.restype = ctypes.c_int
         state = lib.dpk_bucket_gather_state
         state.argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _L, _P,
@@ -235,7 +241,13 @@ def _bind(name, lib):
         distinct = lib.dpk_distinct_key_counts
         distinct.argtypes = [_P, _P, _I, _P, _I, _L, _P, _P]
         distinct.restype = ctypes.c_int
-        return fn, distinct
+        count = lib.dpk_active_count
+        count.argtypes = [_I, _P, _P, _P, _P, _I, _I, _P, _P]
+        count.restype = ctypes.c_int
+        bools = lib.dpk_bool_reduce
+        bools.argtypes = [_P, _L, _P, _I, _L, _I, _P, _P, _P, _P, _P]
+        bools.restype = ctypes.c_int
+        return fn, distinct, count, bools
     elif name == "topk_select":
         fn = lib.dpk_topk_select
         fn.argtypes = [_P, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P,
@@ -1138,10 +1150,40 @@ def bucket_scatter_plain(outs, results, members, boff, bcnt):
     return outs
 
 
+K8X_MAX_RESULTS = 256   # K8X_MAX_RESULTS of csrc/bucket_groups.cu: the
+                        # (class, leaf) result pointers a launch takes
+
+
+def _scatter_launch(members, off, cnt, nt, span, classes, results, outs,
+                    fill):
+    """One k8_scatter_classes launch a chunk of leaves that fits the
+    parameter space (results[k] holds class k's leaves)."""
+    fn = _kernel("bucket_groups")[1]
+    N, cap = members.shape
+    if N == 0 or span == 0:
+        return
+    per = max(1, min(MAX_LEAVES, K8X_MAX_RESULTS // max(1, len(classes))))
+    for l0 in range(0, len(outs), per):
+        ls = range(l0, min(len(outs), l0 + per))
+        res = [results[k][l] for k in range(len(classes)) for l in ls]
+        rc = fn(members.data_ptr(), off.data_ptr(), cnt.data_ptr(),
+                off.shape[1] if off.dim() == 2 else 1, nt, N, cap, span,
+                len(classes), (ctypes.c_int * max(1, len(classes)))(
+                    *classes),
+                (ctypes.c_int64 * max(1, len(classes)))(
+                    *[r[0].shape[1] for r in results]),
+                _ptrs(res), len(ls), _ptrs([outs[l] for l in ls]),
+                (ctypes.c_int64 * len(ls))(
+                    *[outs[l].element_size() for l in ls]),
+                int(fill), _stream())
+        _check("bucket_scatter", rc)
+
+
 def bucket_scatter(outs, results, members, boff, bcnt):
     """Write each valid lane's results ((N, G) leaves) into `outs` ((N,
     cap) leaves of the same dtypes) at its segment id members[s, boff[s]
-    + g], IN PLACE; invalid lanes write nothing.  Returns outs."""
+    + g], IN PLACE; invalid lanes write nothing.  Returns outs.  One
+    launch of the batched scatter over this class's lanes alone."""
     outs, results = list(outs), list(results)
     N, cap = outs[0].shape[:2]
     G = results[0].shape[1]
@@ -1149,6 +1191,7 @@ def bucket_scatter(outs, results, members, boff, bcnt):
     _check_cols(results, N, G, "results")
     _need(len(outs) == len(results) and 1 <= len(outs) <= MAX_LEAVES
           and all(o.dtype == r.dtype and o.dim() == 2
+                  and o.element_size() in (1, 2, 4, 8)
                   for o, r in zip(outs, results)),
           "1..%d (N, cap) outputs matching the (N, G) results' dtypes"
           % MAX_LEAVES)
@@ -1158,13 +1201,70 @@ def bucket_scatter(outs, results, members, boff, bcnt):
           "members int32 (N, cap), boff/bcnt contiguous (N,) int32")
     if not _on_cuda(outs + results + [members, boff, bcnt]):
         return bucket_scatter_plain(outs, results, members, boff, bcnt)
-    scatter_fn = _kernel("bucket_groups")[1]
-    rc = scatter_fn(members.data_ptr(), boff.data_ptr(), bcnt.data_ptr(), N,
-                    cap, int(G), _ptrs(results), _ptrs(outs),
-                    (ctypes.c_int64 * len(outs))(
-                        *[o.element_size() for o in outs]),
-                    len(outs), _stream())
-    _check("bucket_scatter", rc)
+    _scatter_launch(members, boff, bcnt, 1, G, [0], [results], outs, False)
+    return outs
+
+
+def bucket_scatter_classes_plain(results_by_class, members, offsets, counts,
+                                 classes, out_dtypes):
+    N, cap = members.shape
+    outs = [torch.zeros((N, cap), dtype=dt, device=members.device)
+            for dt in out_dtypes]
+    for b, res in zip(classes, results_by_class):
+        bucket_scatter_plain(outs, res, members, offsets[:, b], counts[:, b])
+    return outs
+
+
+def bucket_scatter_classes(results_by_class, members, offsets, counts,
+                           classes, out_dtypes):
+    """Every size class's results written back in one launch: fresh (N,
+    cap) output leaves of `out_dtypes` where each member slot of listed
+    class classes[k] (members[s, offsets[s, b]:][:counts[s, b]], b =
+    classes[k]) holds its lane's result results_by_class[k][l][s, lane]
+    ((N, G_k) leaves of out_dtypes[l]) at its segment id, and every other
+    slot (the pad class SIZE_CLASSES: the segment ids past n_seg) 0.
+    members, offsets and counts as collectives.bucket_members returns
+    them (offsets and counts (N, SIZE_CLASSES + 1) int32; each shard's
+    members a permutation of its cap slots, the pad class's slot j
+    holding segment id j, which the kernel writes without reading
+    members).  Where the (class, leaf) pointers pass K8X_MAX_RESULTS, the
+    leaves go in several launches."""
+    classes = [int(b) for b in classes]
+    results_by_class = [list(r) for r in results_by_class]
+    out_dtypes = list(out_dtypes)
+    N, cap = members.shape[:2]
+    _check_cols([members], N, cap, "members")
+    _need(members.dtype == torch.int32 and members.dim() == 2,
+          "members must be (N, cap) int32")
+    for t in (offsets, counts):
+        _need(t.dtype == torch.int32 and t.is_contiguous()
+              and t.shape == (N, SIZE_CLASSES + 1),
+              "offsets and counts must be contiguous (N, %d) int32"
+              % (SIZE_CLASSES + 1))
+    _need(len(set(classes)) == len(classes)
+          and all(0 <= b < SIZE_CLASSES for b in classes)
+          and len(results_by_class) == len(classes),
+          "distinct classes in [0, %d), one list of results each"
+          % SIZE_CLASSES)
+    _need(1 <= len(out_dtypes) <= MAX_LEAVES
+          and all(torch.empty((), dtype=dt).element_size() in (1, 2, 4, 8)
+                  for dt in out_dtypes),
+          "1..%d output leaves of 1, 2, 4 or 8 bytes" % MAX_LEAVES)
+    for res in results_by_class:
+        _need(len(res) == len(out_dtypes)
+              and all(r.dtype == dt for r, dt in zip(res, out_dtypes)),
+              "each class's results must match out_dtypes")
+        _check_cols(res, N, res[0].shape[1], "results")
+        _need(all(r.dim() == 2 for r in res), "results must be (N, G)")
+    flat = [r for res in results_by_class for r in res]
+    if not _on_cuda([members, offsets, counts] + flat):
+        return bucket_scatter_classes_plain(results_by_class, members,
+                                            offsets, counts, classes,
+                                            out_dtypes)
+    outs = [torch.empty((N, cap), dtype=dt, device=members.device)
+            for dt in out_dtypes]
+    _scatter_launch(members, offsets, counts, SIZE_CLASSES + 1, cap,
+                    classes, results_by_class, outs, True)
     return outs
 
 
@@ -2174,7 +2274,8 @@ def monoid_reduce(col, n, op):
     mul and min True).  Returns (reduction, min, max), each (N,): the
     reduction int64 for an integer or bool add or mul (a bool add is a
     count), the column's dtype otherwise; min and max in the column's
-    dtype.  Rows past n[s] are never read."""
+    dtype.  Rows past n[s] are never read.  A bool column takes the count
+    (k17_bool: one launch, the results from the count)."""
     _need(op in _REDUCE, "op must be add, min, max or mul, got %r" % (op,))
     _need(col.dim() >= 2 and col.is_contiguous()
           and col.dtype in _K17_KINDS,
@@ -2185,12 +2286,20 @@ def monoid_reduce(col, n, op):
     _need(n.dtype == torch.int32 and n.shape == (N,), "n must be (N,) int32")
     if not _on_cuda([col, n]):
         return monoid_reduce_plain(col, n, op)
-    fn = _kernel("monoid_reduce")[0]
     lanes = _lanes(col)
     dev = col.device
     red = torch.empty(N, dtype=monoid_out_dtype(op, col.dtype), device=dev)
     lo = torch.empty(N, dtype=col.dtype, device=dev)
     hi = torch.empty(N, dtype=col.dtype, device=dev)
+    if col.dtype == torch.bool:
+        part = torch.empty((N, 2), dtype=torch.int64, device=dev)
+        rc = _kernel("monoid_reduce")[3](
+            col.data_ptr(), lanes, n.data_ptr(), N, cap, OPS[op],
+            red.data_ptr(), lo.data_ptr(), hi.data_ptr(), part.data_ptr(),
+            _stream())
+        _check("monoid_reduce", rc)
+        return red, lo, hi
+    fn = _kernel("monoid_reduce")[0]
     vecs = -(-cap * lanes * col.element_size() // 16)
     blocks = max(1, min(-(-vecs // (256 * 4)), _K17_BLOCKS // N))
     scratch = torch.empty(N * blocks * _K17_PART_BYTES, dtype=torch.uint8,
@@ -2200,6 +2309,48 @@ def monoid_reduce(col, n, op):
             scratch.data_ptr(), blocks, _stream())
     _check("monoid_reduce", rc)
     return red, lo, hi
+
+
+K17C_MAX_CLASSES = 32     # K17C_MAX_CLASSES of csrc/monoid_reduce.cu
+
+
+def active_count_plain(masks, ns):
+    total = torch.zeros((), dtype=torch.int64, device=masks[0].device)
+    for m, n in zip(masks, ns):
+        total = total + monoid_reduce_plain(m, n, "add")[0].sum()
+    return total
+
+
+def active_count(masks, ns):
+    """The True elements among each shard's first ns[c][s] rows of every
+    (N, cap_c, ...) bool mask, summed over shards and masks: a 0-dim
+    int64 tensor on the masks' device (the Pregel active count, and the
+    object Bagel's over its degree classes).  One launch for up to
+    K17C_MAX_CLASSES masks; more go in as many launches as they need."""
+    masks, ns = list(masks), list(ns)
+    _need(len(masks) >= 1 and len(ns) == len(masks),
+          "one or more masks, each with its valid rows")
+    N = masks[0].shape[0]
+    for m, n in zip(masks, ns):
+        _need(m.dtype == torch.bool and m.dim() >= 2 and m.is_contiguous()
+              and m.shape[0] == N,
+              "masks must be contiguous (N, cap, ...) bool tensors, got "
+              "%s %s" % (m.dtype, tuple(m.shape)))
+        _need(n.dtype == torch.int32 and n.shape == (N,),
+              "n must be (N,) int32")
+    if not _on_cuda(masks + ns):
+        return active_count_plain(masks, ns)
+    fn = _kernel("monoid_reduce")[2]
+    out = torch.empty((), dtype=torch.int64, device=masks[0].device)
+    for c0 in range(0, len(masks), K17C_MAX_CLASSES):
+        ms = masks[c0:c0 + K17C_MAX_CLASSES]
+        k = len(ms)
+        rc = fn(k, _ptrs(ms), _ptrs(ns[c0:c0 + k]),
+                (ctypes.c_int64 * k)(*[m.shape[1] for m in ms]),
+                (ctypes.c_int64 * k)(*[_lanes(m) for m in ms]), N,
+                int(c0 == 0), out.data_ptr(), _stream())
+        _check("active_count", rc)
+    return out
 
 
 def distinct_key_counts_plain(key_cols, n):

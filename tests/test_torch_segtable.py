@@ -268,7 +268,9 @@ def test_bucket_scatter_writes_valid_lanes_only():
         seg_sel, gvalid = _lanes(members, offsets, counts, b, G)
         res = [torch.arange(N * G, dtype=torch.int64).view(N, G) + 1000 * b,
                torch.arange(N * G, dtype=torch.float64).view(N, G) * 0.25]
-        col.scatter_bucket_groups(outs, res, members, offsets, counts, b)
+        kernels.bucket_scatter(outs, res, members,
+                               offsets[:, b].contiguous(),
+                               counts[:, b].contiguous())
         for s in range(N):
             tgt = np.where(gvalid[s].numpy(), seg_sel[s].numpy(), CAP)
             for w, r in zip(want, res):

@@ -1,28 +1,34 @@
 """Where K16 (union_concat), K1 (hash_dst_hist), K12's ranges
 (join_ranges), K8's state gather (bucket_gather_state), K4
-(shard_exchange) and K10 (pregel_deliver) spend their time on the card,
-call by call where the smoke's paths run them, and the checkout's
-kernels against another tree's in one process.
+(shard_exchange), K10 (pregel_deliver), K17's bool count (monoid_reduce
+over bool, active_count), K8's scatter and K12's expansion (join_expand)
+spend their time on the card, call by call where the smoke's paths run
+them, and the checkout's kernels against another tree's in one process.
 
     python3 tools/union_hash_profile.py census [--old-csrc DIR] [--out FILE]
                                                [--paths union,window,...]
                                                [--kernels k4,k10,...]
     python3 tools/union_hash_profile.py compare [--old-csrc DIR]
                                                 [--kernels k16,k1,k12,k8s,
-                                                           k4,k10]
+                                                           k4,k10,k17,k8x]
 
 census: drives chip_smoke.py's paths (union, window, reduce =
 reduceByKey gpu:8, group = partitionBy/groupByKey/distinct gpu:8, sort =
-sortByKey gpu:8, pregel, bagel, join; all by default) with the launch
-counts set to 0 around each, as the smoke's check_launches does, and
-records every call of the kernels named in --kernels (all six by
-default) on them: its shape (K16: branches, rows, row bytes, cap_out;
+sortByKey gpu:8, pregel, bagel, join, and segmap = groupByKey gpu:8
+segmap and its power-law run; all but segmap by default) with the
+launch counts set to 0 around each, as the smoke's check_launches does,
+and records every call of the kernels named in --kernels (k16, k1, k12,
+k8s, k4 and k10 by default; k17, k8x and k12e on request) on them: its
+shape (K16: branches, rows, row bytes, cap_out;
 K1: the key columns, N x cap, r, n_dst, whether the histogram and the
 hash are kept; K12: nk, N, cap_a, cap_b and the valid rows of each side;
 K8: the class width B, G, the live lanes and their rows; K4: N, cap_in,
 cap_out, the rows moved and each leaf's row bytes; K10: the classes, N,
 each class's cap_v, cap_u, the unique keys, the valid slots, whether the
-ids are sorted, each leaf's row bytes), its bound (bytes over 3.35
+ids are sorted, each leaf's row bytes; K17: op, dtype, the classes and
+their caps, the valid elements; K8x: the classes scattered, their G,
+the lanes; K12e: N,
+cap_a, cap_out, the row bytes, the pairs), its bound (bytes over 3.35
 TB/s), its time by CUDA events around the call, its host time, and the
 call split by CUDA events into its stages (K16: the one host read of the
 counts, the arguments, the kernel, the totals; K12: the host part before
@@ -32,7 +38,7 @@ the checkout's one; K8: the host part, then the launch).  Prints one
 line a path, kernel and shape (the mean, least and most ms), one a path
 and kernel with their sums (calls, ms, host ms, bound ms), and writes
 every call as a JSON line to --out (build/union_hash_profile/census.jsonl
-by default).
+by default; its first line the card's name and power limit).
 With --old-csrc the paths run the other tree's kernels named in
 --old-kernels (those of --kernels by default) in place of the
 checkout's: K1, K16, K4 and K10 as the checkout's wrappers over the
@@ -48,7 +54,13 @@ hash_phase_cases, K12: join_phase_cases over TPC-H SF 10, K8:
 state_gather_inputs, class by class; K4: the combined reduceByKey
 output, the sort path's 8 x 8,388,608 rows and a PageRank superstep's
 message exchange; K10: the PageRank superstep's delivery and the object
-PageRank's class tables, the batched entry against one call a class),
+PageRank's class tables, the batched entry against one call a class;
+K17: the bench shape's bool count through monoid_reduce, the Pregel and
+object Bagel active counts after superstep 0, the earlier per-class
+calls against active_count's one launch; K8x: the power-law table's and
+a decayed-counter tick's classes, torch.zeros and one scatter a class
+against bucket_scatter_classes' one launch, with Tensor.scatter_ of the
+same values as the floor),
 each call's CUDA-event time in the order old, new, new, old, its bound
 (bytes over 3.35 TB/s), the torch composite or library call's time,
 K1's and K4's floor (torch moving the same bytes), the K16 and K12
@@ -75,6 +87,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as smoke                                  # noqa: E402
+from dpark_tpu_torch.backend.cuda import collectives as C   # noqa: E402
 from dpark_tpu_torch.backend.cuda import kernels as K       # noqa: E402
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -83,12 +96,16 @@ OUT = os.path.join(ROOT, "build", "union_hash_profile", "census.jsonl")
 # the checkout's wrappers (census patches K's with its recorders)
 CHECKOUT = {name: getattr(K, name) for name in (
     "union_concat", "hash_dst_hist", "join_ranges", "bucket_gather_state",
-    "shard_exchange", "pregel_deliver", "pregel_deliver_classes")}
+    "shard_exchange", "pregel_deliver", "pregel_deliver_classes",
+    "monoid_reduce", "join_expand", "active_count",
+    "bucket_scatter_classes")}
 # each kernel's library (the source named lib + ".cu")
 LIBS = {"k1": "hash_dst_hist", "k16": "union_concat", "k12": "join_expand",
         "k8s": "bucket_groups", "k4": "shard_exchange",
-        "k10": "pregel_deliver"}
+        "k10": "pregel_deliver", "k17": "monoid_reduce",
+        "k8x": "bucket_groups"}
 ALL = "k16,k1,k12,k8s,k4,k10"
+CARD = None              # nvidia-smi's name and power limit of the card
 # the stages a report line prints (their mean device ms)
 STAGES = ("read", "arguments", "launch", "totals", "setup", "host_setup",
           "ranges", "scan", "offsets")
@@ -165,6 +182,18 @@ def build_old(csrc, which):
                                _P, _P]
         old["k12_step"].argtypes = [_I] + old["k12"].argtypes
         old["k12"].restype = old["k12_step"].restype = ctypes.c_int
+    if "k17" in which:
+        # the monoid reduction's entry, which took bools (k17_partial and
+        # k17_fold) before the bool count
+        old["k17"] = libs["monoid_reduce"].dpk_monoid_reduce
+        old["k17"].argtypes = [_P, _I, _L, _P, _I, _L, _I, _P, _P, _P, _P,
+                               _I, _P]
+        old["k17"].restype = ctypes.c_int
+    if "k8x" in which:
+        # the scatter of one class (k8_scatter) before the batched one
+        old["k8x"] = libs["bucket_groups"].dpk_bucket_scatter
+        old["k8x"].argtypes = [_P, _P, _P, _I, _L, _I, _P, _P, _P, _I, _P]
+        old["k8x"].restype = ctypes.c_int
     if "k8s" in which:
         old["k8s"] = libs["bucket_groups"].dpk_bucket_gather_state
         old["k8s"].argtypes = [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _L,
@@ -327,6 +356,45 @@ def new_state_gather(*args, marks=None):
         return CHECKOUT["bucket_gather_state"](*args)
 
 
+def old_monoid_reduce(old, col, n, op):
+    """The earlier K17 wrapper over the other tree's entry: outputs and a
+    scratch of partials, k17_partial and k17_fold (bools too)."""
+    N_, cap = col.shape[:2]
+    dev = col.device
+    red = torch.empty(N_, dtype=K.monoid_out_dtype(op, col.dtype),
+                      device=dev)
+    lo = torch.empty(N_, dtype=col.dtype, device=dev)
+    hi = torch.empty(N_, dtype=col.dtype, device=dev)
+    lanes = K._lanes(col)
+    vecs = -(-cap * lanes * col.element_size() // 16)
+    blocks = max(1, min(-(-vecs // (256 * 4)), K._K17_BLOCKS // N_))
+    scratch = torch.empty(N_ * blocks * K._K17_PART_BYTES, dtype=torch.uint8,
+                          device=dev)
+    rc = old["k17"](col.data_ptr(), K._K17_KINDS[col.dtype], lanes,
+                    n.data_ptr(), N_, cap, K.OPS[op], red.data_ptr(),
+                    lo.data_ptr(), hi.data_ptr(), scratch.data_ptr(), blocks,
+                    K._stream())
+    if rc:
+        raise RuntimeError("old K17 failed to launch: %d" % rc)
+    K.LAUNCHES["monoid_reduce"] += 1
+    return red, lo, hi
+
+
+def old_bucket_scatter(old, outs, results, members, boff, bcnt):
+    """The earlier single-class K8 scatter over the other tree's entry:
+    one thread a (shard, lane), in place."""
+    N_, cap = outs[0].shape
+    rc = old["k8x"](members.data_ptr(), boff.data_ptr(), bcnt.data_ptr(),
+                    N_, cap, results[0].shape[1], K._ptrs(results),
+                    K._ptrs(outs), (ctypes.c_int64 * len(outs))(
+                        *[o.element_size() for o in outs]), len(outs),
+                    K._stream())
+    if rc:
+        raise RuntimeError("old K8 scatter failed to launch: %d" % rc)
+    K.LAUNCHES["bucket_scatter"] += 1
+    return outs
+
+
 def split_ms(marks):
     """{stage: device ms since the previous mark, "host_" + stage: host
     ms since it}, 'host' the call's host ms."""
@@ -417,6 +485,84 @@ class Census:
             "_sorted": torch.stack([(v[:, 1:] >= v[:, :-1]).all()
                                     for v, _ in classes]).all(),
             "_marks": marks})
+
+    def monoid_reduce(self, col, n, op):
+        if not col.is_cuda:
+            return CHECKOUT["monoid_reduce"](col, n, op)
+        marks = []
+        _mark(marks, "start")
+        out = CHECKOUT["monoid_reduce"](col, n, op)
+        _mark(marks, "call")
+        self._k17_record(op, [(col, n)], 3 * 8 * col.shape[0], marks)
+        return out
+
+    def active_count(self, masks, ns):
+        masks, ns = list(masks), list(ns)
+        if not masks[0].is_cuda:
+            return CHECKOUT["active_count"](masks, ns)
+        marks = []
+        _mark(marks, "start")
+        out = CHECKOUT["active_count"](masks, ns)
+        _mark(marks, "call")
+        self._k17_record("count", list(zip(masks, ns)), 8, marks)
+        return out
+
+    def _k17_record(self, op, pairs, out_bytes, marks):
+        """K17: one column (monoid_reduce) or every class's mask
+        (active_count); the valid elements counted on the card."""
+        col = pairs[0][0]
+        self.calls.append({
+            "kernel": "K17", "path": self.path, "op": op,
+            "dtype": str(col.dtype).replace("torch.", ""),
+            "classes": len(pairs), "N": col.shape[0],
+            "caps": [c.shape[1] for c, _ in pairs],
+            "lanes": K._lanes(col), "elem": col.element_size(),
+            "out_bytes": out_bytes,
+            "_valid": sum((n.long().clamp(max=c.shape[1]) * K._lanes(c))
+                          .sum() for c, n in pairs),
+            "_marks": marks})
+
+    def bucket_scatter_classes(self, results_by_class, members, offsets,
+                               counts, classes, out_dtypes):
+        args = (results_by_class, members, offsets, counts, classes,
+                out_dtypes)
+        if not members.is_cuda:
+            return CHECKOUT["bucket_scatter_classes"](*args)
+        marks = []
+        _mark(marks, "start")
+        out = CHECKOUT["bucket_scatter_classes"](*args)
+        _mark(marks, "call")
+        self._k8x_record(list(classes), [r[0].shape[1]
+                                         for r in results_by_class],
+                         out, [r[0] for r in results_by_class], members,
+                         counts[:, list(classes)].sum(), marks)
+        return out
+
+    def _k8x_record(self, classes, Gs, outs, res, members, lanes, marks):
+        """K8's scatter: the classes written and their G."""
+        self.calls.append({
+            "kernel": "K8x", "path": self.path, "classes": classes,
+            "G": Gs, "N": members.shape[0], "cap": members.shape[1],
+            "out_bytes": [o.element_size() for o in outs],
+            "res_bytes": res[0].element_size() if res else 0,
+            "_lanes": lanes, "_marks": marks})
+
+    def join_expand(self, a_leaves, b_vals, lo, per, offs, totals, a_n,
+                    cap_out):
+        args = (a_leaves, b_vals, lo, per, offs, totals, a_n, cap_out)
+        if not a_n.is_cuda:
+            return CHECKOUT["join_expand"](*args)
+        marks = []
+        _mark(marks, "start")
+        out = CHECKOUT["join_expand"](*args)
+        _mark(marks, "call")
+        self.calls.append({
+            "kernel": "K12e", "path": self.path, "N": a_n.shape[0],
+            "cap_a": lo.shape[1], "cap_out": int(cap_out),
+            "a_bytes": sum(K._row_bytes(x) for x in a_leaves),
+            "b_bytes": sum(K._row_bytes(x) for x in b_vals),
+            "_pairs": totals.sum(), "_a_rows": a_n.sum(), "_marks": marks})
+        return out
 
     def join_ranges(self, a_keys, a_n, b_keys, b_n):
         a_keys, b_keys = list(a_keys), list(b_keys)
@@ -509,6 +655,28 @@ class Census:
                 rb = sum(c["row_bytes"])
                 c["bound"] = smoke.bound_ms(c["rows"] * (8 + rb + 1)
                                             + c["unique"] * (8 + rb))
+            elif c["kernel"] == "K17":
+                # the valid elements read once, the counts and outputs
+                c["rows"] = int(c.pop("_valid").item())
+                c["bound"] = smoke.bound_ms(
+                    c["rows"] * c["elem"] + 4 * c["N"] * c["classes"]
+                    + c["out_bytes"])
+            elif c["kernel"] == "K8x":
+                # each lane's member id and result read, every slot
+                # written (0 past the lanes; a pad slot's member id is its
+                # own slot, not read)
+                c["rows"] = int(c.pop("_lanes").item())
+                c["bound"] = smoke.bound_ms(
+                    c["N"] * c["cap"] * sum(c["out_bytes"]) + c["rows"] * (
+                        4 + c["res_bytes"] * len(c["out_bytes"])))
+            elif c["kernel"] == "K12e":
+                # A's valid rows with lo and offs read, every output slot
+                # written (B's values read are not counted)
+                c["rows"] = int(c.pop("_pairs").item())
+                c["a_rows"] = int(c.pop("_a_rows").item())
+                c["bound"] = smoke.bound_ms(
+                    c["a_rows"] * (c["a_bytes"] + 16) + c["N"] * c["cap_out"]
+                    * (c["a_bytes"] + c["b_bytes"]))
             else:
                 c["live"] = int(c.pop("_live").item())
                 c["rows"] = int(c.pop("_rows").item())
@@ -532,6 +700,17 @@ class Census:
             elif c["kernel"] == "K4":
                 key = ("K4", "N=%d cap_in=%d cap_out=%d row_bytes=%s" % (
                     c["N"], c["cap_in"], c["cap_out"], c["row_bytes"]))
+            elif c["kernel"] == "K17":
+                key = ("K17", "op=%s dtype=%s classes=%d N=%d caps=%s "
+                       "lanes=%d" % (c["op"], c["dtype"], c["classes"],
+                                     c["N"], c["caps"], c["lanes"]))
+            elif c["kernel"] == "K8x":
+                key = ("K8x", "classes=%s G=%s N=%d cap=%d out_bytes=%s" % (
+                    c["classes"], c["G"], c["N"], c["cap"], c["out_bytes"]))
+            elif c["kernel"] == "K12e":
+                key = ("K12e", "N=%d cap_a=%d cap_out=%d a_bytes=%d "
+                       "b_bytes=%d" % (c["N"], c["cap_a"], c["cap_out"],
+                                       c["a_bytes"], c["b_bytes"]))
             elif c["kernel"] == "K10":
                 key = ("K10", "classes=%d N=%d caps=%s cap_u=%d row_bytes=%s "
                        "sorted=%d" % (c["classes"], c["N"], c["caps"],
@@ -572,7 +751,8 @@ class Census:
 
 
 def census_paths(which):
-    """(path, function, arguments) of the smoke's paths named."""
+    """(path, function, arguments) of the smoke's paths named, each made
+    when it is next (segmap: the bench and the power-law runs)."""
     def union():
         return ("union gpu:8", smoke.union_path, smoke.bench_data())
 
@@ -603,11 +783,31 @@ def census_paths(which):
 
     def join():
         return ("join gpu:8", smoke.join_path, (smoke.tpch_data(),))
+
+    def segmap():
+        """groupByKey(8).mapValues(sum of squares) over bench.py's data,
+        then over the power-law rows (the smoke's grouped_paths)."""
+        keys, vals = smoke.bench_data()
+        want = dict(enumerate(smoke.square_sums(keys, vals,
+                                                smoke.KEYS).tolist()))
+        yield ("groupByKey gpu:8 segmap", smoke.segmap_path,
+               ("segmap", keys, vals, want))
+        del keys, vals, want
+        gid = smoke.power_law_groups()
+        pvals = np.arange(smoke.POWER_ROWS, dtype=np.int64) & 0xFFFF
+        sq = smoke.square_sums(gid, pvals, smoke.POWER_GROUPS)
+        pwant = dict(zip(smoke.power_law_key(
+            np.arange(smoke.POWER_GROUPS)).tolist(), sq.tolist()))
+        yield ("groupByKey gpu:8 segmap power-law", smoke.segmap_path,
+               ("segmap power-law", smoke.power_law_key(gid), pvals, pwant))
     makers = {"union": union, "window": window, "reduce": reduce,
               "group": group, "sort": sort, "pregel": pregel,
               "bagel": bagel, "join": join}
     for name in which:
-        yield makers[name]
+        if name == "segmap":
+            yield from segmap()
+        else:
+            yield makers[name]()
 
 
 def census(args, old):
@@ -631,16 +831,24 @@ def census(args, old):
     recorders = {"k16": ["union_concat"], "k1": ["hash_dst_hist"],
                  "k12": ["join_ranges"], "k8s": ["bucket_gather_state"],
                  "k4": ["shard_exchange"],
-                 "k10": ["pregel_deliver", "pregel_deliver_classes"]}
+                 "k10": ["pregel_deliver", "pregel_deliver_classes"],
+                 "k17": ["monoid_reduce", "active_count"],
+                 "k8x": ["bucket_scatter_classes"],
+                 "k12e": ["join_expand"]}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with contextlib.ExitStack() as stack:
         for k in kernels:
             for name in recorders[k]:
                 stack.enter_context(patched(K, name, getattr(rec, name)))
         f = stack.enter_context(open(args.out, "w"))
-        for make in census_paths(args.paths.split(",")):
+        f.write(json.dumps({"card": CARD, "torch": torch.__version__}) + "\n")
+        paths = census_paths(args.paths.split(","))
+        while True:
             t0 = time.perf_counter()
-            path, fn, fargs = make()
+            item = next(paths, None)
+            if item is None:
+                break
+            path, fn, fargs = item
             rec.path = path
             print("census %s: inputs in %.1f s" % (
                 path, time.perf_counter() - t0), flush=True)
@@ -1037,8 +1245,154 @@ def compare_k10(dev, old):
         torch.cuda.empty_cache()
 
 
+def k17_cases(dev):
+    """(label, masks, ns, reduce): the smoke's bool count (8 x 8,388,608
+    bools, every row valid; through monoid_reduce when `reduce`), the
+    PageRank DevicePregel's active flags after superstep 0 (one class) and
+    the object PageRank's after superstep 0 (every degree class)."""
+    rng = np.random.default_rng(20261028)
+    b = torch.from_numpy(rng.random((N, smoke.CAP)) < 0.5).to(dev)
+    full = torch.full((N,), smoke.CAP, dtype=torch.int32, device=dev)
+    yield "bench bool count", [b], [full], True
+    del b
+    dp, _ = pregel_state(dev)
+    yield "pregel active count", [dp.active], [dp.vcnt], False
+    del dp
+    _PREGEL.clear()
+    torch.cuda.empty_cache()
+    graph = smoke.urand_graph(smoke.URAND_SCALE, smoke.URAND_EDGE_FACTOR)
+    dop, _ = smoke.bagel_after_step0(dev, graph)
+    yield ("bagel active count", [t["act"] for t in dop.tables],
+           [t["vcnt"] for t in dop.tables], False)
+
+
+def compare_k17(dev, old):
+    """The active count: the earlier per-class calls (a bool
+    monoid_reduce a class through k17_partial and k17_fold, [0].sum() and
+    a running add), the same calls over the checkout's monoid_reduce,
+    and active_count's one launch; at the bench shape monoid_reduce over
+    bool, old and new, beside col.sum(1)."""
+    for label, masks, ns, reduce in k17_cases(dev):
+        valid = sum(int(n.long().clamp(max=m.shape[1]).sum().item())
+                    * m[0, 0].numel() for m, n in zip(masks, ns))
+        notes = {"classes": len(masks), "caps": [m.shape[1] for m in masks],
+                 "valid": valid}
+        if reduce:
+            m, n = masks[0], ns[0]
+            want = list(K.monoid_reduce_plain(m, n, "add"))
+            versions = [("old", lambda: old_monoid_reduce(old, m, n, "add"))
+                        ] if old is not None else []
+            versions.append(("new", lambda: K.monoid_reduce(m, n, "add")))
+            notes.update(bound_ms=smoke.bound_ms(valid + 4 * N + 3 * 8 * N),
+                         library_ms=smoke.timed(lambda: m.sum(1), reps=20))
+            profile("k17", label, versions, list, want, notes,
+                    graph=tuple(v for v, _ in versions))
+            continue
+
+        def per_class(reduce_fn):
+            def run():
+                total = torch.zeros((), dtype=torch.int64, device=dev)
+                for m, n in zip(masks, ns):
+                    total = total + reduce_fn(m, n, "add")[0].sum()
+                return total
+            return run
+        want = [K.active_count_plain(masks, ns).view(1)]
+        versions = []
+        if old is not None:
+            versions.append(("old", per_class(
+                lambda *a: old_monoid_reduce(old, *a))))
+        versions += [("new_per_class", per_class(K.monoid_reduce)),
+                     ("new", lambda: K.active_count(masks, ns))]
+        notes.update(bound_ms=smoke.bound_ms(valid + 4 * N * len(ns) + 8))
+        profile("k17", label, versions, lambda r: [r.view(1)], want, notes,
+                graph=tuple(v for v, _ in versions))
+        del want, versions
+        torch.cuda.empty_cache()
+
+
+def k8x_tables(dev):
+    """(label, members, counts, offsets, [(class, G)]): the power-law
+    rows' table (the smoke's K8 scatter phase) and one decayed-counter
+    tick's (chip_smoke.state_gather_inputs), each as SegMapOp.apply
+    scatters it: every non-empty class, G from the class histogram."""
+    from dpark_tpu_torch.backend.cuda.executor import TorchExecutor
+    pk, pn = smoke.power_law_columns(K, dev)
+    _, _, bucket, n_seg, hist, _ = K.segment_table([pk], pn,
+                                                   want_keys=False)
+    del pk
+    members, counts, offsets = C.bucket_members(bucket, hist, n_seg)
+    yield "power-law", members, counts, offsets, [
+        (b, G) for b, _, G in TorchExecutor._seg_bucket_layout(hist)]
+    del members, counts, offsets, bucket
+    torch.cuda.empty_cache()
+    _, _, (_, _, members), classes, _ = smoke.state_gather_inputs(K, dev)
+    N_, cap = members.shape
+    counts = torch.zeros((N_, K.SIZE_CLASSES + 1), dtype=torch.int32,
+                         device=dev)
+    for b, _, _, _, bcnt, _, _ in classes:
+        counts[:, b] = bcnt
+    counts[:, -1] = cap - counts[:, :-1].sum(1)
+    offsets = (torch.cumsum(counts, 1) - counts).to(torch.int32)
+    yield "window tick", members, counts, offsets, [
+        (c[0], c[1]) for c in classes]
+
+
+def compare_k8x(dev, old):
+    """K8's scatter at k8x_tables: the earlier path (torch.zeros of the
+    output, then one k8_scatter a class on its columns of offsets and
+    counts), the same per-class path over the checkout's single-class
+    entry, and bucket_scatter_classes' one launch; the floor is one
+    Tensor.scatter_ of a members-ordered buffer of the same values."""
+    for label, members, counts, offsets, lay in k8x_tables(dev):
+        classes = [b for b, _ in lay]
+        N_, cap = members.shape
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20261101)
+        results = [[torch.randint(-2 ** 40, 2 ** 40, (N_, G),
+                                  generator=gen, device=dev)]
+                   for _, G in lay]
+        dts = [torch.int64]
+        want = K.bucket_scatter_classes_plain(results, members, offsets,
+                                              counts, classes, dts)
+
+        def per_class(scatter):
+            def run():
+                outs = [torch.zeros((N_, cap), dtype=torch.int64,
+                                    device=dev)]
+                for b, res in zip(classes, results):
+                    scatter(outs, res, members, offsets[:, b].contiguous(),
+                            counts[:, b].contiguous())
+                return outs
+            return run
+        versions = []
+        if old is not None:
+            versions.append(("old", per_class(
+                lambda *a: old_bucket_scatter(old, *a))))
+        versions += [("new_per_class", per_class(K.bucket_scatter)),
+                     ("new", lambda: K.bucket_scatter_classes(
+                         results, members, offsets, counts, classes, dts))]
+        idx = members.long()
+        buf = torch.gather(want[0], 1, idx)
+        floor = torch.empty_like(want[0])
+        lanes = int(counts[:, classes].sum().item())
+        profile("k8x", label, versions, list, want, {
+            "classes": len(classes), "lanes": lanes, "N": N_, "cap": cap,
+            "bound_ms": smoke.bound_ms(N_ * cap * 8 + lanes * (4 + 8)
+                                       + smoke.nbytes(offsets, counts)),
+            "bound_members_ms": smoke.bound_ms(N_ * cap * (4 + 8)
+                                               + lanes * 8),
+            "bound_per_class_ms": smoke.bound_ms(N_ * cap * 8
+                                                 + lanes * (4 + 8 + 8)),
+            "floor_ms": smoke.timed(lambda: floor.scatter_(1, idx, buf),
+                                    reps=10)},
+            graph=tuple(v for v, _ in versions))
+        del want, versions, results, members, idx, buf, floor
+        torch.cuda.empty_cache()
+
+
 COMPARE = {"k16": compare_k16, "k1": compare_k1, "k12": compare_k12,
-           "k8s": compare_k8s, "k4": compare_k4, "k10": compare_k10}
+           "k8s": compare_k8s, "k4": compare_k4, "k10": compare_k10,
+           "k17": compare_k17, "k8x": compare_k8x}
 
 
 def compare(args, old):
@@ -1059,13 +1413,16 @@ def main():
     ap.add_argument("--old-kernels", help="census: the kernels the other "
                     "tree's replace (those of --kernels by default)")
     ap.add_argument("--kernels", default=ALL,
-                    help="the kernels, of k16, k1, k12, k8s, k4 and k10")
+                    help="the kernels, of k16, k1, k12, k8s, k4, k10, k17, "
+                    "k8x and (census) k12e")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    global CARD
+    CARD = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(CARD, flush=True)
     t0 = time.perf_counter()
     K.build()
     which = (args.old_kernels or args.kernels).split(",")
